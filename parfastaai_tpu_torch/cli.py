@@ -1,0 +1,377 @@
+"""Command-line entry point of the PyTorch port.
+
+``python -m parfastaai_tpu_torch <db> <out.csv> [flags]`` takes the parser
+and flags of ``parfastaai_tpu.cli`` plus ``--device {cuda,cpu}`` (default
+cuda).  It runs the three modes (all-vs-all, ``-q`` query-subset, ``-r``
+two-database) on the exact default path and on ``--fast``, with the same
+validation, error codes and phase timers.  Flags whose engines the port
+does not run yet (``--streamed``, ``--exact``, ``--staged``, ``--mesh``,
+``--resume``, ``--profile``) and the default path's auto-route into the
+banded exact engine exit with CONSTRUCT_ERROR (3) and write no CSV.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from . import __version__
+from .device import resolve_device
+from .engine import compute, compute_fast
+from .host import (
+    ErrorCode,
+    PFAAIError,
+    QueryTargetDatabase,
+    SCPDatabase,
+    all_vs_all,
+    derive_qsub,
+    derive_qt,
+    derive_single,
+    format_double,
+    phase_timer,
+    query_subset,
+    query_subset_axes,
+    query_target,
+    query_target_axes,
+    write_aji_csv,
+)
+
+_NOT_PORTED = ("streamed", "exact", "staged", "mesh", "resume", "profile")
+
+
+def _as_pfaai_error(e: Exception) -> PFAAIError:
+    """The error code ``parfastaai_tpu.cli`` gives a failure while reading
+    the databases or the query list."""
+    if isinstance(e, PFAAIError):
+        return e
+    code = (
+        ErrorCode.SQLITE_MEM_ALLOC_ERROR
+        if isinstance(e, MemoryError)
+        else ErrorCode.SQLITE_DB_ERROR
+    )
+    return PFAAIError(code, f"{type(e).__name__}: {e}")
+
+
+def _exact_host_budget() -> int:
+    """Host-memory budget of the default exact path's dense machinery
+    (PARFASTAAI_EXACT_HOST_BYTES overrides; default 4 GiB)."""
+    env = os.environ.get("PARFASTAAI_EXACT_HOST_BYTES")
+    return int(float(env)) if env else 4 << 30
+
+
+def _route_banded_exact(n_pairs_est: int, n_proteins: int) -> bool:
+    """True where ``parfastaai_tpu.cli`` routes the default exact path to
+    the banded exact engine: the dense (P, n_pairs) counts plus two int32
+    denominator gathers would exceed the host budget."""
+    return n_pairs_est * n_proteins * (2 + 2 * 4) > _exact_host_budget()
+
+
+def load_query_genomes(path: str) -> list[str]:
+    """Whitespace-split genome names (reference AppParams::load_query_genomes,
+    src/main.cpp:114-124)."""
+    with open(path) as fp:
+        return fp.read().split()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="parfastaai-tpu-torch",
+        description="Average Jaccard Index (AJI) engine on PyTorch / CUDA",
+    )
+    p.add_argument("path_to_input_db", help="Path to the main/target SQLite database")
+    p.add_argument("path_to_output_file", help="Path to the output CSV")
+    p.add_argument(
+        "-r", "--query_db", default="", help="Query database (two-database mode)"
+    )
+    p.add_argument(
+        "-q",
+        "--query_subset",
+        default="",
+        help="File listing query genome names (query-subset mode)",
+    )
+    p.add_argument("-s", "--separator", default=",", help="Output field separator")
+    p.add_argument(
+        "--no-compat-qt-t-swap",
+        action="store_true",
+        help=(
+            "Disable replication of the reference's swapped T-column read in "
+            "two-database mode (see parfastaai_tpu.modes.query_target)"
+        ),
+    )
+    p.add_argument(
+        "--fast",
+        action="store_true",
+        help=(
+            "Fused on-device f32 pipeline through the rectangular CUDA "
+            "kernel: ~1e-7 relative error vs the default exact path"
+        ),
+    )
+    divide = p.add_mutually_exclusive_group()
+    divide.add_argument(
+        "--approx",
+        action="store_true",
+        help="With --fast: raw approximate-reciprocal divide in the kernel",
+    )
+    divide.add_argument(
+        "--precise",
+        action="store_true",
+        help="With --fast: IEEE f32 divide in the kernel",
+    )
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help=(
+            "Device to compute on (default cuda; a run never moves to "
+            "another device)"
+        ),
+    )
+    for flag, help_ in (
+        ("--streamed", "Streaming row-band engine (not in the port yet)"),
+        ("--exact", "Banded exact engine, with --streamed (not in the port yet)"),
+        ("--staged", "Presence-slab staging (not in the port yet)"),
+        ("--resume", "Resume a streamed run (not in the port yet)"),
+    ):
+        p.add_argument(flag, action="store_true", help=help_)
+    p.add_argument(
+        "--band", type=int, default=1024, help="Streamed mode: rows per band"
+    )
+    p.add_argument(
+        "--col-chunk",
+        type=int,
+        default=4096,
+        help="Streamed mode: columns per device block",
+    )
+    p.add_argument(
+        "--mesh", default="", metavar="ROWS[,SCP]",
+        help="Device mesh (not in the port yet)",
+    )
+    p.add_argument(
+        "--profile", default="", metavar="DIR",
+        help="Profiler trace of the compute phase (not in the port yet)",
+    )
+    p.add_argument(
+        "--dump-jac",
+        default="",
+        metavar="PATH",
+        help="Also write the per-pair JAC tuples (genomeA, genomeB, S, N, AJI)",
+    )
+    p.add_argument(
+        "--dump-e",
+        default="",
+        metavar="PATH",
+        help="Also write the sorted E array (proteinIndex, genomeA, genomeB)",
+    )
+    p.add_argument("--quiet", action="store_true", help="Suppress phase timing output")
+    p.add_argument("--version", action="version", version=__version__)
+    return p
+
+
+def _print_args_box(args) -> None:
+    """Run-configuration box, as ``parfastaai_tpu.cli`` prints it."""
+    rows = [
+        f" Input Database  : {args.path_to_input_db} ",
+        f" Query Database  : {args.query_db} ",
+        f" Query Subset    : {args.query_subset} ",
+        f" Output File     : {args.path_to_output_file} ",
+        f" Field Separator : {args.separator} ",
+    ]
+    w = max(len(r) for r in rows)
+    print(" ┌" + "─" * w + "┐")
+    for r in rows:
+        print(" │" + r.ljust(w) + "│")
+    print(" └" + "─" * w + "┘")
+
+
+def _validate(args) -> None:
+    """The flag checks of ``parfastaai_tpu.cli.run``, in its order, then the
+    flags the port does not run yet."""
+    if args.exact and not args.streamed:
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "--exact selects the banded exact engine and requires "
+            "--streamed (the default path is already exact)",
+        )
+    if args.exact and (args.approx or args.precise):
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "--exact is f64 by definition; it cannot combine with "
+            "--approx/--precise",
+        )
+    if args.staged and not (args.fast or args.streamed):
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "--staged stages the presence slabs of the banded device "
+            "engines and requires --fast or --streamed",
+        )
+    if args.staged and args.mesh and not args.streamed:
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "--staged with --mesh requires --streamed (the staged-mesh "
+            "slab engine is a streamed-path engine)",
+        )
+    if args.mesh:
+        try:
+            parts = [int(x) for x in args.mesh.split(",")]
+            ok = len(parts) in (1, 2) and all(x >= 1 for x in parts)
+        except ValueError:
+            ok = False
+        if not ok:
+            raise PFAAIError(
+                ErrorCode.CONSTRUCT_ERROR,
+                "--mesh expects ROWS or ROWS,SCP (positive integers), "
+                f"got {args.mesh!r}",
+            )
+    if (args.approx or args.precise) and not (args.fast or args.streamed):
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "--approx/--precise select the fused kernel's divide and "
+            "require --fast or --streamed",
+        )
+    for name in _NOT_PORTED:
+        if getattr(args, name):
+            raise PFAAIError(
+                ErrorCode.CONSTRUCT_ERROR,
+                f"--{name}: the PyTorch port does not run this yet "
+                "(parfastaai_tpu.cli does)",
+            )
+
+
+def _pair_space(args, meta, two_db: bool):
+    """(PairSpace, query names or None) of the run's mode.  Where the JAX
+    CLI would auto-route the default exact path to the banded exact engine,
+    the mode's inputs are validated as its axes constructors do and the run
+    stops with CONSTRUCT_ERROR, before any O(n_pairs) table exists."""
+    n_prot = len(meta.protein_set)
+    n_tgt = len(meta.genome_set)
+    queries = None
+    if two_db:
+        n_pairs_est = len(meta.query_genome_set) * n_tgt
+    elif args.query_subset:
+        try:
+            queries = load_query_genomes(args.query_subset)
+        except Exception as e:  # noqa: BLE001 — same codes as the JAX CLI
+            raise _as_pfaai_error(e) from e
+        nq = len(queries)
+        n_pairs_est = nq * (n_tgt - nq) + nq * (nq - 1) // 2
+    else:
+        n_pairs_est = n_tgt * (n_tgt - 1) // 2
+    compat = not args.no_compat_qt_t_swap
+    if (
+        not args.fast
+        and not args.dump_jac
+        and _route_banded_exact(n_pairs_est, n_prot)
+    ):
+        if two_db:
+            query_target_axes(meta, compat_qt_t_swap=compat)
+        elif queries is not None:
+            query_subset_axes(meta, queries)
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "exact path: host footprint exceeds "
+            f"{_exact_host_budget() >> 30} GiB, where parfastaai_tpu.cli "
+            "routes to the banded exact engine; the PyTorch port does not "
+            "run that engine yet (use --fast, or raise "
+            "PARFASTAAI_EXACT_HOST_BYTES)",
+        )
+    if two_db:
+        return query_target(meta, compat_qt_t_swap=compat), None
+    if queries is not None:
+        return query_subset(meta, queries), queries
+    return all_vs_all(meta), None
+
+
+def _dump_e(args, db, two_db: bool, queries, verbose: bool) -> None:
+    """--dump-e: the sorted E array, re-derived on the host per mode."""
+    with phase_timer("E derivation       ", enabled=verbose):
+        if two_db:
+            _, _, _, e = derive_qt(db)
+        elif queries is not None:
+            _, _, _, e = derive_qsub(db, queries)
+        else:
+            _, _, _, e = derive_single(db)
+        with open(args.dump_e, "w") as fp:
+            fp.write("proteinIndex,genomeA,genomeB\n")
+            for row in e:
+                fp.write(f"{row[0]},{row[1]},{row[2]}\n")
+
+
+def _print_phases(phases: dict, verbose: bool) -> None:
+    if verbose:
+        for label, seconds in phases.items():
+            print(f"  {label:<17}: {seconds * 1e3:.1f} ms")
+
+
+def run(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    verbose = not args.quiet
+    if verbose:
+        _print_args_box(args)
+    try:
+        _validate(args)
+        device = resolve_device(args.device)
+        two_db = bool(args.query_db) and args.query_db != args.path_to_input_db
+        try:
+            with phase_timer("DB open + metadata ", enabled=verbose):
+                if two_db:
+                    db = QueryTargetDatabase(
+                        args.path_to_input_db, args.query_db
+                    )
+                else:
+                    db = SCPDatabase(args.path_to_input_db)
+                meta = db.meta
+        except Exception as e:  # noqa: BLE001 — same codes as the JAX CLI
+            raise _as_pfaai_error(e) from e
+        try:
+            pairs, queries = _pair_space(args, meta, two_db)
+            try:
+                with phase_timer("Presence ETL       ", enabled=verbose):
+                    presence = db.load_presence(verbose=verbose)
+            except Exception as e:  # noqa: BLE001 — see DB open above
+                raise _as_pfaai_error(e) from e
+            if args.dump_e:
+                _dump_e(args, db, two_db, queries, verbose)
+        finally:
+            db.close()
+        phases: dict[str, float] = {}
+        with phase_timer("JAC + AJI          ", enabled=verbose):
+            if args.fast:
+                result = compute_fast(
+                    presence, pairs, device, approx=args.approx,
+                    precise=args.precise, phases=phases,
+                )
+            else:
+                result = compute(presence, pairs, device, phases=phases)
+        _print_phases(phases, verbose)
+        with phase_timer("CSV write          ", enabled=verbose):
+            write_aji_csv(
+                args.path_to_output_file, pairs, result.aji, args.separator
+            )
+        if args.dump_jac:
+            with open(args.dump_jac, "w") as fp:
+                fp.write("genomeA,genomeB,S,N,AJI\n")
+                for i in range(result.n_pairs):
+                    fp.write(
+                        f"{result.genome_a[i]},{result.genome_b[i]},"
+                        f"{format_double(result.s[i])},{result.n[i]},"
+                        f"{format_double(result.aji[i])}\n"
+                    )
+        if verbose:
+            print(
+                f"Wrote {result.n_pairs} genome-pair AJI values "
+                f"({len(pairs.query_names)} x {len(pairs.target_names)} "
+                f"matrix) to {args.path_to_output_file} on {device}"
+            )
+        return 0
+    except PFAAIError as e:
+        print(f"ERROR ({e.code.name}): {e}", file=sys.stderr)
+        return int(e.code)
+
+
+def main() -> None:
+    raise SystemExit(run())
+
+
+if __name__ == "__main__":
+    main()

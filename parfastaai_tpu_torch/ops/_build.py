@@ -1,0 +1,104 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+The sources compile with ``nvcc`` into a shared library with a plain C
+interface, loaded with ctypes.  The build runs at first use, into
+``parfastaai_tpu_torch/_build/``, keyed by a hash of the sources and the
+flags, so a fresh checkout builds its kernels the first time it launches one
+and a rebuilt source never loads a stale library.  Nothing here runs when the
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRCS = [os.path.join(_PKG, "csrc", "sn_rect.cu")]
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's stderr of the build this process ran (ptxas report)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, then PATH, then
+    NVCC_DEFAULT.  Raises when none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append(NVCC_DEFAULT)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built"
+    )
+
+
+def _tag() -> str:
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as fp:
+            h.update(fp.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet; returns
+    the library path.  Raises with nvcc's stderr when compilation fails."""
+    global build_log
+    so_path = os.path.join(BUILD_DIR, f"libpfaai_kernels_{_tag()}.so")
+    if os.path.exists(so_path):
+        return so_path
+    nvcc = nvcc_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.tmp{os.getpid()}"
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, *_SRCS],
+        capture_output=True,
+        text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}) building "
+            f"{', '.join(os.path.basename(s) for s in _SRCS)}:\n"
+            f"{proc.stderr.strip()}"
+        )
+    build_log = proc.stderr
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp = ctypes.c_void_p
+            ci = ctypes.c_int
+            lib.sn_rect_launch.argtypes = [
+                vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+            ]
+            lib.sn_rect_launch.restype = ci
+            lib.sn_rect_error_string.argtypes = [ci]
+            lib.sn_rect_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
