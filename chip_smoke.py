@@ -7,16 +7,26 @@ Run from the repository root:
 
 1. Builds the CUDA kernels from the sources in this checkout (nvcc) and
    checks each against its plain PyTorch version on the card, in every
-   divide mode, at the main path's block shape, at a ragged shape and at a
-   K wider than the TPU package's single-block limit.  Kernel and plain
-   times are taken with CUDA events at the main path's shape.
+   divide mode:
+   * sn_rect at the --fast path's block shape, at a ragged shape, at a K
+     wider than the TPU package's single-block limit and at the kb
+     bench's block;
+   * sn_square (the whole-matrix kernel behind ``sn_square.fused_aji``) at
+     the benchmark's shape through ``fused_aji``'s default plan and its
+     other walks, packings and updates, at a ragged G and in the K-blocked
+     regime.
+   Kernel and plain times are taken with CUDA events at the main shapes.
 2. Runs the port's CLI once, in process, as a user would:
    ``--fast --device cuda`` all-vs-all on a synthetic database at the
    benchmark's size (4096 genomes, 80 proteins, pool 1200, 400 tetramers
    per genome, seed 0), with every kernel launch counter reset just before
    and read just after.  A band of 64 rows of the result is then checked
    against exact integer counts finished in f64 on the host (numpy).
-3. Prints the card's name and power limit, one JSON line of kernel results
+3. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
+   (the whole-matrix fused AJI path, launch counters reset just before and
+   read just after) and in kb mode, echoing their JSON lines, and checks a
+   band of ``fused_aji`` on the bench's workload against exact f64.
+4. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, when CUDA is not available or
@@ -39,11 +49,14 @@ import numpy as np
 
 SEED = 0
 # (name, P, A, B, K): the main path's block (one 1024-row band against all
-# 4096 columns of the K=1280 bucket), a ragged edge, and K > 32768.
+# 4096 columns of the K=1280 bucket), a ragged edge, K > 32768, and the kb
+# bench's block (the regime of the TPU's _pallas_sn_rect_kb).  Times are
+# taken at "main" and "kb".
 SHAPES = [
     ("main", 80, 1024, 4096, 1280),
     ("ragged", 3, 70, 130, 256),
     ("wide_k", 2, 256, 256, 34816),
+    ("kb", 16, 1024, 1024, 51200),
 ]
 MODES = [
     ("newton", {}),
@@ -56,6 +69,21 @@ MODES = [
 # under the IEEE divide.
 RTOL_NEWTON_S = 2e-6
 RTOL_APPROX_AJI = 1e-3
+# sn_square at the benchmark's shape (bench.py: P=80, G=4096, K=1280, ~400
+# of 1280 present), a ragged G, and K past the TPU's single-block limit.
+SQUARE_MAIN = (80, 4096, 1280)
+SQUARE_DENSITY = 400 / 1280
+SQUARE_SMALL = [("ragged", 3, 300, 256), ("wide_k", 2, 256, 34816)]
+# The K-blocked plans timed at bench.py's kb shape (P=16, 1024, K=51200).
+SQUARE_KB = (16, 1024, 51200)
+# The bench runs with its default knobs, in kernel mode and in kb mode.
+BENCH_KB_ENV = {"PARFASTAAI_BENCH_MODE": "kb"}
+PALLAS = "parfastaai_tpu/ops/pallas_intersect.py"
+# def lines of the TPU kernels each CUDA kernel replaces
+REPLACES = {
+    "sn_rect": (1112, 697),
+    "sn_square": (402, 802, 744, 593, 636, 867, 949, 1035),
+}
 # End-to-end run and its host check.
 E2E = dict(n_genomes=4096, n_proteins=80, pool_size=1200, tetras_per_genome=400)
 BAND_ROWS = 64
@@ -135,50 +163,250 @@ def kernel_phase(dev) -> dict:
     for name, P, A, B, K in SHAPES:
         ma, mb, ta, tb = random_block(gen, dev, P, A, B, K)
         s_ref, n_ref = sn_rect.fused_sn_block_plain(ma, mb, ta, tb)
-        shared = n_ref > 0
-        aji_ref = s_ref[shared] / n_ref[shared]
         for mode, kw in MODES:
             s, n = sn_rect.fused_sn_block(ma, mb, ta, tb, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(n, n_ref):
-                fail(f"{name}/{mode}: N differs from the plain version")
-            err = (s - s_ref).abs()
-            max_abs = float(err.max())
-            if mode == "precise":
-                ok = torch.equal(s, s_ref)
-                bound = "bit-equal"
-            elif mode == "newton":
-                ok = bool((err <= RTOL_NEWTON_S * s_ref.abs()).all())
-                bound = f"rtol {RTOL_NEWTON_S}"
-            else:
-                aji = s[shared] / n[shared]
-                ok = bool(
-                    ((aji - aji_ref).abs() <= RTOL_APPROX_AJI * aji_ref.abs()).all()
-                )
-                bound = f"AJI rtol {RTOL_APPROX_AJI}"
-            print(
-                f"sn_rect {name} P={P} A={A} B={B} K={K} {mode}: "
-                f"N exact, S max_abs_err={max_abs:.3e} ({bound}) "
-                f"{'ok' if ok else 'FAIL'}"
+            report[(name, mode)] = check(
+                f"sn_rect {name} P={P} A={A} B={B} K={K}", s, n, s_ref,
+                n_ref, mode,
             )
-            if not ok:
-                fail(f"{name}/{mode}: S outside {bound}")
-            report[(name, mode)] = max_abs
-        if name == "main":
-            report["ms"] = cuda_ms(lambda: sn_rect.fused_sn_block(ma, mb, ta, tb), 5)
-            report["plain_ms"] = cuda_ms(
+        if name in ("main", "kb"):
+            ms = cuda_ms(lambda: sn_rect.fused_sn_block(ma, mb, ta, tb), 5)
+            plain_ms = cuda_ms(
                 lambda: sn_rect.fused_sn_block_plain(ma, mb, ta, tb), 3
             )
+            report[(name, "ms")], report[(name, "plain_ms")] = ms, plain_ms
             macs = P * A * B * K
             print(
-                f"sn_rect main shape: kernel {report['ms']:.3f} ms "
-                f"({macs / report['ms'] / 1e9:.3f} TMAC/s), plain "
-                f"{report['plain_ms']:.3f} ms "
-                f"({macs / report['plain_ms'] / 1e9:.3f} TMAC/s)"
+                f"sn_rect {name} shape: kernel {ms:.3f} ms "
+                f"({macs / ms / 1e9:.3f} TMAC/s), plain {plain_ms:.3f} ms "
+                f"({macs / plain_ms / 1e9:.3f} TMAC/s)"
             )
         del ma, mb, ta, tb, s_ref, n_ref
         torch.cuda.empty_cache()
     return report
+
+
+def check(label: str, s, n, s_ref, n_ref, mode: str) -> float:
+    """Kernel (s, n) against the plain version's: N exact; S bit-equal
+    under the IEEE divide, within RTOL_NEWTON_S under Newton, AJI within
+    RTOL_APPROX_AJI under the raw reciprocal.  Returns S's max abs err."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(n, n_ref):
+        fail(f"{label}/{mode}: N differs from the plain version")
+    err = (s - s_ref).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    if mode == "precise":
+        ok = torch.equal(s, s_ref)
+        bound = "bit-equal"
+    elif mode == "newton":
+        ok = bool((err <= RTOL_NEWTON_S * s_ref.abs()).all())
+        bound = f"rtol {RTOL_NEWTON_S}"
+    else:
+        shared = n_ref > 0
+        aji, aji_ref = s[shared] / n[shared], s_ref[shared] / n_ref[shared]
+        ok = bool(((aji - aji_ref).abs() <= RTOL_APPROX_AJI * aji_ref.abs()).all())
+        bound = f"AJI rtol {RTOL_APPROX_AJI}"
+    print(f"{label} {mode}: N exact, S max_abs_err={max_abs:.3e} ({bound}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label}/{mode}: S outside {bound}")
+    return max_abs
+
+
+def random_square(gen, dev, P, G, K, density):
+    import torch
+
+    from parfastaai_tpu_torch.ops.sn_rect import clamp_t
+
+    m = (torch.rand((P, G, K), generator=gen, device=dev) < density).to(torch.uint8)
+    t = m.sum(dim=2, dtype=torch.int32)
+    return m, t, clamp_t(t)
+
+
+def square_checks(label, m, t_raw, tc, s_ref, n_ref, modes) -> dict:
+    """Every route of sn_square against the plain version's (s_ref, n_ref)
+    of (m, tc); ``modes`` are the divide modes to check.  Returns the max
+    abs errors of the default plan by mode."""
+    import torch
+
+    from parfastaai_tpu_torch.ops import sn_square
+
+    errs = {}
+    for mode in modes:
+        kw = dict(MODES)[mode]
+        aji, s, n = sn_square.fused_aji(m, t_raw, **kw)
+        errs[mode] = check(f"sn_square {label} fused_aji default", s, n,
+                           s_ref, n_ref, mode)
+        if not torch.equal(torch.isnan(aji), n == 0):
+            fail(f"{label}: AJI NaN pattern differs from N == 0")
+        for name, run in (
+            ("1 protein/step", lambda: sn_square.fused_sn_square(m, tc, **kw)),
+            ("full square", lambda: sn_square.fused_sn_square(
+                m, tc, symmetric=False, **kw)),
+            ("diag", lambda: sn_square.sn_sym_diag(m, tc, **kw)),
+            ("bands", lambda: sn_square.sn_sym_bands(m, tc, **kw)),
+            ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc, **kw)),
+            ("fused_aji full", lambda: sn_square.fused_aji(
+                m, t_raw, symmetric=False, **kw)[1:]),
+        ):
+            check(f"sn_square {label} {name}", *run(), s_ref, n_ref, mode)
+        _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", **kw)
+        check(f"sn_square {label} variant=fused vs lean plain", s, n, s_ref,
+              n_ref, "newton" if mode == "precise" else mode)
+    return errs
+
+
+def square_phase(dev) -> dict:
+    """sn_square against its plain version at the bench shape, a ragged G
+    and a wide K; kernel and plain times at the bench shape."""
+    import torch
+
+    from parfastaai_tpu_torch.ops import sn_square
+    from parfastaai_tpu_torch.ops.sn_rect import clamp_t
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    P, G, K = SQUARE_MAIN
+    m, t_raw, tc = random_square(gen, dev, P, G, K, SQUARE_DENSITY)
+    label = f"main P={P} G={G} K={K}"
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc)
+    errs = square_checks(label, m, t_raw, tc, s_ref, n_ref,
+                         [mode for mode, _ in MODES])
+    s_f, n_f = sn_square.fused_sn_square_plain(m, tc, update="fused")
+    _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", precise=True)
+    check(f"sn_square {label} variant=fused", s, n, s_f, n_f, "precise")
+    s_c, n_c = sn_square.fused_sn_square_plain(m, tc, update="counts")
+    _, s, n = sn_square.fused_aji(m, t_raw, variant="counts")
+    check(f"sn_square {label} variant=counts", s, n, s_c, n_c, "precise")
+    del s_f, n_f, s_c, n_c
+    # packed at an odd K (the wrapper pads one zero column, then packs)
+    mo = m[:, :, : K - 1].contiguous()
+    to = mo.sum(dim=2, dtype=torch.int32)
+    s_o, n_o = sn_square.fused_sn_square_plain(mo, clamp_t(to))
+    for mode, kw in MODES:
+        _, s, n = sn_square.fused_aji(mo, to, packed=True, **kw)
+        check(f"sn_square main P={P} G={G} K={K - 1} packed", s, n, s_o, n_o,
+              mode)
+    del mo, to, s_o, n_o, s, n
+
+    # times at the bench shape
+    sq = sn_square.fused_sn_square
+    mp = sn_square.pack_nibbles(m)
+    plan = sn_square.fused_aji_plan(P, G, K)
+    nt, pp = plan["nt"], plan["pp"]
+    tile_macs = sn_square.TILE ** 2 * plan["kp"]
+    triu = nt * (nt + 1) // 2
+    times = time_all(label, [
+        ("2p (fused_aji default)", lambda: sq(m, tc, pairs_per_step=2),
+         triu * tile_macs * pp),
+        ("1 protein/step triu", lambda: sq(m, tc), triu * tile_macs * P),
+        ("1 protein/step triu packed", lambda: sq(mp, tc, packed=True),
+         triu * tile_macs * P),
+        ("full square", lambda: sq(m, tc, symmetric=False),
+         nt * nt * tile_macs * P),
+        ("counts", lambda: sq(m, tc, pairs_per_step=2, update="counts"),
+         triu * tile_macs * pp),
+        ("diag", lambda: sn_square.sn_sym_diag(m, tc),
+         (nt // 2 + 1) * nt * tile_macs * P),
+        ("bands", lambda: sn_square.sn_sym_bands(m, tc), triu * tile_macs * P),
+        ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc),
+         triu * tile_macs * pp),
+        ("plain", lambda: sn_square.fused_sn_square_plain(m, tc),
+         P * G * G * K),
+        ("fused_aji default", lambda: sn_square.fused_aji(m, t_raw),
+         plan["mxu_macs"]),
+    ])
+    del m, mp, t_raw, tc, s_ref, n_ref
+    torch.cuda.empty_cache()
+
+    for label, P, G, K in SQUARE_SMALL:
+        m, t_raw, tc = random_square(gen, dev, P, G, K, 0.33)
+        s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc)
+        square_checks(f"{label} P={P} G={G} K={K}", m, t_raw, tc, s_ref,
+                      n_ref, [mode for mode, _ in MODES])
+
+    # the K-blocked plans (kb_sym, kb_full) at the kb bench's shape
+    P, G, K = SQUARE_KB
+    m, t_raw, tc = random_square(gen, dev, P, G, K, SQUARE_DENSITY)
+    label = f"kb P={P} G={G} K={K}"
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc)
+    for symmetric in (True, False):
+        plan = sn_square.fused_aji_plan(P, G, K, symmetric=symmetric)
+        for mode in ("newton", "precise"):
+            _, s, n = sn_square.fused_aji(m, t_raw, symmetric=symmetric,
+                                          **dict(MODES)[mode])
+            check(f"sn_square {label} fused_aji {plan['mode']}", s, n, s_ref,
+                  n_ref, mode)
+    nt = -(-G // sn_square.TILE)
+    tile_macs = sn_square.TILE ** 2 * K * P
+    times.update(time_all(label, [
+        ("kb_sym", lambda: sq(m, tc), nt * (nt + 1) // 2 * tile_macs),
+        ("kb_full", lambda: sq(m, tc, symmetric=False), nt * nt * tile_macs),
+        ("kb plain", lambda: sn_square.fused_sn_square_plain(m, tc),
+         P * G * G * K),
+    ]))
+    del m, t_raw, tc, s_ref, n_ref, s, n
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs["newton"], "ms": times["2p (fused_aji default)"],
+            "plain_ms": times["plain"]}
+
+
+def time_all(label: str, timed) -> dict:
+    """CUDA-event ms of each (name, fn, macs), printed with the int8 MACs
+    per second that each call executes."""
+    times = {}
+    for name, fn, macs in timed:
+        times[name] = cuda_ms(fn, 3 if "plain" in name else 5)
+        print(f"sn_square {label} {name}: {times[name]:.3f} ms "
+              f"({macs / times[name] / 1e9:.3f} TMAC/s executed)")
+    return times
+
+
+def bench_phase(dev) -> dict:
+    """The bench module in kernel mode (the whole-matrix path, launch
+    counters reset just before and read just after) and in kb mode; then a
+    band of fused_aji on the bench's workload against exact f64."""
+    import torch
+
+    from parfastaai_tpu_torch import bench
+    from parfastaai_tpu_torch.ops import sn_rect, sn_square
+
+    sn_square.LAUNCHES = 0
+    sn_rect.LAUNCHES = 0
+    t0 = time.perf_counter()
+    bench.main({})
+    wall = time.perf_counter() - t0
+    launches = sn_square.LAUNCHES
+    if launches == 0:
+        fail("the kernel-mode bench launched no sn_square kernel")
+    if sn_rect.LAUNCHES:
+        fail("the kernel-mode bench launched sn_rect")
+    print(f"bench kernel mode: {wall:.1f} s in process, sn_square launches "
+          f"{launches}")
+    t0 = time.perf_counter()
+    sn_rect.LAUNCHES = 0
+    bench.main(BENCH_KB_ENV)
+    print(f"bench kb mode: {time.perf_counter() - t0:.1f} s in process, "
+          f"sn_rect launches {sn_rect.LAUNCHES}")
+
+    m, t = bench.workload(SQUARE_MAIN[1])
+    aji, _, n = sn_square.fused_aji(
+        torch.from_numpy(m).to(dev), torch.from_numpy(t).to(dev)
+    )
+    R = BAND_ROWS
+    s64, n64 = exact_band(m, t, R)
+    if not np.array_equal(n[:R].cpu().numpy(), n64):
+        fail("bench workload: fused_aji N differs from exact counts")
+    got = aji[:R].double().cpu().numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = s64 / n64
+    if not np.allclose(got, want, rtol=RTOL_E2E_AJI, atol=0, equal_nan=True):
+        fail("bench workload: fused_aji AJI outside rtol 1e-6 of exact f64")
+    err = np.nanmax(np.abs(got - want) / np.abs(want))
+    print(f"bench workload band: rows 0..{R - 1} x {m.shape[1]} columns, N "
+          f"exact, AJI max rel err {err:.3e} (rtol {RTOL_E2E_AJI}) ok")
+    return {"launches": launches}
 
 
 def synth_db() -> str:
@@ -328,21 +556,27 @@ def main() -> None:
             print(f"  ptxas: {line.strip()}")
 
     kern = kernel_phase(dev)
+    square = square_phase(dev)
     e2e = e2e_phase(dev)
+    whole = bench_phase(dev)
     if "jax" in sys.modules:
         fail("jax was imported")
 
     print(card_line())
+    results = {
+        "sn_rect": {"launches": e2e["launches"],
+                    "max_abs_err": kern[("main", "newton")],
+                    "ms": kern[("main", "ms")],
+                    "plain_ms": kern[("main", "plain_ms")]},
+        "sn_square": {"launches": whole["launches"], **square},
+    }
     print(json.dumps({"kernels": [{
-        "name": "sn_rect",
+        "name": name,
         "route": "cuda",
-        "source": "parfastaai_tpu_torch/csrc/sn_rect.cu",
-        "replaces": "parfastaai_tpu/ops/pallas_intersect.py:1112",
-        "launches": e2e["launches"],
-        "max_abs_err": kern[("main", "newton")],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}))
+        "source": f"parfastaai_tpu_torch/csrc/{name}.cu",
+        "replaces": ", ".join(f"{PALLAS}:{line}" for line in REPLACES[name]),
+        **results[name],
+    } for name in ("sn_rect", "sn_square")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
 """The JAX package's host-side modules that the port reuses unchanged.
 
-None of them imports jax: the SQLite ETL and width buckets, the pair spaces
-of the three run modes, E derivation, the native f64 finish and CSV
-formatter, the phase timers, the error types and the synthetic database
-generator.  The port's modules and scripts take them from here, so this
+None of them imports jax: the kernels' single-block K limit, the SQLite
+ETL and width buckets, the pair spaces of the three run modes, E
+derivation, the native f64 finish and CSV formatter, the phase timers, the
+error types and the synthetic database generator.  The port's modules and scripts take them from here, so this
 module is the one seam between the port and the JAX package.
 """
 
+from parfastaai_tpu.constants import MAX_K_SINGLE_BLOCK
 from parfastaai_tpu.etl.database import (
     PresenceData,
     QueryTargetDatabase,
@@ -32,6 +33,7 @@ from parfastaai_tpu.types import ErrorCode, JacResult, PFAAIError
 from parfastaai_tpu.utils.timing import phase_timer
 
 __all__ = [
+    "MAX_K_SINGLE_BLOCK",
     "ErrorCode",
     "JacResult",
     "PFAAIError",

@@ -18,12 +18,14 @@ import subprocess
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRCS = [os.path.join(_PKG, "csrc", "sn_rect.cu")]
+_SRCS = [
+    os.path.join(_PKG, "csrc", name) for name in ("sn_rect.cu", "sn_square.cu")
+]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -62,7 +64,8 @@ def _tag() -> str:
 
 def build() -> str:
     """Compile the kernels if this source hash has no library yet; returns
-    the library path.  Raises with nvcc's stderr when compilation fails."""
+    the library path.  One nvcc per source, all started together, then one
+    link.  Raises with nvcc's stderr when a step fails."""
     global build_log
     so_path = os.path.join(BUILD_DIR, f"libpfaai_kernels_{_tag()}.so")
     if os.path.exists(so_path):
@@ -70,18 +73,37 @@ def build() -> str:
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp{os.getpid()}"
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *_SRCS],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building "
-            f"{', '.join(os.path.basename(s) for s in _SRCS)}:\n"
-            f"{proc.stderr.strip()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _SRCS]
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(_SRCS, objs)
+        ]
+        steps = [(src, proc, proc.communicate()[1])
+                 for src, proc in zip(_SRCS, procs)]
+        for src, proc, err in steps:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}) building "
+                    f"{os.path.basename(src)}:\n{err.strip()}"
+                )
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True,
         )
-    build_log = proc.stderr
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {link.returncode}) linking "
+                f"{os.path.basename(so_path)}:\n{link.stderr.strip()}"
+            )
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_log = "".join(err for _, _, err in steps)
     os.replace(tmp, so_path)
     return so_path
 
@@ -98,7 +120,13 @@ def load() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
             ]
             lib.sn_rect_launch.restype = ci
-            lib.sn_rect_error_string.argtypes = [ci]
-            lib.sn_rect_error_string.restype = ctypes.c_char_p
+            lib.sn_square_launch.argtypes = [
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                ci, vp,
+            ]
+            lib.sn_square_launch.restype = ci
+            for fn in (lib.sn_rect_error_string, lib.sn_square_error_string):
+                fn.argtypes = [ci]
+                fn.restype = ctypes.c_char_p
             _lib = lib
         return _lib

@@ -4,7 +4,9 @@ Counterpart of parfastaai_tpu/ops/fused.py.  The Gram is a plain matrix
 product outside any hand-written kernel, as the JAX package leaves it to
 XLA, so it goes to ``torch._int_mm`` (int8 x int8 -> int32, exact on CUDA
 and on the CPU).  The XLA-scan ``fused_sn_block`` of that module has its
-counterpart in ``ops.sn_rect.fused_sn_block_plain``.
+counterpart in ``ops.sn_rect.fused_sn_block_plain``; ``fused_sn`` and
+``fused_aji`` are the plain whole-matrix versions that the kernels of
+``ops.sn_square`` are checked against.
 """
 
 from __future__ import annotations
@@ -33,6 +35,37 @@ def int_gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if (bp, kp) != (B, K):
         b = F.pad(b, (0, kp - K, 0, bp - B))
     return torch._int_mm(a, b.t())[:A, :B]
+
+
+def fused_sn(m: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full G x G fused (S, N) of a (P, G, K) 0/1 uint8/int8 presence tensor
+    and its (P, G) integer rowsums T, on the tensors' device.
+
+    Per protein, in ascending order: ``cnt = M_p . M_p^T``,
+    ``S += cnt / max(t_a + t_b - cnt, 1)`` in f32 and ``N += cnt > 0``: the
+    clamped-denominator transform of the JAX package's ``fused_sn``.
+    Returns (s f32 (G, G), n int32 (G, G))."""
+    P, G, _ = m.shape
+    m8 = m.view(torch.int8) if m.dtype == torch.uint8 else m
+    t32 = t.to(torch.int32)
+    s = torch.zeros((G, G), dtype=torch.float32, device=m.device)
+    n = torch.zeros((G, G), dtype=torch.int32, device=m.device)
+    for p in range(P):
+        cnt = int_gram(m8[p], m8[p])
+        denom = (t32[p][:, None] + t32[p][None, :] - cnt).clamp_min(1)
+        s += cnt.to(torch.float32) / denom.to(torch.float32)
+        n += (cnt > 0).to(torch.int32)
+    return s, n
+
+
+def fused_aji(
+    m: torch.Tensor, t: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(aji f32, s f32, n int32), each (G, G): ``fused_sn`` and
+    ``aji = s / n``, NaN where N == 0.  The diagonal is each genome's
+    self-AJI (1.0 where it has any tetramer); callers mask as needed."""
+    s, n = fused_sn(m, t)
+    return s / n.to(torch.float32), s, n
 
 
 def pair_counts_device(

@@ -1,0 +1,412 @@
+"""Square all-vs-all fused (S, N) and AJI: the whole-matrix path.
+
+Counterpart of parfastaai_tpu/ops/pallas_intersect.py ``pallas_fused_aji``,
+its dispatch plan ``fused_aji_plan`` and the square TPU kernels behind them:
+``_pallas_sn_sym_2p``, ``_pallas_sn_sym``, ``_pallas_sn``,
+``_pallas_sn_sym_kb``, ``_pallas_sn_kb`` and the measured alternatives
+``_pallas_sn_sym_diag``, ``_pallas_sn_sym_bands`` and
+``_pallas_sn_sym_bands_2p``.  All of them compute, for a presence tensor M
+(P, G, K) against itself and each protein p in ascending order,
+
+    cnt = M_p . M_p^T
+    S  += cnt / (t_p[:, None] + t_p[None, :] - cnt)
+    N  += min(cnt, 1)
+
+with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are one
+hand-written CUDA kernel (csrc/sn_square.cu) that differs only in the
+output tiles it walks, the proteins it takes per step and the input's
+packing.  CUDA tensors go to that kernel, CPU tensors to
+``fused_sn_square_plain``, and any other device raises; there is no
+fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..host import MAX_K_SINGLE_BLOCK
+from . import _build
+from .fused import int_gram
+from .sn_rect import K_SLICE, _as_int8, clamp_t
+
+# Kernel launches since the process started (or since a caller reset it).
+LAUNCHES = 0
+
+# Output tile edge of the kernel (rows and columns per thread block).
+TILE = 64
+_MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
+# Updates of the two-proteins-per-step body (the 2p variants of the TPU
+# kernel).  'lean' and 'base' run identical code in the JAX package.
+_UPDATES = {"lean": 0, "base": 0, "counts": 1, "fused": 2}
+# 2p variants that are Mosaic scheduling and precision experiments.
+_NOT_PORTED = ("pipe", "mxu_outer", "f32gram")
+_WALK_LIST, _WALK_DIAG, _WALK_BAND = 0, 1, 2
+
+
+def _check_variant(variant: str) -> None:
+    if variant in _NOT_PORTED:
+        raise ValueError(
+            f"variant {variant!r} is a Mosaic scheduling/precision experiment "
+            "of the TPU kernel and is not ported; it stays open in ROADMAP.md "
+            "(TPU kernels to port, item 3) until an H100 profile shows "
+            "whether the same question arises"
+        )
+    if variant not in _UPDATES:
+        raise ValueError(
+            f"unknown variant {variant!r}; one of {sorted(_UPDATES)}"
+        )
+
+
+def pack_nibbles(m: torch.Tensor) -> torch.Tensor:
+    """(..., K) 0/1 bytes -> (..., ceil(K / 2)), two presence columns per
+    byte: column 2j in the low nibble, 2j+1 in the high.  An odd K gains one
+    zero column first.  Byte-equal to the JAX package's ``_pack_nibbles``
+    after ``pallas_fused_aji``'s odd-K pad."""
+    if m.shape[-1] % 2:
+        m = F.pad(m, (0, 1))
+    return (m[..., 0::2] | (m[..., 1::2] << 4)).contiguous()
+
+
+def fused_aji_plan(
+    p: int,
+    g: int,
+    k: int,
+    tile: int | None = None,
+    symmetric: bool = True,
+    packed: bool = False,
+) -> dict:
+    """The dispatch plan of ``fused_aji`` as data, with the JAX plan's keys.
+
+    ``mode`` equals the JAX package's ``fused_aji_plan`` mode for the same
+    arguments ('2p' | 'sym' | 'full' | 'kb_sym' | 'kb_full', with its K
+    boundaries at MAX_K_SINGLE_BLOCK // 4 and MAX_K_SINGLE_BLOCK).  The
+    ``kb_*`` modes run the same kernel as 'sym' / 'full': the kernel's K
+    loop has no fast-memory cap, so K-blocking has nothing to do on the
+    card.  The other keys describe what the CUDA kernel really executes:
+    ``tile`` is its 64-row tile, ``gp`` G rounded up to it (rows past G
+    are masked but their products are computed), ``nt`` and ``n_tiles``
+    the tiles walked (triu over-coverage included), ``pp`` P rounded up to
+    the proteins per step, ``kp`` the presence columns contracted (K
+    padded to the kernel's 64-byte slice; packed rows hold two columns a
+    byte, so the kernel reads kp / 2 bytes a row) and ``mxu_macs`` =
+    n_tiles * tile^2 * pp * kp.
+
+    The JAX ``auto_tile`` model (v5e rates and VMEM budget) has no
+    counterpart: ``tile`` other than None or 64 raises ValueError."""
+    if tile not in (None, TILE):
+        raise ValueError(f"the CUDA kernel's tile is {TILE}, not {tile}")
+    if packed and k % 2:
+        k += 1
+    k_eff = k // 2 if packed else k
+    blocked = k_eff > MAX_K_SINGLE_BLOCK
+    two_per_step = (
+        not blocked
+        and symmetric
+        and not packed
+        and k_eff <= MAX_K_SINGLE_BLOCK // 4
+    )
+    if two_per_step:
+        mode = "2p"
+    elif blocked:
+        mode = "kb_sym" if symmetric else "kb_full"
+    else:
+        mode = "sym" if symmetric else "full"
+    nt = -(-g // TILE)
+    kbytes = -(-k_eff // K_SLICE) * K_SLICE
+    kp = 2 * kbytes if packed else kbytes
+    n_tiles = nt * (nt + 1) // 2 if symmetric else nt * nt
+    pp = p + p % 2 if two_per_step else p
+    return {
+        "mode": mode,
+        "tile": TILE,
+        "gp": nt * TILE,
+        "nt": nt,
+        "n_tiles": n_tiles,
+        "pp": pp,
+        "kp": kp,
+        "mxu_macs": n_tiles * TILE * TILE * pp * kp,
+    }
+
+
+def _counts(a: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Exact (G, G) counts of one protein's (G, K) int8 slab against itself;
+    packed slabs sum the low- and high-nibble products, as the kernel
+    does."""
+    if not packed:
+        return int_gram(a, a)
+    lo, hi = a & 0x0F, (a >> 4) & 0x0F
+    return int_gram(lo, lo) + int_gram(hi, hi)
+
+
+def fused_sn_square_plain(
+    m: torch.Tensor, t: torch.Tensor, *, packed: bool = False,
+    update: str = "lean",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version on any device: the full G x G square in the
+    kernel's op order (``outer = ta + tb``, ``denom = outer - cf``,
+    ``j = cf / denom`` in IEEE f32, ascending proteins).
+
+    ``update`` 'lean' / 'base' add each protein's terms in turn (what the
+    kernel gives for one or two proteins per step); 'fused' adds each pair
+    of proteins' terms first (``s += j0 + j1``) and 'counts' adds the pair's
+    f32 counts and leaves N at 0, as the kernel's two-proteins-per-step
+    variants do.  An odd last protein forms a pair with a zero protein,
+    which adds exactly 0.  The result is bit-symmetric: counts are
+    symmetric and ``ta + tb`` commutes."""
+    _check_variant(update)
+    P, G, _ = m.shape
+    m8 = _as_int8(m)
+    s = torch.zeros((G, G), dtype=torch.float32, device=m.device)
+    n = torch.zeros((G, G), dtype=torch.int32, device=m.device)
+    step = 2 if update in ("fused", "counts") else 1
+    for p0 in range(0, P, step):
+        terms = []
+        for p in range(p0, min(p0 + step, P)):
+            cnt = _counts(m8[p], packed)
+            cf = cnt.to(torch.float32)
+            if update == "counts":
+                terms.append(cf)
+                continue
+            denom = (t[p][:, None] + t[p][None, :]) - cf
+            terms.append(cf / denom)
+            n += cnt.clamp(max=1)
+        s += terms[0] if len(terms) == 1 else terms[0] + terms[1]
+    return s, n
+
+
+def _check(m: torch.Tensor, t: torch.Tensor) -> None:
+    if m.dim() != 3:
+        raise ValueError(f"m must be (P, G, K), got {tuple(m.shape)}")
+    if tuple(t.shape) != tuple(m.shape[:2]):
+        raise ValueError(
+            f"t {tuple(t.shape)} does not match (P, G) = {tuple(m.shape[:2])}"
+        )
+    if m.dtype not in (torch.uint8, torch.int8):
+        raise TypeError(f"m must be uint8 or int8, got {m.dtype}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"t must be float32 (see clamp_t), got {t.dtype}")
+    if m.device != t.device:
+        raise ValueError(
+            f"operands lie on different devices: {m.device}, {t.device}"
+        )
+    for name, x in (("m", m), ("t", t)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_list(nt: int, symmetric: bool, device: torch.device) -> torch.Tensor:
+    """int32 (n_tiles, 2) (row tile, col tile) on ``device``: the upper
+    triangle in row-major order (np.triu_indices, as the TPU wrapper's
+    scalar-prefetched maps), or every tile of the square."""
+    if symmetric:
+        rows, cols = np.triu_indices(nt)
+    else:
+        rows, cols = np.divmod(np.arange(nt * nt), nt)
+    tiles = np.stack([rows, cols], axis=1).astype(np.int32)
+    return torch.from_numpy(tiles).to(device)
+
+
+def _launch(
+    m: torch.Tensor, t: torch.Tensor, walks, *, mirror: bool, pp: int,
+    packed: bool, update: str, approx: bool, precise: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the kernel once per (walk, tiles, n_blocks, walk_arg) of
+    ``walks`` into one (G, G) S and N on m's CUDA device."""
+    global LAUNCHES
+    dev = m.device
+    P, G, K = m.shape
+    if K % K_SLICE:
+        m = F.pad(m, (0, K_SLICE - K % K_SLICE))
+        K = m.shape[2]
+    if m.data_ptr() % 16:
+        raise ValueError("m must be 16-byte aligned")
+    s = torch.empty((G, G), dtype=torch.float32, device=dev)
+    n = torch.empty((G, G), dtype=torch.int32, device=dev)
+    if G == 0:
+        return s, n
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for walk, tiles, n_blocks, walk_arg in walks:
+            rc = lib.sn_square_launch(
+                m.data_ptr(), t.data_ptr(),
+                None if tiles is None else tiles.data_ptr(),
+                s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
+                walk_arg, int(mirror), _MODES[(approx, precise)], pp,
+                int(packed), _UPDATES[update], stream,
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"sn_square kernel launch failed: "
+                    f"{lib.sn_square_error_string(rc).decode()} "
+                    f"(cudaError {rc})"
+                )
+            LAUNCHES += 1
+    return s, n
+
+
+def _route(m, t, approx, precise, name):
+    """Validate; True when the operands go to the kernel (CUDA), False for
+    the plain version (CPU).  Any other device raises."""
+    if approx and precise:
+        raise ValueError("approx and precise are mutually exclusive")
+    _check(m, t)
+    if m.device.type == "cpu":
+        return False
+    if m.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {m.device}")
+    return True
+
+
+def fused_sn_square(
+    m: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    symmetric: bool = True,
+    pairs_per_step: int = 1,
+    packed: bool = False,
+    update: str = "lean",
+    approx: bool = False,
+    precise: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s f32 (G, G), n int32 (G, G)) for m (P, G, K) 0/1 uint8/int8 (or,
+    with ``packed``, two nibble columns per byte, ``pack_nibbles``) and t
+    (P, G) f32 from ``clamp_t``.
+
+    On CUDA the kernel walks the upper-triangle tiles and writes each
+    off-diagonal tile's mirror (``symmetric``, the TPU's ``_pallas_sn_sym``
+    / ``_pallas_sn_sym_2p`` / ``_pallas_sn_sym_kb``) or every tile
+    (``_pallas_sn`` / ``_pallas_sn_kb``), taking ``pairs_per_step``
+    proteins (1 or 2) per step.  ``update`` 'fused' and 'counts' are the 2p
+    variants and need two proteins per step; ``packed`` needs one.
+    ``approx`` selects the raw approximate reciprocal, ``precise`` the IEEE
+    divide (bit-identical to the plain version), neither the
+    Newton-refined reciprocal.  CPU tensors go to
+    ``fused_sn_square_plain``, which always divides in IEEE f32."""
+    _check_variant(update)
+    if pairs_per_step not in (1, 2):
+        raise ValueError(f"pairs_per_step is 1 or 2, not {pairs_per_step}")
+    if _UPDATES[update] and pairs_per_step != 2:
+        raise ValueError(f"update {update!r} needs pairs_per_step=2")
+    if packed and pairs_per_step != 1:
+        raise ValueError("packed input needs pairs_per_step=1")
+    if not _route(m, t, approx, precise, "fused_sn_square"):
+        return fused_sn_square_plain(m, t, packed=packed, update=update)
+    nt = -(-m.shape[1] // TILE)
+    tiles = _tile_list(nt, symmetric, m.device)
+    return _launch(
+        m, t, [(_WALK_LIST, tiles, tiles.shape[0], 0)], mirror=symmetric,
+        pp=pairs_per_step, packed=packed, update=update, approx=approx,
+        precise=precise,
+    )
+
+
+def sn_sym_diag(
+    m: torch.Tensor, t: torch.Tensor, *, packed: bool = False,
+    approx: bool = False, precise: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of ``_pallas_sn_sym_diag``: the tiles (i, (i + d) mod nt)
+    for d = 0..nt//2, decoded in closed form from the block index (the
+    TPU's affine-mod index maps), (nt//2 + 1) * nt tiles in one launch.
+    Tiles at a forward distance above nt//2 are mirrored; for an even nt
+    both orientations of d = nt/2 are computed.  Same values as
+    ``fused_sn_square``; CPU tensors run the plain version."""
+    if not _route(m, t, approx, precise, "sn_sym_diag"):
+        return fused_sn_square_plain(m, t, packed=packed)
+    nt = -(-m.shape[1] // TILE)
+    return _launch(
+        m, t, [(_WALK_DIAG, None, (nt // 2 + 1) * nt, nt)], mirror=True,
+        pp=1, packed=packed, update="lean", approx=approx, precise=precise,
+    )
+
+
+def _bands(m, t, pp, packed, approx, precise):
+    nt = -(-m.shape[1] // TILE)
+    return _launch(
+        m, t, [(_WALK_BAND, None, nt - r, r) for r in range(nt)],
+        mirror=True, pp=pp, packed=packed, update="lean", approx=approx,
+        precise=precise,
+    )
+
+
+def sn_sym_bands(
+    m: torch.Tensor, t: torch.Tensor, *, packed: bool = False,
+    approx: bool = False, precise: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of ``_pallas_sn_sym_bands``: nt launches, band r over the
+    tiles (r, r..nt-1) with one protein per step, each writing its band and
+    the band's mirror in place into one G x G S/N (the TPU version stitched
+    per-band outputs with dynamic_update_slice).  Same values as
+    ``fused_sn_square``; CPU tensors run the plain version."""
+    if not _route(m, t, approx, precise, "sn_sym_bands"):
+        return fused_sn_square_plain(m, t, packed=packed)
+    return _bands(m, t, 1, packed, approx, precise)
+
+
+def sn_sym_bands_2p(
+    m: torch.Tensor, t: torch.Tensor, *, approx: bool = False,
+    precise: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of ``_pallas_sn_sym_bands_2p``: ``sn_sym_bands`` with two
+    proteins per step, written in place (the counterpart of the TPU
+    version's input_output_aliases).  Same values as ``fused_sn_square``;
+    CPU tensors run the plain version."""
+    if not _route(m, t, approx, precise, "sn_sym_bands_2p"):
+        return fused_sn_square_plain(m, t)
+    return _bands(m, t, 2, False, approx, precise)
+
+
+def fused_aji(
+    m: torch.Tensor,
+    t: torch.Tensor,
+    tile: int | None = None,
+    symmetric: bool = True,
+    approx: bool = False,
+    packed: bool = False,
+    precise: bool = False,
+    variant: str = "lean",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-matrix fused AJI: the counterpart of ``pallas_fused_aji``, with
+    its signature and contract.
+
+    m is the (P, G, K) 0/1 uint8/int8 presence tensor and t its (P, G)
+    rowsums (any numeric dtype; clamped here).  Returns (aji f32, s f32,
+    n int32), each (G, G); aji = s / n is NaN where N == 0 and the diagonal
+    is each genome's self-AJI.  ``fused_aji_plan`` picks the kernel: two
+    proteins per step for symmetric, unpacked K <= MAX_K_SINGLE_BLOCK // 4
+    (``variant`` then selects the update: 'lean' / 'base', 'fused' or the
+    'counts' diagnostic), else one.  ``symmetric`` walks only the
+    upper-triangle tiles and mirrors them, bit-equal to the full square.
+    ``packed`` stores two presence columns per byte (``pack_nibbles``;
+    counts unchanged) and raises for K > 2 * MAX_K_SINGLE_BLOCK, as the
+    TPU package does.  ``approx`` and ``precise`` select the kernel's
+    divide (``fused_sn_square``); CPU tensors run the plain version."""
+    if approx and precise:
+        raise ValueError("approx and precise are mutually exclusive")
+    _check_variant(variant)
+    P, G, K = m.shape
+    plan = fused_aji_plan(P, G, K, tile=tile, symmetric=symmetric,
+                          packed=packed)
+    if packed and plan["mode"] in ("kb_sym", "kb_full"):
+        raise ValueError(
+            "packed presence is not supported with K-blocked execution "
+            f"(K={K} > {2 * MAX_K_SINGLE_BLOCK}); unpack or use "
+            "ops.fused.fused_aji"
+        )
+    two_per_step = plan["mode"] == "2p"
+    s, n = fused_sn_square(
+        pack_nibbles(m) if packed else m,
+        clamp_t(t),
+        symmetric=symmetric,
+        pairs_per_step=2 if two_per_step else 1,
+        packed=packed,
+        update=variant if two_per_step else "lean",
+        approx=approx,
+        precise=precise,
+    )
+    return s / n.to(torch.float32), s, n

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from parfastaai_tpu_torch.ops import sn_rect
+from parfastaai_tpu_torch.ops import sn_rect, sn_square
 
 
 @pytest.fixture
@@ -54,6 +54,106 @@ def test_sn_rect_kernel_matches_plain(cuda, P, A, B, K, mode):
         shared = n_ref > 0
         aji, aji_ref = s[shared] / n[shared], s_ref[shared] / n_ref[shared]
         assert bool(((aji - aji_ref).abs() <= 1e-3 * aji_ref.abs()).all())
+
+
+def _assert_matches_plain(s, n, s_ref, n_ref, mode):
+    """N exact; S bit-equal under the IEEE divide, within 2e-6 relative
+    under Newton, AJI within 1e-3 under the raw reciprocal."""
+    torch.cuda.synchronize()
+    assert torch.equal(n, n_ref)
+    if mode == "precise":
+        assert torch.equal(s, s_ref)
+    elif mode == "newton":
+        assert bool(((s - s_ref).abs() <= 2e-6 * s_ref.abs()).all())
+    else:
+        shared = n_ref > 0
+        aji, aji_ref = s[shared] / n[shared], s_ref[shared] / n_ref[shared]
+        assert bool(((aji - aji_ref).abs() <= 1e-3 * aji_ref.abs()).all())
+
+
+def _square(dev, P, G, K, seed):
+    rng = np.random.default_rng(seed)
+    m = (rng.random((P, G, K)) < 0.3).astype(np.uint8)
+    t = m.sum(axis=2, dtype=np.int32)
+    return (torch.from_numpy(m).to(dev),
+            sn_rect.clamp_t(torch.from_numpy(t).to(dev)))
+
+
+_DIVIDE = {"newton": {}, "approx": {"approx": True},
+           "precise": {"precise": True}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "P,G,K,kw",
+    [
+        (3, 300, 256, {}),  # triu walk, ragged G
+        (3, 300, 256, {"symmetric": False}),
+        (3, 300, 256, {"pairs_per_step": 2}),  # odd P: masked last pair
+        (4, 256, 1280, {"pairs_per_step": 2}),
+        (3, 300, 255, {"packed": True}),
+        (2, 130, 34816, {}),  # K past the TPU's single-block limit
+        (2, 130, 34816, {"symmetric": False}),
+        (3, 300, 256, {"pairs_per_step": 2, "update": "fused"}),
+    ],
+    ids=["sym", "full", "2p_odd", "2p", "packed", "kb_sym", "kb_full",
+         "fused"],
+)
+@pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
+def test_sn_square_kernel_matches_plain(cuda, P, G, K, kw, mode):
+    m, t = _square(cuda, P, G, K, seed=P + G + K)
+    packed = kw.get("packed", False)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(
+        m, t, update=kw.get("update", "lean")
+    )
+    before = sn_square.LAUNCHES
+    s, n = sn_square.fused_sn_square(
+        sn_square.pack_nibbles(m) if packed else m, t, **kw, **_DIVIDE[mode]
+    )
+    assert sn_square.LAUNCHES == before + 1
+    _assert_matches_plain(s, n, s_ref, n_ref, mode)
+
+
+@pytest.mark.cuda
+def test_sn_square_counts_variant(cuda):
+    """The 'counts' diagnostic: S is the f32 sum of the counts, N stays 0."""
+    m, t = _square(cuda, 3, 300, 256, seed=9)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update="counts")
+    s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update="counts")
+    _assert_matches_plain(s, n, s_ref, n_ref, "precise")
+    assert not n.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [256, 300])  # nt = 4 (even), 5 (odd)
+@pytest.mark.parametrize(
+    "name", ["sn_sym_diag", "sn_sym_bands", "sn_sym_bands_2p"]
+)
+@pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
+def test_sn_square_alternative_walks(cuda, G, name, mode):
+    m, t = _square(cuda, 3, G, 256, seed=G)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t)
+    before = sn_square.LAUNCHES
+    s, n = getattr(sn_square, name)(m, t, **_DIVIDE[mode])
+    nt = -(-G // 64)
+    assert sn_square.LAUNCHES == before + (1 if name == "sn_sym_diag" else nt)
+    _assert_matches_plain(s, n, s_ref, n_ref, mode)
+
+
+@pytest.mark.cuda
+def test_fused_aji_on_cuda_matches_cpu(cuda):
+    """fused_aji's default plan on the card against the same call on the
+    CPU (plain version): N exact, S bit-equal under the IEEE divide, NaN
+    where N == 0."""
+    rng = np.random.default_rng(4)
+    m = (rng.random((5, 200, 384)) < 0.1).astype(np.uint8)
+    m[:, 7] = 0
+    t = torch.from_numpy(m.sum(axis=2, dtype=np.int32))
+    want = sn_square.fused_aji(torch.from_numpy(m), t, precise=True)
+    got = sn_square.fused_aji(torch.from_numpy(m).to(cuda), t.to(cuda),
+                              precise=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
