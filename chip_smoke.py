@@ -5,16 +5,21 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from the sources in this checkout (nvcc) and
-   checks each against its plain PyTorch version on the card, in every
-   divide mode:
+1. Builds the CUDA kernels from the sources in this checkout (nvcc),
+   checks in their SASS (cuobjdump) that the tensor-core variants run on
+   the tensor cores, and checks each kernel against its plain PyTorch
+   version on the card, in every divide mode:
    * sn_rect at the --fast path's block shape, at a ragged shape, at a K
      wider than the TPU package's single-block limit and at the kb
      bench's block;
    * sn_square (the whole-matrix kernel behind ``sn_square.fused_aji``) at
      the benchmark's shape through ``fused_aji``'s default plan and its
      other walks, packings and updates, at a ragged G and in the K-blocked
-     regime.
+     regime;
+   * the two-proteins-per-step variants ``pipe``, ``mxu_outer`` and
+     ``f32gram`` (sn_square_mma, the counts on the tensor cores) at the
+     benchmark's shape, a ragged G and an odd P, each also bit-equal to
+     the kernel whose values it keeps (``lean`` or ``fused``).
    Kernel and plain times are taken with CUDA events at the main shapes.
 2. Runs the port's CLI once, in process, as a user would:
    ``--fast --device cuda`` all-vs-all on a synthetic database at the
@@ -24,8 +29,10 @@ Run from the repository root:
    against exact integer counts finished in f64 on the host (numpy).
 3. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
-   read just after) and in kb mode, echoing their JSON lines, and checks a
-   band of ``fused_aji`` on the bench's workload against exact f64.
+   read just after), once with the default update and once with each
+   ``PARFASTAAI_BENCH_VARIANT`` above, and in kb mode, echoing their JSON
+   lines, and checks a band of ``fused_aji`` on the bench's workload
+   against exact f64.
 4. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -74,6 +81,10 @@ RTOL_APPROX_AJI = 1e-3
 SQUARE_MAIN = (80, 4096, 1280)
 SQUARE_DENSITY = 400 / 1280
 SQUARE_SMALL = [("ragged", 3, 300, 256), ("wide_k", 2, 256, 34816)]
+# The 2p variants, each with the update whose values it keeps, checked at
+# the bench shape and at these (a ragged G, an odd P).
+VARIANTS = {"pipe": "lean", "mxu_outer": "fused", "f32gram": "lean"}
+VARIANT_SMALL = [("ragged", 3, 300, 256), ("odd_p", 5, 700, 1280)]
 # The K-blocked plans timed at bench.py's kb shape (P=16, 1024, K=51200).
 SQUARE_KB = (16, 1024, 51200)
 # The bench runs with its default knobs, in kernel mode and in kb mode.
@@ -82,7 +93,8 @@ PALLAS = "parfastaai_tpu/ops/pallas_intersect.py"
 # def lines of the TPU kernels each CUDA kernel replaces
 REPLACES = {
     "sn_rect": (1112, 697),
-    "sn_square": (402, 802, 744, 593, 636, 867, 949, 1035),
+    "sn_square": (402, 219, 253, 339, 802, 744, 593, 636, 867, 949, 1035),
+    "sn_square_mma": (315, 82),
 }
 # End-to-end run and its host check.
 E2E = dict(n_genomes=4096, n_proteins=80, pool_size=1200, tetras_per_genome=400)
@@ -258,6 +270,36 @@ def square_checks(label, m, t_raw, tc, s_ref, n_ref, modes) -> dict:
     return errs
 
 
+def variant_checks(label, m, t_raw, tc) -> dict:
+    """Each 2p variant through ``fused_aji`` against its plain version in
+    every divide mode, and bit-equal (torch.equal) to the two-proteins-
+    per-step kernel with the update whose values it keeps.  Returns the
+    max abs errors under Newton by variant."""
+    import torch
+
+    from parfastaai_tpu_torch.ops import sn_square
+
+    errs = {}
+    for variant, like in VARIANTS.items():
+        s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc, update=variant)
+        for mode, kw in MODES:
+            _, s, n = sn_square.fused_aji(m, t_raw, variant=variant, **kw)
+            err = check(f"sn_square {label} variant={variant}", s, n, s_ref,
+                        n_ref, mode)
+            if mode == "newton":
+                errs[variant] = err
+            ws, wn = sn_square.fused_sn_square(
+                m, tc, pairs_per_step=2, update=like, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(s, ws) and torch.equal(n, wn)):
+                fail(f"{label}/{mode}: variant={variant} differs from the "
+                     f"{like} kernel")
+            print(f"sn_square {label} variant={variant} {mode}: bit-equal to "
+                  f"the {like} kernel")
+        del s_ref, n_ref
+    return errs
+
+
 def square_phase(dev) -> dict:
     """sn_square against its plain version at the bench shape, a ragged G
     and a wide K; kernel and plain times at the bench shape."""
@@ -280,6 +322,7 @@ def square_phase(dev) -> dict:
     _, s, n = sn_square.fused_aji(m, t_raw, variant="counts")
     check(f"sn_square {label} variant=counts", s, n, s_c, n_c, "precise")
     del s_f, n_f, s_c, n_c
+    variant_errs = variant_checks(label, m, t_raw, tc)
     # packed at an odd K (the wrapper pads one zero column, then packs)
     mo = m[:, :, : K - 1].contiguous()
     to = mo.sum(dim=2, dtype=torch.int32)
@@ -307,6 +350,9 @@ def square_phase(dev) -> dict:
          nt * nt * tile_macs * P),
         ("counts", lambda: sq(m, tc, pairs_per_step=2, update="counts"),
          triu * tile_macs * pp),
+        *((variant, lambda v=variant: sq(m, tc, pairs_per_step=2, update=v),
+           triu * tile_macs * pp)
+          for variant in ("fused", *VARIANTS)),
         ("diag", lambda: sn_square.sn_sym_diag(m, tc),
          (nt // 2 + 1) * nt * tile_macs * P),
         ("bands", lambda: sn_square.sn_sym_bands(m, tc), triu * tile_macs * P),
@@ -314,6 +360,9 @@ def square_phase(dev) -> dict:
          triu * tile_macs * pp),
         ("plain", lambda: sn_square.fused_sn_square_plain(m, tc),
          P * G * G * K),
+        *((f"{variant} plain", lambda v=variant:
+           sn_square.fused_sn_square_plain(m, tc, update=v), P * G * G * K)
+          for variant in VARIANTS),
         ("fused_aji default", lambda: sn_square.fused_aji(m, t_raw),
          plan["mxu_macs"]),
     ])
@@ -325,6 +374,9 @@ def square_phase(dev) -> dict:
         s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc)
         square_checks(f"{label} P={P} G={G} K={K}", m, t_raw, tc, s_ref,
                       n_ref, [mode for mode, _ in MODES])
+    for label, P, G, K in VARIANT_SMALL:
+        m, t_raw, tc = random_square(gen, dev, P, G, K, 0.33)
+        variant_checks(f"{label} P={P} G={G} K={K}", m, t_raw, tc)
 
     # the K-blocked plans (kb_sym, kb_full) at the kb bench's shape
     P, G, K = SQUARE_KB
@@ -348,8 +400,14 @@ def square_phase(dev) -> dict:
     ]))
     del m, t_raw, tc, s_ref, n_ref, s, n
     torch.cuda.empty_cache()
-    return {"max_abs_err": errs["newton"], "ms": times["2p (fused_aji default)"],
-            "plain_ms": times["plain"]}
+    return {
+        "sn_square": {"max_abs_err": errs["newton"],
+                      "ms": times["2p (fused_aji default)"],
+                      "plain_ms": times["plain"]},
+        "sn_square_mma": {"max_abs_err": variant_errs["f32gram"],
+                          "ms": times["f32gram"],
+                          "plain_ms": times["f32gram plain"]},
+    }
 
 
 def time_all(label: str, timed) -> dict:
@@ -384,6 +442,24 @@ def bench_phase(dev) -> dict:
         fail("the kernel-mode bench launched sn_rect")
     print(f"bench kernel mode: {wall:.1f} s in process, sn_square launches "
           f"{launches}")
+    mma_launches = 0
+    for variant in VARIANTS:
+        sn_square.LAUNCHES = sn_square.MMA_LAUNCHES = 0
+        t0 = time.perf_counter()
+        bench.main({"PARFASTAAI_BENCH_VARIANT": variant})
+        wall = time.perf_counter() - t0
+        mma = variant == "f32gram"
+        ran, other = ((sn_square.MMA_LAUNCHES, sn_square.LAUNCHES) if mma
+                      else (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES))
+        name = "sn_square_mma" if mma else "sn_square"
+        if ran == 0 or other or sn_rect.LAUNCHES:
+            fail(f"the kernel-mode bench with variant={variant} launched "
+                 f"{name} {ran} times and the other kernels "
+                 f"{other + sn_rect.LAUNCHES} times")
+        if mma:
+            mma_launches = ran
+        print(f"bench kernel mode variant={variant}: {wall:.1f} s in "
+              f"process, {name} launches {ran}")
     t0 = time.perf_counter()
     sn_rect.LAUNCHES = 0
     bench.main(BENCH_KB_ENV)
@@ -406,7 +482,7 @@ def bench_phase(dev) -> dict:
     err = np.nanmax(np.abs(got - want) / np.abs(want))
     print(f"bench workload band: rows 0..{R - 1} x {m.shape[1]} columns, N "
           f"exact, AJI max rel err {err:.3e} (rtol {RTOL_E2E_AJI}) ok")
-    return {"launches": launches}
+    return {"launches": launches, "mma_launches": mma_launches}
 
 
 def synth_db() -> str:
@@ -535,6 +611,47 @@ def e2e_phase(dev) -> dict:
     return {"launches": launches}
 
 
+def sass_phase() -> None:
+    """HMMA instructions in the SASS of the f32gram kernel (sn_square_mma)
+    and of sn_square's mxu_outer instantiations, and no __dp4a (IDP) in the
+    f32gram kernel, from the toolkit's cuobjdump on the built library."""
+    from parfastaai_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", _build.build()],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()}")
+    funcs, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    checked = 0
+    for name, body in funcs.items():
+        sass = "\n".join(body)
+        hmma = len(re.findall(r"\bHMMA\b", sass))
+        idp = len(re.findall(r"\bIDP\b", sass))
+        args = re.search(r"sn_square_kernelI((?:L[ib]\d+E)+)E", name)
+        if "sn_square_mma_kernel" in name:
+            label = "f32gram (sn_square_mma)"
+            ok = hmma > 0 and idp == 0
+        elif args and re.findall(r"L[ib](\d+)E", args.group(1))[3] == "4":
+            label = "sn_square mxu_outer"
+            ok = hmma > 0
+        else:
+            continue
+        checked += 1
+        print(f"SASS {label} {name}: {hmma} HMMA, {idp} IDP "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"SASS of {name}: {hmma} HMMA and {idp} IDP instructions")
+    if checked != 6:  # 3 divide modes x (f32gram, mxu_outer)
+        fail(f"SASS: found {checked} of the 6 tensor-core kernels")
+
+
 def main() -> None:
     import torch
 
@@ -552,9 +669,13 @@ def main() -> None:
         f"({'compiled by nvcc now' if _build.build_log else 'library was already built'})"
     )
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            print(f"  ptxas: {entry.group(1)}")
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas:   {line.strip()}")
 
+    sass_phase()
     kern = kernel_phase(dev)
     square = square_phase(dev)
     e2e = e2e_phase(dev)
@@ -568,7 +689,9 @@ def main() -> None:
                     "max_abs_err": kern[("main", "newton")],
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")]},
-        "sn_square": {"launches": whole["launches"], **square},
+        "sn_square": {"launches": whole["launches"], **square["sn_square"]},
+        "sn_square_mma": {"launches": whole["mma_launches"],
+                          **square["sn_square_mma"]},
     }
     print(json.dumps({"kernels": [{
         "name": name,
@@ -576,7 +699,7 @@ def main() -> None:
         "source": f"parfastaai_tpu_torch/csrc/{name}.cu",
         "replaces": ", ".join(f"{PALLAS}:{line}" for line in REPLACES[name]),
         **results[name],
-    } for name in ("sn_rect", "sn_square")]}))
+    } for name in ("sn_rect", "sn_square", "sn_square_mma")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

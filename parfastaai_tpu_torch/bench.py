@@ -31,7 +31,8 @@ Env knobs: PARFASTAAI_BENCH_G (4096), PARFASTAAI_BENCH_STEPS (calls per
 timed run; 16, kb 4), PARFASTAAI_BENCH_REPS (5, kb 3),
 PARFASTAAI_BENCH_APPROX / PARFASTAAI_BENCH_PRECISE (the kernel's divide),
 PARFASTAAI_BENCH_VARIANT (the two-proteins-per-step update: lean, base,
-fused, counts), PARFASTAAI_BENCH_MODE (kb; e2e and mesh are not ported
+pipe, f32gram, fused, mxu_outer, counts; a variant other than lean is named
+in ``metric``), PARFASTAAI_BENCH_MODE (kb; e2e and mesh are not ported
 yet), PARFASTAAI_BENCH_KB_P/A/B/K, and PARFASTAAI_BENCH_DEVICE (cuda, the
 default, or cpu for the plain versions, timed on the host clock).  Without
 CUDA the default device exits non-zero.  bench.py's tile and K-block knobs
@@ -172,10 +173,13 @@ def kernel_bench(device: torch.device, env) -> dict:
     )
     if device.type == "cuda":
         macs = sn_square.fused_aji_plan(P, g, POOL)["mxu_macs"]
-        impl = "cuda sn_square"
+        kernel = "sn_square_mma" if variant == "f32gram" else "sn_square"
+        impl = f"cuda {kernel}"
     else:
         macs = P * g * g * POOL  # the plain version's full square
         impl = "plain cpu"
+    if variant != "lean":
+        impl += f" variant={variant}"
     return _result(
         "genome-pairs/sec/chip (fused AJI, G=%d P=%d K=%d, impl=%s)"
         % (g, P, POOL, impl),

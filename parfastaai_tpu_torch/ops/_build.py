@@ -19,7 +19,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [
-    os.path.join(_PKG, "csrc", name) for name in ("sn_rect.cu", "sn_square.cu")
+    os.path.join(_PKG, "csrc", name)
+    for name in ("sn_rect.cu", "sn_square.cu", "sn_square_mma.cu")
 ]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -125,7 +126,12 @@ def load() -> ctypes.CDLL:
                 ci, vp,
             ]
             lib.sn_square_launch.restype = ci
-            for fn in (lib.sn_rect_error_string, lib.sn_square_error_string):
+            lib.sn_square_mma_launch.argtypes = [
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+            ]
+            lib.sn_square_mma_launch.restype = ci
+            for fn in (lib.sn_rect_error_string, lib.sn_square_error_string,
+                       lib.sn_square_mma_error_string):
                 fn.argtypes = [ci]
                 fn.restype = ctypes.c_char_p
             _lib = lib

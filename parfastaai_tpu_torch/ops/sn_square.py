@@ -14,14 +14,17 @@ its dispatch plan ``fused_aji_plan`` and the square TPU kernels behind them:
 
 with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are one
 hand-written CUDA kernel (csrc/sn_square.cu) that differs only in the
-output tiles it walks, the proteins it takes per step and the input's
-packing.  CUDA tensors go to that kernel, CPU tensors to
+output tiles it walks, the proteins it takes per step, the input's packing
+and the two-proteins-per-step update; the ``f32gram`` update, whose counts
+come out of the tensor cores as f32, is a second kernel
+(csrc/sn_square_mma.cu).  CUDA tensors go to those kernels, CPU tensors to
 ``fused_sn_square_plain``, and any other device raises; there is no
-fallback from the kernel to the plain version.
+fallback from a kernel to the plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -33,28 +36,24 @@ from . import _build
 from .fused import int_gram
 from .sn_rect import K_SLICE, _as_int8, clamp_t
 
-# Kernel launches since the process started (or since a caller reset it).
+# Kernel launches since the process started (or since a caller reset it):
+# csrc/sn_square.cu's and, apart, csrc/sn_square_mma.cu's.
 LAUNCHES = 0
+MMA_LAUNCHES = 0
 
 # Output tile edge of the kernel (rows and columns per thread block).
 TILE = 64
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 # Updates of the two-proteins-per-step body (the 2p variants of the TPU
-# kernel).  'lean' and 'base' run identical code in the JAX package.
-_UPDATES = {"lean": 0, "base": 0, "counts": 1, "fused": 2}
-# 2p variants that are Mosaic scheduling and precision experiments.
-_NOT_PORTED = ("pipe", "mxu_outer", "f32gram")
+# kernel), as csrc/sn_square.cu's kUpdate codes.  'lean' and 'base' run
+# identical code in the JAX package.  'f32gram' runs csrc/sn_square_mma.cu
+# and has no code there.
+_UPDATES = {"lean": 0, "base": 0, "counts": 1, "fused": 2, "pipe": 3,
+            "mxu_outer": 4, "f32gram": -1}
 _WALK_LIST, _WALK_DIAG, _WALK_BAND = 0, 1, 2
 
 
 def _check_variant(variant: str) -> None:
-    if variant in _NOT_PORTED:
-        raise ValueError(
-            f"variant {variant!r} is a Mosaic scheduling/precision experiment "
-            "of the TPU kernel and is not ported; it stays open in ROADMAP.md "
-            "(TPU kernels to port, item 3) until an H100 profile shows "
-            "whether the same question arises"
-        )
     if variant not in _UPDATES:
         raise ValueError(
             f"unknown variant {variant!r}; one of {sorted(_UPDATES)}"
@@ -142,6 +141,18 @@ def _counts(a: torch.Tensor, packed: bool) -> torch.Tensor:
     return int_gram(lo, lo) + int_gram(hi, hi)
 
 
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 matrix products in full f32 (no TF32 on the card) inside the
+    block; the caller's setting is restored after it."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def fused_sn_square_plain(
     m: torch.Tensor, t: torch.Tensor, *, packed: bool = False,
     update: str = "lean",
@@ -151,29 +162,46 @@ def fused_sn_square_plain(
     ``j = cf / denom`` in IEEE f32, ascending proteins).
 
     ``update`` 'lean' / 'base' add each protein's terms in turn (what the
-    kernel gives for one or two proteins per step); 'fused' adds each pair
-    of proteins' terms first (``s += j0 + j1``) and 'counts' adds the pair's
-    f32 counts and leaves N at 0, as the kernel's two-proteins-per-step
-    variants do.  An odd last protein forms a pair with a zero protein,
-    which adds exactly 0.  The result is bit-symmetric: counts are
-    symmetric and ``ta + tb`` commutes."""
+    kernel gives for one or two proteins per step); 'pipe' does too (its
+    carry of a step's counts into the next step changes no value).
+    'f32gram' takes each protein's counts as a float32 product of the 0/1
+    slab in full f32 (exact: counts < 2^24), then the 'lean' transform.
+    'fused' adds each pair of proteins' terms first (``s += j0 + j1``);
+    'mxu_outer' does the same with ``ta + tb`` built as the rank-2 product
+    ``[ta, 1] @ [1, tb]`` in full f32 (exact: integer ta + tb < 2^24);
+    'counts' adds the pair's f32 counts and leaves N at 0, as the kernel's
+    two-proteins-per-step variants do.  An odd last protein forms a pair
+    with a zero protein, which adds exactly 0.  The result is
+    bit-symmetric: counts are symmetric and ``ta + tb`` commutes.  'pipe'
+    and 'f32gram' are bit-equal to 'lean', 'mxu_outer' to 'fused'."""
     _check_variant(update)
     P, G, _ = m.shape
     m8 = _as_int8(m)
     s = torch.zeros((G, G), dtype=torch.float32, device=m.device)
     n = torch.zeros((G, G), dtype=torch.int32, device=m.device)
-    step = 2 if update in ("fused", "counts") else 1
+    step = 2 if update in ("fused", "mxu_outer", "counts") else 1
     for p0 in range(0, P, step):
         terms = []
         for p in range(p0, min(p0 + step, P)):
-            cnt = _counts(m8[p], packed)
-            cf = cnt.to(torch.float32)
+            if update == "f32gram":
+                a = m8[p].to(torch.float32)
+                with _full_f32_matmul():
+                    cnt = cf = a @ a.T
+            else:
+                cnt = _counts(m8[p], packed)
+                cf = cnt.to(torch.float32)
             if update == "counts":
                 terms.append(cf)
                 continue
-            denom = (t[p][:, None] + t[p][None, :]) - cf
-            terms.append(cf / denom)
-            n += cnt.clamp(max=1)
+            if update == "mxu_outer":
+                ones = torch.ones_like(t[p])
+                with _full_f32_matmul():
+                    outer = (torch.stack([t[p], ones], 1)
+                             @ torch.stack([ones, t[p]], 0))
+            else:
+                outer = t[p][:, None] + t[p][None, :]
+            terms.append(cf / (outer - cf))
+            n += cnt.clamp(max=1).to(torch.int32)
         s += terms[0] if len(terms) == 1 else terms[0] + terms[1]
     return s, n
 
@@ -216,8 +244,10 @@ def _launch(
     packed: bool, update: str, approx: bool, precise: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the kernel once per (walk, tiles, n_blocks, walk_arg) of
-    ``walks`` into one (G, G) S and N on m's CUDA device."""
-    global LAUNCHES
+    ``walks`` into one (G, G) S and N on m's CUDA device: csrc/sn_square.cu,
+    or csrc/sn_square_mma.cu for the 'f32gram' update (tile-list walk, two
+    proteins per step)."""
+    global LAUNCHES, MMA_LAUNCHES
     dev = m.device
     P, G, K = m.shape
     if K % K_SLICE:
@@ -230,23 +260,35 @@ def _launch(
     if G == 0:
         return s, n
     lib = _build.load()
+    mode = _MODES[(approx, precise)]
+    mma = update == "f32gram"
+    name = "sn_square_mma" if mma else "sn_square"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for walk, tiles, n_blocks, walk_arg in walks:
-            rc = lib.sn_square_launch(
-                m.data_ptr(), t.data_ptr(),
-                None if tiles is None else tiles.data_ptr(),
-                s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
-                walk_arg, int(mirror), _MODES[(approx, precise)], pp,
-                int(packed), _UPDATES[update], stream,
-            )
-            if rc != 0:
-                raise RuntimeError(
-                    f"sn_square kernel launch failed: "
-                    f"{lib.sn_square_error_string(rc).decode()} "
-                    f"(cudaError {rc})"
+            if mma:
+                rc = lib.sn_square_mma_launch(
+                    m.data_ptr(), t.data_ptr(), tiles.data_ptr(),
+                    s.data_ptr(), n.data_ptr(), P, G, K, n_blocks,
+                    int(mirror), mode, stream,
                 )
-            LAUNCHES += 1
+            else:
+                rc = lib.sn_square_launch(
+                    m.data_ptr(), t.data_ptr(),
+                    None if tiles is None else tiles.data_ptr(),
+                    s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
+                    walk_arg, int(mirror), mode, pp, int(packed),
+                    _UPDATES[update], stream,
+                )
+            if rc != 0:
+                err = getattr(lib, f"{name}_error_string")(rc).decode()
+                raise RuntimeError(
+                    f"{name} kernel launch failed: {err} (cudaError {rc})"
+                )
+            if mma:
+                MMA_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
     return s, n
 
 
@@ -282,8 +324,13 @@ def fused_sn_square(
     off-diagonal tile's mirror (``symmetric``, the TPU's ``_pallas_sn_sym``
     / ``_pallas_sn_sym_2p`` / ``_pallas_sn_sym_kb``) or every tile
     (``_pallas_sn`` / ``_pallas_sn_kb``), taking ``pairs_per_step``
-    proteins (1 or 2) per step.  ``update`` 'fused' and 'counts' are the 2p
-    variants and need two proteins per step; ``packed`` needs one.
+    proteins (1 or 2) per step.  ``update`` other than 'lean' / 'base'
+    selects a 2p variant and needs two proteins per step: 'pipe' carries
+    each step's counts into the next step's epilogue, 'mxu_outer' builds
+    ``ta + tb`` on the tensor cores (TF32, exact by a hi/lo split of T),
+    'f32gram' takes the counts as f32 from the tensor cores
+    (csrc/sn_square_mma.cu), 'fused' and 'counts' as in
+    ``fused_sn_square_plain``.  ``packed`` needs one protein per step.
     ``approx`` selects the raw approximate reciprocal, ``precise`` the IEEE
     divide (bit-identical to the plain version), neither the
     Newton-refined reciprocal.  CPU tensors go to
@@ -379,9 +426,11 @@ def fused_aji(
     n int32), each (G, G); aji = s / n is NaN where N == 0 and the diagonal
     is each genome's self-AJI.  ``fused_aji_plan`` picks the kernel: two
     proteins per step for symmetric, unpacked K <= MAX_K_SINGLE_BLOCK // 4
-    (``variant`` then selects the update: 'lean' / 'base', 'fused' or the
-    'counts' diagnostic), else one.  ``symmetric`` walks only the
-    upper-triangle tiles and mirrors them, bit-equal to the full square.
+    (``variant`` then selects the update: 'lean' / 'base', 'pipe',
+    'f32gram', 'fused', 'mxu_outer' or the 'counts' diagnostic; see
+    ``fused_sn_square``), else one, and ``variant`` has no effect.
+    ``symmetric`` walks only the upper-triangle tiles and mirrors them,
+    bit-equal to the full square.
     ``packed`` stores two presence columns per byte (``pack_nibbles``;
     counts unchanged) and raises for K > 2 * MAX_K_SINGLE_BLOCK, as the
     TPU package does.  ``approx`` and ``precise`` select the kernel's

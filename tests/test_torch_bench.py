@@ -52,8 +52,10 @@ def test_workload_equals_bench_py_draw():
         {"PARFASTAAI_BENCH_MODE": "kb", "PARFASTAAI_BENCH_KB_P": "1",
          "PARFASTAAI_BENCH_KB_A": "8", "PARFASTAAI_BENCH_KB_B": "8",
          "PARFASTAAI_BENCH_KB_K": "32832"},
+        *({"PARFASTAAI_BENCH_G": "256", "PARFASTAAI_BENCH_VARIANT": v}
+          for v in ("pipe", "mxu_outer", "f32gram")),
     ],
-    ids=["kernel", "kb"],
+    ids=["kernel", "kb", "pipe", "mxu_outer", "f32gram"],
 )
 def test_cpu_plain_run_prints_one_json_line(capsys, env):
     env = {"PARFASTAAI_BENCH_DEVICE": "cpu", "PARFASTAAI_BENCH_STEPS": "1",
@@ -66,6 +68,8 @@ def test_cpu_plain_run_prints_one_json_line(capsys, env):
     assert result["mfu"] is None and result["device_kind"] == "cpu"
     assert result["value"] > 0 and result["int8_mac_per_s"] > 0
     assert "plain cpu" in result["metric"]
+    variant = env.get("PARFASTAAI_BENCH_VARIANT")
+    assert (f"variant={variant}" in result["metric"]) == bool(variant)
 
 
 def test_default_device_exits_without_cuda(monkeypatch, capsys):

@@ -125,6 +125,33 @@ def test_sn_square_counts_variant(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P,G,K", [(3, 300, 256), (4, 130, 128)])
+@pytest.mark.parametrize(
+    "variant,like",
+    [("pipe", "lean"), ("f32gram", "lean"), ("mxu_outer", "fused")],
+)
+@pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
+def test_sn_square_2p_variant(cuda, P, G, K, variant, like, mode):
+    """'pipe', 'f32gram' (csrc/sn_square_mma.cu) and 'mxu_outer' against
+    their plain versions, and bit-equal to the kernel whose values they
+    keep ('lean' or 'fused') in every divide mode."""
+    m, t = _square(cuda, P, G, K, seed=P + G + K)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
+    mma = variant == "f32gram"
+    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES)
+    s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant,
+                                     **_DIVIDE[mode])
+    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES) == (
+        before[0] + (not mma), before[1] + mma
+    )
+    _assert_matches_plain(s, n, s_ref, n_ref, mode)
+    ws, wn = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=like,
+                                       **_DIVIDE[mode])
+    torch.cuda.synchronize()
+    assert torch.equal(s, ws) and torch.equal(n, wn)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G", [256, 300])  # nt = 4 (even), 5 (odd)
 @pytest.mark.parametrize(
     "name", ["sn_sym_diag", "sn_sym_bands", "sn_sym_bands_2p"]

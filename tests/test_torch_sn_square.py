@@ -183,12 +183,86 @@ def test_variants(P):
     assert not n.any()
 
 
-@pytest.mark.parametrize("variant", ["pipe", "mxu_outer", "f32gram", "nope"])
-def test_unported_variants_raise(variant):
+def test_unknown_variant_raises():
     m, t = _presence(2, 8, 64, seed=1)
-    with pytest.raises(ValueError, match="ROADMAP|unknown variant"):
+    with pytest.raises(ValueError, match="unknown variant"):
         sn_square.fused_aji(torch.from_numpy(m), torch.from_numpy(t),
-                            variant=variant)
+                            variant="nope")
+
+
+_VARIANTS_2P = ("pipe", "mxu_outer", "f32gram")
+
+
+@pytest.mark.parametrize(
+    "variant,P,G,K",
+    [
+        ("pipe", 2, 384, 256),  # one step: nothing carried
+        ("pipe", 3, 130, 128),
+        ("pipe", 6, 384, 128),
+        ("mxu_outer", 3, 130, 256),
+        ("mxu_outer", 4, 384, 128),
+        ("f32gram", 3, 384, 256),
+        ("f32gram", 4, 130, 128),
+    ],
+)
+def test_2p_variant_matches_jax(variant, P, G, K):
+    """The three Mosaic-experiment bodies of ``_pallas_sn_sym_2p`` against
+    their TPU kernels in interpret mode.  The reference's 'f32gram' raises
+    there (see the next test), so the port's is held against 'base', whose
+    values its documented intent (exact f32 counts) shares."""
+    m, t = _presence(P, G, K, 0.25, seed=P * G + K)
+    with pltpu.force_tpu_interpret_mode():
+        want = jpi.pallas_fused_aji(
+            jnp.asarray(m), jnp.asarray(t), tile=128, precise=True,
+            variant="base" if variant == "f32gram" else variant,
+        )
+    got = sn_square.fused_aji(torch.from_numpy(m), torch.from_numpy(t),
+                              precise=True, variant=variant)
+    _assert_close(got, want)
+
+
+def test_jax_f32gram_is_broken_in_interpret_mode():
+    """The reference's 'f32gram' adds min(cnt, 1) of f32 counts into its
+    int32 N ref and fails (Mosaic rejects the variant on the TPU too).  A
+    fix of the reference makes this test fail: then hold the port's
+    'f32gram' against it directly."""
+    m, t = _presence(3, 130, 128, 0.25, seed=2)
+    with pytest.raises(ValueError, match="dtype"):
+        with pltpu.force_tpu_interpret_mode():
+            jpi.pallas_fused_aji(jnp.asarray(m), jnp.asarray(t), tile=128,
+                                 precise=True, variant="f32gram")
+
+
+@pytest.mark.parametrize("P", [3, 4])
+@pytest.mark.parametrize(
+    "variant,like",
+    [("pipe", "lean"), ("f32gram", "lean"), ("mxu_outer", "fused")],
+)
+def test_plain_variant_is_bit_equal(variant, like, P):
+    """'pipe' and 'f32gram' change no value of 'lean', 'mxu_outer' none of
+    'fused': the plain versions agree bit for bit."""
+    m, t = _square_inputs(P=P, G=130, K=192, seed=P)
+    s, n = sn_square.fused_sn_square_plain(m, t, update=variant)
+    ws, wn = sn_square.fused_sn_square_plain(m, t, update=like)
+    assert torch.equal(s, ws) and torch.equal(n, wn)
+
+
+@pytest.mark.parametrize("variant", _VARIANTS_2P)
+def test_2p_variant_on_cpu_launches_nothing(variant):
+    m, t = _square_inputs(P=3, G=40)
+    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES)
+    s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant)
+    want = sn_square.fused_sn_square_plain(m, t, update=variant)
+    assert torch.equal(s, want[0]) and torch.equal(n, want[1])
+    sn_square.fused_aji(m, t, variant=variant)
+    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("variant", _VARIANTS_2P)
+def test_2p_variant_needs_two_per_step(variant):
+    m, t = _square_inputs(P=2, G=16)
+    with pytest.raises(ValueError, match="needs pairs_per_step=2"):
+        sn_square.fused_sn_square(m, t, update=variant)
 
 
 @pytest.mark.parametrize(
