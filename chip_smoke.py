@@ -5,13 +5,17 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from the sources in this checkout (nvcc),
-   checks in their SASS (cuobjdump) that the tensor-core variants run on
-   the tensor cores, and checks each kernel against its plain PyTorch
-   version on the card, in every divide mode:
-   * sn_rect at the --fast path's block shape, at a ragged shape, at a K
-     wider than the TPU package's single-block limit and at the kb
-     bench's block;
+1. Builds the CUDA kernels (nvcc) and the host library (g++) from the
+   sources in this checkout, checks in the kernels' SASS (cuobjdump) that
+   the tensor-core kernels run on the tensor cores (sn_rect: IGMMA, the
+   warpgroup product, and asynchronous copies, no __dp4a), and checks each
+   kernel against its plain PyTorch version on the card, in every divide
+   mode:
+   * sn_rect at the --fast path's block shape, at ragged shapes (one with
+     a single protein), at a K of one kernel slice, at a K wider than the
+     TPU package's single-block limit and at the kb bench's block, with a
+     K sweep at the --fast block that splits its time into a slope per
+     presence column and an intercept;
    * sn_square (the whole-matrix kernel behind ``sn_square.fused_aji``) at
      the benchmark's shape through ``fused_aji``'s default plan and its
      other walks, packings and updates, at a ragged G and in the K-blocked
@@ -20,7 +24,10 @@ Run from the repository root:
      ``f32gram`` (sn_square_mma, the counts on the tensor cores) at the
      benchmark's shape, a ragged G and an odd P, each also bit-equal to
      the kernel whose values it keeps (``lean`` or ``fused``).
-   Kernel and plain times are taken with CUDA events at the main shapes.
+   Kernel and plain times are taken with CUDA events at the main shapes,
+   and each kernel's bound (the larger of its bytes over the card's
+   memory rate and its MACs over the int8 tensor-core peak) is computed
+   from the same inputs.
 2. Runs the port's CLI once, in process, as a user would:
    ``--fast --device cuda`` all-vs-all on a synthetic database at the
    benchmark's size (4096 genomes, 80 proteins, pool 1200, 400 tetramers
@@ -36,8 +43,9 @@ Run from the repository root:
 4. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, and prints no result line, when CUDA is not available or
-any phase fails.  Needs one card.
+Exits non-zero, and prints no result line, when CUDA is not available,
+when the native host library does not build, when any phase fails, or when
+the run loaded ``jax`` or anything of the JAX package.  Needs one card.
 """
 
 from __future__ import annotations
@@ -62,9 +70,15 @@ SEED = 0
 SHAPES = [
     ("main", 80, 1024, 4096, 1280),
     ("ragged", 3, 70, 130, 256),
+    # neither A nor B a multiple of the kernel's 128 x 128 block, one protein
+    ("ragged_p1", 1, 77, 131, 256),
+    # one 128-byte slice per protein: the ring wraps across proteins at once
+    ("one_slice", 9, 129, 300, 128),
     ("wide_k", 2, 256, 256, 34816),
     ("kb", 16, 1024, 1024, 51200),
 ]
+# K sweep of sn_rect at the main shape's P, A, B.
+K_SWEEP = (640, 1280, 2560)
 MODES = [
     ("newton", {}),
     ("approx", {"approx": True}),
@@ -96,6 +110,15 @@ REPLACES = {
     "sn_square": (402, 219, 253, 339, 802, 744, 593, 636, 867, 949, 1035),
     "sn_square_mma": (315, 82),
 }
+# Device-memory rate (bytes/s) by a substring of
+# torch.cuda.get_device_name, from NVIDIA's H100 data sheet; the int8
+# tensor-core peak beside it is bench.INT8_PEAK_MACS.
+MEMORY_RATE = {
+    "H100 80GB HBM3": 3.35e12,
+    "H100 SXM": 3.35e12,
+    "H100 NVL": 3.9e12,
+    "H100 PCIe": 2.0e12,
+}
 # End-to-end run and its host check.
 E2E = dict(n_genomes=4096, n_proteins=80, pool_size=1200, tetras_per_genome=400)
 BAND_ROWS = 64
@@ -115,6 +138,29 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(macs: float, nbytes: float) -> dict:
+    """The least time this card could take: MACs over its dense int8
+    tensor-core peak (the inputs are 0/1 bytes, also where a kernel
+    multiplies them as f16) or bytes (each input read once, each output
+    written once) over its memory rate, whichever is larger."""
+    import torch
+
+    from parfastaai_tpu_torch import bench
+
+    kind = torch.cuda.get_device_name(0)
+    peak_macs = bench.int8_peak(kind)
+    peak_bytes = next((v for k, v in MEMORY_RATE.items() if k in kind), None)
+    if peak_macs is None or peak_bytes is None:
+        fail(f"no peak rates listed for {kind!r}")
+    by_ops, by_bytes = macs / peak_macs * 1e3, nbytes / peak_bytes * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def rect_bound(P, A, B, K) -> dict:
+    return bound(P * A * B * K, P * (A + B) * (K + 4) + A * B * 8)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -187,14 +233,38 @@ def kernel_phase(dev) -> dict:
                 lambda: sn_rect.fused_sn_block_plain(ma, mb, ta, tb), 3
             )
             report[(name, "ms")], report[(name, "plain_ms")] = ms, plain_ms
+            report[(name, "bound")] = b = rect_bound(P, A, B, K)
             macs = P * A * B * K
             print(
                 f"sn_rect {name} shape: kernel {ms:.3f} ms "
                 f"({macs / ms / 1e9:.3f} TMAC/s), plain {plain_ms:.3f} ms "
-                f"({macs / plain_ms / 1e9:.3f} TMAC/s)"
+                f"({macs / plain_ms / 1e9:.3f} TMAC/s), bound "
+                f"{b['bound_ms']:.3f} ms by {b['bound_by']} "
+                f"({b['bound_ms'] / ms:.1%} of the kernel's time)"
             )
         del ma, mb, ta, tb, s_ref, n_ref
         torch.cuda.empty_cache()
+    _, P, A, B, _ = SHAPES[0]
+    times = {}
+    for K in K_SWEEP:
+        ma, mb, ta, tb = random_block(gen, dev, P, A, B, K)
+        times[K] = {
+            mode: cuda_ms(lambda: sn_rect.fused_sn_block(ma, mb, ta, tb, **kw), 5)
+            for mode, kw in MODES
+        }
+        del ma, mb, ta, tb
+        torch.cuda.empty_cache()
+    for mode, _ in MODES:
+        t = [times[K][mode] for K in K_SWEEP]
+        slopes = [(t[i + 1] - t[i]) / (K_SWEEP[i + 1] - K_SWEEP[i]) * 1e3
+                  for i in range(len(t) - 1)]
+        print(
+            f"sn_rect K sweep P={P} A={A} B={B} {mode}: "
+            + ", ".join(f"K={K} {ms:.3f} ms" for K, ms in zip(K_SWEEP, t))
+            + "; us per presence column "
+            + ", ".join(f"{v:.3f}" for v in slopes)
+            + f"; intercept {t[0] - slopes[0] * K_SWEEP[0] / 1e3:.3f} ms"
+        )
     return report
 
 
@@ -340,6 +410,7 @@ def square_phase(dev) -> dict:
     nt, pp = plan["nt"], plan["pp"]
     tile_macs = sn_square.TILE ** 2 * plan["kp"]
     triu = nt * (nt + 1) // 2
+    main_macs = triu * tile_macs * pp
     times = time_all(label, [
         ("2p (fused_aji default)", lambda: sq(m, tc, pairs_per_step=2),
          triu * tile_macs * pp),
@@ -400,24 +471,31 @@ def square_phase(dev) -> dict:
     ]))
     del m, t_raw, tc, s_ref, n_ref, s, n
     torch.cuda.empty_cache()
+    P, G, K = SQUARE_MAIN
+    square_bound = bound(main_macs, P * G * (K + 4) + G * G * 8)
+    print(f"sn_square main: bound {square_bound['bound_ms']:.3f} ms by "
+          f"{square_bound['bound_by']} ({main_macs:.4e} MACs in the triu "
+          "tiles)")
     return {
         "sn_square": {"max_abs_err": errs["newton"],
                       "ms": times["2p (fused_aji default)"],
-                      "plain_ms": times["plain"]},
+                      "plain_ms": times["plain"], **square_bound},
         "sn_square_mma": {"max_abs_err": variant_errs["f32gram"],
                           "ms": times["f32gram"],
-                          "plain_ms": times["f32gram plain"]},
+                          "plain_ms": times["f32gram plain"], **square_bound},
     }
 
 
 def time_all(label: str, timed) -> dict:
     """CUDA-event ms of each (name, fn, macs), printed with the int8 MACs
-    per second that each call executes."""
+    per second that each call executes and the least time the card could
+    take for those MACs."""
     times = {}
     for name, fn, macs in timed:
         times[name] = cuda_ms(fn, 3 if "plain" in name else 5)
         print(f"sn_square {label} {name}: {times[name]:.3f} ms "
-              f"({macs / times[name] / 1e9:.3f} TMAC/s executed)")
+              f"({macs / times[name] / 1e9:.3f} TMAC/s executed; bound "
+              f"{bound(macs, 0)['bound_ms']:.3f} ms)")
     return times
 
 
@@ -486,14 +564,14 @@ def bench_phase(dev) -> dict:
 
 
 def synth_db() -> str:
-    from parfastaai_tpu_torch.host import generate_synth_db
+    from parfastaai_tpu_torch.tools.synth_db import generate
 
     tag = "_".join(f"{k}{v}" for k, v in E2E.items())
     path = os.path.join(tempfile.gettempdir(), f"parfastaai_synth_{tag}_s{SEED}.db")
     if not os.path.exists(path):
         t0 = time.perf_counter()
         tmp = f"{path}.tmp{os.getpid()}"
-        generate_synth_db(tmp, seed=SEED, **E2E)
+        generate(tmp, seed=SEED, **E2E)
         os.replace(tmp, path)
         print(f"synthetic DB generated in {time.perf_counter() - t0:.1f} s")
     return path
@@ -519,7 +597,7 @@ def exact_band(m: np.ndarray, t: np.ndarray, rows: int):
 def band_check(db: str, csv_path: str, dev) -> None:
     """Rows 0..BAND_ROWS-1 of the run against exact f64 on the host."""
     from parfastaai_tpu_torch import engine
-    from parfastaai_tpu_torch.host import SCPDatabase
+    from parfastaai_tpu_torch.etl.database import SCPDatabase
 
     db_ = SCPDatabase(db)
     try:
@@ -563,15 +641,9 @@ def band_check(db: str, csv_path: str, dev) -> None:
 
 def e2e_phase(dev) -> dict:
     from parfastaai_tpu_torch import cli
-    from parfastaai_tpu_torch.host import native_lib
     from parfastaai_tpu_torch.ops import sn_rect
 
     db = synth_db()
-    print(
-        "native host library:",
-        "loaded" if native_lib() is not None else
-        "NOT loaded (Python CSV formatter)",
-    )
     out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_")
     try:
         out = os.path.join(out_dir, "aji.csv")
@@ -611,10 +683,28 @@ def e2e_phase(dev) -> dict:
     return {"launches": launches}
 
 
+def host_library_phase() -> None:
+    """The port's native host library (ETL, f64 finish, CSV formatter),
+    built with g++ from parfastaai_tpu_torch/native/*.cpp at first use.
+    The host times of a run assume it, so a run without it fails."""
+    from parfastaai_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    if lib is None:
+        fail("the native host library did not build or load (g++ with "
+             "OpenMP; PARFASTAAI_NO_NATIVE must be unset)")
+    print(f"native host library: loaded in {time.perf_counter() - t0:.1f} s "
+          f"({'compiled by g++ now' if native.built_now else 'was already built'}"
+          f", sqlite loader {'on' if lib.sqlite_available() else 'off'})")
+
+
 def sass_phase() -> None:
-    """HMMA instructions in the SASS of the f32gram kernel (sn_square_mma)
-    and of sn_square's mxu_outer instantiations, and no __dp4a (IDP) in the
-    f32gram kernel, from the toolkit's cuobjdump on the built library."""
+    """From the toolkit's cuobjdump on the built library: integer warpgroup
+    products (IGMMA) and asynchronous copies (LDGSTS) and no __dp4a (IDP)
+    in every sn_rect kernel; HMMA in the f32gram kernel
+    (sn_square_mma) and in sn_square's mxu_outer instantiations, and no IDP
+    in the f32gram kernel."""
     from parfastaai_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -635,6 +725,17 @@ def sass_phase() -> None:
         hmma = len(re.findall(r"\bHMMA\b", sass))
         idp = len(re.findall(r"\bIDP\b", sass))
         args = re.search(r"sn_square_kernelI((?:L[ib]\d+E)+)E", name)
+        if "sn_rect_kernel" in name:
+            igmma = len(re.findall(r"\bIGMMA\b", sass))
+            ldgsts = len(re.findall(r"\bLDGSTS\b", sass))
+            ok = igmma > 0 and ldgsts > 0 and idp == 0
+            checked += 1
+            print(f"SASS sn_rect {name}: {igmma} IGMMA, {ldgsts} LDGSTS, "
+                  f"{idp} IDP {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"SASS of {name}: {igmma} IGMMA, {ldgsts} LDGSTS and "
+                     f"{idp} IDP instructions")
+            continue
         if "sn_square_mma_kernel" in name:
             label = "f32gram (sn_square_mma)"
             ok = hmma > 0 and idp == 0
@@ -648,8 +749,8 @@ def sass_phase() -> None:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"SASS of {name}: {hmma} HMMA and {idp} IDP instructions")
-    if checked != 6:  # 3 divide modes x (f32gram, mxu_outer)
-        fail(f"SASS: found {checked} of the 6 tensor-core kernels")
+    if checked != 9:  # 3 divide modes x (sn_rect, f32gram, mxu_outer)
+        fail(f"SASS: found {checked} of the 9 tensor-core kernels")
 
 
 def main() -> None:
@@ -668,27 +769,36 @@ def main() -> None:
         f"kernel build + load: {time.perf_counter() - t0:.1f} s "
         f"({'compiled by nvcc now' if _build.build_log else 'library was already built'})"
     )
+    entry_name = ""
     for line in _build.build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            print(f"  ptxas: {entry.group(1)}")
+            entry_name = entry.group(1)
+            print(f"  ptxas: {entry_name}")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas:   {line.strip()}")
+            if "sn_rect" in entry_name and re.search(r"[1-9]\d* bytes spill", line):
+                fail(f"ptxas spills registers in {entry_name}")
 
+    host_library_phase()
     sass_phase()
     kern = kernel_phase(dev)
     square = square_phase(dev)
     e2e = e2e_phase(dev)
     whole = bench_phase(dev)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
+    if leaked:
+        fail(f"the run loaded {leaked[:5]}: the port imports neither jax nor "
+             "the JAX package")
 
     print(card_line())
     results = {
         "sn_rect": {"launches": e2e["launches"],
                     "max_abs_err": kern[("main", "newton")],
                     "ms": kern[("main", "ms")],
-                    "plain_ms": kern[("main", "plain_ms")]},
+                    "plain_ms": kern[("main", "plain_ms")],
+                    **kern[("main", "bound")]},
         "sn_square": {"launches": whole["launches"], **square["sn_square"]},
         "sn_square_mma": {"launches": whole["mma_launches"],
                           **square["sn_square_mma"]},
@@ -699,6 +809,9 @@ def main() -> None:
         "source": f"parfastaai_tpu_torch/csrc/{name}.cu",
         "replaces": ", ".join(f"{PALLAS}:{line}" for line in REPLACES[name]),
         **results[name],
+        # no single PyTorch call computes P Gram products, the per-protein
+        # transform and the two running sums
+        "library_ms": None,
     } for name in ("sn_rect", "sn_square", "sn_square_mma")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

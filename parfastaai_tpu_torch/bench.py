@@ -48,7 +48,7 @@ import time
 import numpy as np
 import torch
 
-from .host import MAX_K_SINGLE_BLOCK
+from .constants import MAX_K_SINGLE_BLOCK
 from .ops import sn_rect, sn_square
 
 BASELINE_PAIRS_PER_SEC = 133.1  # BASELINE_MEASURED.json, as bench.py
@@ -213,7 +213,7 @@ def kb_bench(device: torch.device, env) -> dict:
         device, steps, reps,
     )
     if device.type == "cuda":
-        tile, ks = 64, sn_rect.K_SLICE
+        tile, ks = sn_rect.TILE, sn_rect.K_SLICE
         macs = p * (-(-a // tile) * tile) * (-(-b // tile) * tile) * (
             -(-k // ks) * ks
         )

@@ -19,23 +19,19 @@ import sys
 from . import __version__
 from .device import resolve_device
 from .engine import compute, compute_fast
-from .host import (
-    ErrorCode,
-    PFAAIError,
-    QueryTargetDatabase,
-    SCPDatabase,
+from .etl.database import QueryTargetDatabase, SCPDatabase
+from .etl.derive import derive_qsub, derive_qt, derive_single
+from .io.csv_writer import write_aji_csv
+from .io.fmtfloat import format_double
+from .modes import (
     all_vs_all,
-    derive_qsub,
-    derive_qt,
-    derive_single,
-    format_double,
-    phase_timer,
     query_subset,
     query_subset_axes,
     query_target,
     query_target_axes,
-    write_aji_csv,
 )
+from .types import ErrorCode, PFAAIError
+from .utils.timing import phase_timer
 
 _NOT_PORTED = ("streamed", "exact", "staged", "mesh", "resume", "profile")
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .host import ErrorCode, PFAAIError
+from .types import ErrorCode, PFAAIError
 
 
 def resolve_device(name: str) -> torch.device:

@@ -26,18 +26,12 @@ import time
 import numpy as np
 import torch
 
-from .host import (
-    ErrorCode,
-    JacResult,
-    PairSpace,
-    PFAAIError,
-    PresenceData,
-    bucket_bounds,
-    bucketize_presence,
-    native_jaccard_finish,
-)
+from .etl.database import PresenceData, bucket_bounds, bucketize_presence
+from .modes import PairSpace
+from .native import native_jaccard_finish
 from .ops.fused import pair_counts_device
 from .ops.sn_rect import clamp_t, fused_sn_block
+from .types import ErrorCode, JacResult, PFAAIError
 
 
 def _sync(device: torch.device) -> None:

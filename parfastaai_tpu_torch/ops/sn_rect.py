@@ -28,14 +28,42 @@ from .fused import int_gram
 # Kernel launches since the process started (or since a caller reset it).
 LAUNCHES = 0
 
-# K bytes the kernel stages per shared-memory slice; K is zero-padded to a
-# multiple (exact: zero columns add 0 to every count).  Width buckets are
-# already multiples of 128 (etl.database.bucket_bounds), so the main path
-# never pads.
-K_SLICE = 64
+# K bytes the kernel stages per shared-memory slice (one 128-byte swizzled
+# row per genome); K is zero-padded to a multiple (exact: zero columns add 0
+# to every count).  Width buckets are already multiples of 128
+# (etl.database.bucket_bounds), so the main path never pads.
+K_SLICE = 128
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
-_MAX_GRID_ROWS = 65535  # CUDA grid.y limit, in 64-row tiles
-_TILE = 64
+# The kernel's block: a TILE x TILE piece of the output, two warpgroups of
+# 128 threads with 64 rows of it each, on a 1-D grid.
+TILE = 128
+THREADS = 256
+_MAX_TILES = 2**31 - 1  # CUDA grid.x limit
+
+
+# The kernel's index maps, as csrc/sn_rect.cu computes them (the tests hold
+# them to covering every staged byte and every output cell exactly once).
+
+
+def loader_chunks(tid: int) -> list[tuple[int, int]]:
+    """(row, 16-byte chunk) pairs of one side's TILE staged rows that thread
+    ``tid`` of a block copies per slice."""
+    return [(tid // 8 + 32 * i, tid % 8) for i in range(TILE // 32)]
+
+
+def staged_offset(row: int, chunk: int) -> int:
+    """Byte offset in a staged tile of 16-byte chunk ``chunk`` of row
+    ``row``: 128-byte rows in the 128-byte swizzle of wgmma's K-major
+    shared-memory layout (chunk ^ row % 8 within the row)."""
+    return row * K_SLICE + ((chunk ^ (row & 7)) << 4)
+
+
+def accumulator_cell(thread: int, i: int) -> tuple[int, int]:
+    """(row, column), in a warpgroup's 64 x TILE piece, of accumulator
+    element ``i`` of ``thread`` (0..127) of the warpgroup."""
+    warp, g, tig = thread // 32, thread % 32 // 4, thread % 4
+    j, e = i // 4, i % 4
+    return 16 * warp + g + 8 * (e // 2), 8 * j + 2 * tig + e % 2
 
 
 def clamp_t(t: torch.Tensor) -> torch.Tensor:
@@ -125,8 +153,6 @@ def fused_sn_block(
         raise ValueError(f"fused_sn_block runs on cuda or cpu, not {dev}")
     P, A, K = ma.shape
     B = mb.shape[1]
-    if -(-A // _TILE) > _MAX_GRID_ROWS:
-        raise ValueError(f"A={A} exceeds the kernel's grid limit")
     if K % K_SLICE:
         pad = K_SLICE - K % K_SLICE
         ma = F.pad(ma, (0, pad))
@@ -135,10 +161,13 @@ def fused_sn_block(
     for name, x in (("ma", ma), ("mb", mb)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if A == 0 or B == 0 or P == 0 or K == 0:
+        return (torch.zeros((A, B), dtype=torch.float32, device=dev),
+                torch.zeros((A, B), dtype=torch.int32, device=dev))
+    if -(-A // TILE) * -(-B // TILE) > _MAX_TILES:
+        raise ValueError(f"A={A} x B={B} exceeds the kernel's grid limit")
     s = torch.empty((A, B), dtype=torch.float32, device=dev)
     n = torch.empty((A, B), dtype=torch.int32, device=dev)
-    if A == 0 or B == 0:
-        return s, n
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -31,18 +31,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..host import MAX_K_SINGLE_BLOCK
+from ..constants import MAX_K_SINGLE_BLOCK
 from . import _build
 from .fused import int_gram
-from .sn_rect import K_SLICE, _as_int8, clamp_t
+from .sn_rect import _as_int8, clamp_t
 
 # Kernel launches since the process started (or since a caller reset it):
 # csrc/sn_square.cu's and, apart, csrc/sn_square_mma.cu's.
 LAUNCHES = 0
 MMA_LAUNCHES = 0
 
-# Output tile edge of the kernel (rows and columns per thread block).
+# Output tile edge of the kernel (rows and columns per thread block) and
+# the K bytes it stages per shared-memory slice (K is zero-padded to a
+# multiple).
 TILE = 64
+K_SLICE = 64
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 # Updates of the two-proteins-per-step body (the 2p variants of the TPU
 # kernel), as csrc/sn_square.cu's kUpdate codes.  'lean' and 'base' run

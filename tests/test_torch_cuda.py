@@ -31,12 +31,22 @@ def _block(dev, P, A, B, K, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,A,B,K", [(3, 70, 130, 256), (2, 65, 33, 200)])
+@pytest.mark.parametrize(
+    "P,A,B,K",
+    [
+        (3, 70, 130, 256),
+        (2, 65, 33, 200),
+        (1, 77, 131, 256),  # one protein, A and B off the 128 x 128 block
+        (9, 129, 300, 128),  # one slice per protein: the ring wraps at once
+        (3, 40, 24, 64),  # half a slice: zero-padded to one
+        (5, 128, 256, 896),  # whole blocks, more slices than ring stages
+    ],
+)
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_rect_kernel_matches_plain(cuda, P, A, B, K, mode):
     """N exact in every mode; S bit-equal under the IEEE divide, within
     2e-6 relative under Newton, AJI within 1e-3 under the raw reciprocal.
-    K=200 exercises the wrapper's zero-pad to the 64-byte slice."""
+    K=200 and K=64 exercise the wrapper's zero-pad to the 128-byte slice."""
     ma, mb, ta, tb = _block(cuda, P, A, B, K, seed=P + A + B + K)
     s_ref, n_ref = sn_rect.fused_sn_block_plain(ma, mb, ta, tb)
     before = sn_rect.LAUNCHES
@@ -192,9 +202,35 @@ def test_sn_rect_kernel_rejects_non_contiguous(cuda):
         )
 
 
+@pytest.mark.cuda
+def test_sn_rect_kernel_rejects_misaligned(cuda):
+    """The kernel copies 16 bytes a thread: an operand whose first byte is
+    not 16-byte aligned raises."""
+    ma, mb, ta, tb = _block(cuda, 2, 64, 64, 128, seed=2)
+    flat = torch.zeros(ma.numel() + 16, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:1 + ma.numel()].view(ma.shape)
+    shifted.copy_(ma)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sn_rect.fused_sn_block(shifted, mb, ta, tb)
+
+
+@pytest.mark.cuda
+def test_sn_rect_kernel_empty_protein_axis(cuda):
+    """No protein: S and N are zeros and nothing is launched."""
+    ma = torch.zeros((0, 70, 128), dtype=torch.uint8, device=cuda)
+    mb = torch.zeros((0, 30, 128), dtype=torch.uint8, device=cuda)
+    ta = torch.zeros((0, 70), dtype=torch.float32, device=cuda)
+    tb = torch.zeros((0, 30), dtype=torch.float32, device=cuda)
+    before = sn_rect.LAUNCHES
+    s, n = sn_rect.fused_sn_block(ma, mb, ta, tb)
+    assert sn_rect.LAUNCHES == before
+    assert tuple(s.shape) == (70, 30) and not s.any() and not n.any()
+
+
 @pytest.fixture(scope="module")
 def synth_db(tmp_path_factory):
-    from parfastaai_tpu.tools.synth_db import generate
+    from parfastaai_tpu_torch.tools.synth_db import generate
 
     path = str(tmp_path_factory.mktemp("torch_cuda") / "synth.db")
     generate(path, n_genomes=40, n_proteins=6, pool_size=300,

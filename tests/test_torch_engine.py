@@ -15,9 +15,9 @@ from parfastaai_tpu.etl.database import (
 )
 from parfastaai_tpu.modes import all_vs_all, query_subset, query_target
 from parfastaai_tpu.tools.synth_db import generate
-from parfastaai_tpu.types import ErrorCode, PFAAIError
 from parfastaai_tpu_torch import engine
 from parfastaai_tpu_torch.ops import sn_rect
+from parfastaai_tpu_torch.types import ErrorCode, PFAAIError
 
 CPU = torch.device("cpu")
 

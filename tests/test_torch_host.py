@@ -1,0 +1,426 @@
+"""The port's own host modules against the JAX package's originals.
+
+Each module that ``parfastaai_tpu_torch`` keeps as its own copy (ETL and
+width buckets, the three pair spaces and their axes, E derivation, the
+native f64 finish, the float formatter, the CSV writer, the synthetic
+database generator) is held against its original on the same inputs, made
+from a seed on synthetic databases: arrays equal, floats bit-equal, files
+byte-equal.  A last test starts a fresh interpreter, imports the port's
+entry modules, runs its CLI on the CPU and checks that neither ``jax`` nor
+anything of ``parfastaai_tpu`` was loaded.
+"""
+
+import dataclasses
+import hashlib
+import os
+import sqlite3
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from parfastaai_tpu import constants as jax_constants
+from parfastaai_tpu import engine as jax_engine
+from parfastaai_tpu import modes as jax_modes
+from parfastaai_tpu import native as jax_native
+from parfastaai_tpu import types as jax_types
+from parfastaai_tpu.etl import database as jax_database
+from parfastaai_tpu.etl import derive as jax_derive
+from parfastaai_tpu.io import csv_writer as jax_csv
+from parfastaai_tpu.io.fmtfloat import format_double as jax_format_double
+from parfastaai_tpu.tools import synth_db as jax_synth
+from parfastaai_tpu_torch import constants, engine, modes, native, types
+from parfastaai_tpu_torch.etl import database, derive
+from parfastaai_tpu_torch.io import csv_writer
+from parfastaai_tpu_torch.io.fmtfloat import format_double
+from parfastaai_tpu_torch.tools import synth_db
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUERIES = [f"synthetic_genome_{i:05d}.fna.gz" for i in (21, 3, 12)]
+
+
+@pytest.fixture(scope="module")
+def dbs(tmp_path_factory):
+    """A 32-genome target DB and a 16-genome query DB with disjoint genome
+    names (5 proteins, pool 300, ~100 tetramers per genome)."""
+    d = tmp_path_factory.mktemp("torch_host")
+    target, query = str(d / "target.db"), str(d / "query.db")
+    synth_db.generate(target, n_genomes=32, n_proteins=5, pool_size=300,
+                      tetras_per_genome=100, seed=5)
+    synth_db.generate(query, n_genomes=16, n_proteins=5, pool_size=300,
+                      tetras_per_genome=100, seed=6)
+    with sqlite3.connect(query) as conn:
+        conn.execute("UPDATE genome_metadata SET genome_name = 'q_' || genome_name")
+    return target, query
+
+
+def assert_same_record(got, want):
+    """Two dataclass instances of the two packages, field by field."""
+    names = [f.name for f in dataclasses.fields(want)]
+    assert [f.name for f in dataclasses.fields(got)] == names
+    for name in names:
+        assert_same_value(getattr(got, name), getattr(want, name), name)
+
+
+def assert_same_value(g, w, name=""):
+    if dataclasses.is_dataclass(w):
+        assert_same_record(g, w)
+    elif isinstance(w, np.ndarray):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    elif isinstance(w, list):
+        assert len(g) == len(w), name
+        for a, b in zip(g, w):
+            assert_same_value(a, b, name)
+    else:
+        assert g == w, name
+
+
+def _dump(path):
+    with sqlite3.connect(path) as conn:
+        return "\n".join(conn.iterdump())
+
+
+def test_constants_and_types_match():
+    for name in ("NTETRAMERS", "DEFAULT_SEPARATOR", "LANE", "K_BLOCK",
+                 "MAX_K_SINGLE_BLOCK"):
+        assert getattr(constants, name) == getattr(jax_constants, name)
+    assert {c.name: int(c) for c in types.ErrorCode} == {
+        c.name: int(c) for c in jax_types.ErrorCode}
+    assert types.PFAAIError is not jax_types.PFAAIError
+    err = types.PFAAIError(types.ErrorCode.CONSTRUCT_ERROR, "x")
+    ref = jax_types.PFAAIError(jax_types.ErrorCode.CONSTRUCT_ERROR, "x")
+    assert str(err) == str(ref) and int(err.code) == int(ref.code)
+
+
+def test_synth_db_same_rows(tmp_path):
+    got, want = str(tmp_path / "port.db"), str(tmp_path / "jax.db")
+    kw = dict(n_genomes=12, n_proteins=3, pool_size=120, tetras_per_genome=40,
+              seed=9)
+    synth_db.generate(got, **kw)
+    jax_synth.generate(want, **kw)
+    assert _dump(got) == _dump(want)
+
+
+@pytest.mark.parametrize(
+    "widths",
+    [
+        [58, 558, 130, 131, 400, 90, 300],
+        [128],
+        [100, 100, 100, 100, 100],
+        [1200, 33000, 40000, 70, 1190, 51200],
+        list(range(10, 800, 37)),
+    ],
+)
+@pytest.mark.parametrize("max_buckets", [1, 4])
+def test_bucket_bounds_match(widths, max_buckets):
+    w = np.array(widths, dtype=np.int32)
+    order, bounds = database.bucket_bounds(w, max_buckets)
+    order_ref, bounds_ref = jax_database.bucket_bounds(w, max_buckets)
+    np.testing.assert_array_equal(order, order_ref)
+    assert order.dtype == order_ref.dtype
+    assert bounds == bounds_ref
+
+
+def test_presence_single_db_matches(dbs):
+    target, _ = dbs
+    db, ref = database.SCPDatabase(target), jax_database.SCPDatabase(target)
+    try:
+        assert_same_record(db.meta, ref.meta)
+        np.testing.assert_array_equal(db.load_t_matrix(), ref.load_t_matrix())
+        assert_same_record(db.load_presence(), ref.load_presence())
+    finally:
+        db.close()
+        ref.close()
+
+
+def test_presence_query_target_matches(dbs):
+    db = database.QueryTargetDatabase(*dbs)
+    ref = jax_database.QueryTargetDatabase(*dbs)
+    try:
+        assert_same_record(db.meta, ref.meta)
+        np.testing.assert_array_equal(db.load_t_matrix(), ref.load_t_matrix())
+        assert_same_record(db.load_presence(), ref.load_presence())
+    finally:
+        db.close()
+        ref.close()
+
+
+def test_presence_without_native_matches(dbs, monkeypatch):
+    """The stdlib-sqlite3 ETL (no native library) gives the same tensors as
+    the native one."""
+    target, _ = dbs
+    db = database.SCPDatabase(target)
+    try:
+        want = db.load_presence()
+        monkeypatch.setenv("PARFASTAAI_NO_NATIVE", "1")
+        monkeypatch.setattr(native, "_TRIED", False)
+        monkeypatch.setattr(native, "_LIB", None)
+        assert native.get_lib() is None
+        assert_same_record(db.load_presence(), want)
+    finally:
+        db.close()
+
+
+def test_bucketize_presence_matches(dbs):
+    target, _ = dbs
+    db, ref = database.SCPDatabase(target), jax_database.SCPDatabase(target)
+    try:
+        got = database.bucketize_presence(db.load_presence(), max_buckets=3)
+        want = jax_database.bucketize_presence(ref.load_presence(),
+                                               max_buckets=3)
+    finally:
+        db.close()
+        ref.close()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_same_value(list(g), list(w))
+        assert g[1].flags.c_contiguous
+
+
+def _metas(dbs):
+    target, query = dbs
+    db = database.SCPDatabase(target)
+    qt = database.QueryTargetDatabase(target, query)
+    try:
+        return db.meta, qt.meta
+    finally:
+        db.close()
+        qt.close()
+
+
+def _jax_meta(meta):
+    return jax_types.DBMetaData(**dataclasses.asdict(meta))
+
+
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt", "qt_noswap"])
+def test_pair_spaces_match(dbs, mode):
+    single, qt = _metas(dbs)
+    if mode == "all":
+        got = modes.all_vs_all(single)
+        want = jax_modes.all_vs_all(_jax_meta(single))
+    elif mode == "qsub":
+        got = modes.query_subset(single, QUERIES)
+        want = jax_modes.query_subset(_jax_meta(single), QUERIES)
+    else:
+        swap = mode == "qt"
+        got = modes.query_target(qt, compat_qt_t_swap=swap)
+        want = jax_modes.query_target(_jax_meta(qt), compat_qt_t_swap=swap)
+    assert got.n_pairs == want.n_pairs > 0
+    assert_same_record(got, want)
+
+
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt"])
+def test_stream_axes_match(dbs, mode):
+    single, qt = _metas(dbs)
+    if mode == "all":
+        got = modes.all_vs_all_axes(single)
+        want = jax_modes.all_vs_all_axes(_jax_meta(single))
+    elif mode == "qsub":
+        got = modes.query_subset_axes(single, QUERIES)
+        want = jax_modes.query_subset_axes(_jax_meta(single), QUERIES)
+    else:
+        got = modes.query_target_axes(qt)
+        want = jax_modes.query_target_axes(_jax_meta(qt))
+    assert_same_record(got, want)
+
+
+@pytest.mark.parametrize(
+    "bad", [["definitely_not_a_genome"], [QUERIES[0], QUERIES[0]]])
+def test_query_subset_rejects_like_the_original(dbs, bad):
+    single, _ = _metas(dbs)
+    with pytest.raises(jax_types.PFAAIError) as want:
+        jax_modes.query_subset(_jax_meta(single), bad)
+    with pytest.raises(types.PFAAIError) as got:
+        modes.query_subset(single, bad)
+    assert int(got.value.code) == int(want.value.code)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("mode", ["single", "qsub", "qt"])
+def test_derive_matches(dbs, mode):
+    target, query = dbs
+    if mode == "qt":
+        db = database.QueryTargetDatabase(target, query)
+        ref = jax_database.QueryTargetDatabase(target, query)
+    else:
+        db, ref = database.SCPDatabase(target), jax_database.SCPDatabase(target)
+    try:
+        if mode == "single":
+            got, want = derive.derive_single(db), jax_derive.derive_single(ref)
+        elif mode == "qsub":
+            got = derive.derive_qsub(db, QUERIES)
+            want = jax_derive.derive_qsub(ref, QUERIES)
+        else:
+            got, want = derive.derive_qt(db), jax_derive.derive_qt(ref)
+    finally:
+        db.close()
+        ref.close()
+    assert len(got) == len(want) == 4
+    assert len(got[3]) > 0
+    for g, w in zip(got, want):
+        assert_same_value(g, w)
+
+
+def _finish_inputs(dtype):
+    rng = np.random.default_rng(11)
+    P, n = 7, 501
+    ta = rng.integers(1, 400, size=(P, n), dtype=np.int32)
+    tb = rng.integers(1, 400, size=(P, n), dtype=np.int32)
+    counts = (rng.random((P, n)) * np.minimum(ta, tb)).astype(dtype)
+    counts[:, ::5] = 0  # pairs that share nothing for some proteins
+    return counts, ta, tb
+
+
+def _finish_reference(counts, ta, tb):
+    """Ascending-protein f64 accumulation, one pair at a time."""
+    P, n = counts.shape
+    s = np.zeros(n, np.float64)
+    nsh = np.zeros(n, np.int32)
+    for j in range(n):
+        for p in range(P):
+            c = int(counts[p, j])
+            if c > 0:
+                s[j] += np.float64(c) / np.float64(int(ta[p, j]) + int(tb[p, j]) - c)
+                nsh[j] += 1
+    return s, nsh
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_native_jaccard_finish_bit_equal(dtype):
+    counts, ta, tb = _finish_inputs(dtype)
+    got = native.native_jaccard_finish(counts, ta, tb)
+    want = jax_native.native_jaccard_finish(counts, ta, tb)
+    assert got is not None and want is not None
+    s_ref, n_ref = _finish_reference(counts, ta, tb)
+    for (s, n) in (got, want):
+        assert s.dtype == np.float64 and n.dtype == np.int32
+        assert s.tobytes() == s_ref.tobytes()
+        np.testing.assert_array_equal(n, n_ref)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_jaccard_finish_without_native_bit_equal(dtype, monkeypatch):
+    """PARFASTAAI_NO_NATIVE keeps its meaning: no library, and the NumPy
+    twin gives the same f64 bits as the native finish and as the JAX
+    package's twin."""
+    counts, ta, tb = _finish_inputs(dtype)
+    with_lib = native.native_jaccard_finish(counts, ta, tb)
+    assert with_lib is not None
+    monkeypatch.setenv("PARFASTAAI_NO_NATIVE", "1")
+    for mod in (native, jax_native):
+        monkeypatch.setattr(mod, "_TRIED", False)
+        monkeypatch.setattr(mod, "_LIB", None)
+    assert native.get_lib() is None
+    assert native.native_jaccard_finish(counts, ta, tb) is None
+    s, n = engine.jaccard_finish(counts, ta, tb)
+    s_ref, n_ref = jax_engine.jaccard_finish(counts, ta, tb)
+    assert s.tobytes() == s_ref.tobytes() == with_lib[0].tobytes()
+    np.testing.assert_array_equal(n, n_ref)
+    np.testing.assert_array_equal(n, with_lib[1])
+
+
+def test_native_library_lives_in_the_port_build_dir():
+    """Built from the port's two sources into the port's _build directory,
+    under the hash of those sources."""
+    assert native.get_lib() is not None
+    h = hashlib.sha256()
+    for src in native._SRCS:
+        assert os.path.dirname(src) == os.path.join(
+            REPO, "parfastaai_tpu_torch", "native")
+        with open(src, "rb") as fp:
+            h.update(fp.read())
+    so = os.path.join(REPO, "parfastaai_tpu_torch", "_build",
+                      f"pfaai_native_{h.hexdigest()[:16]}.so")
+    assert native.BUILD_DIR == os.path.dirname(so)
+    assert os.path.exists(so)
+
+
+DOUBLES = [
+    0.0, -0.0, 1.0, 0.5, 1e-4, 9.999e-5, 1e16, 1e15 + 0.5, 5e-324,
+    1.7976931348623157e308, 0.9468103868455618, 0.1, 1 / 3, 2 / 3, 123456.789,
+    1e-7, 1e22, 1e21, 123456789012345680.0, -0.25, -1e-10,
+    float("nan"), float("inf"), float("-inf"),
+]
+
+
+@pytest.mark.parametrize("value", DOUBLES, ids=[repr(v) for v in DOUBLES])
+def test_format_double_matches(value):
+    assert format_double(value) == jax_format_double(value)
+
+
+def test_format_double_matches_random():
+    rng = np.random.default_rng(3)
+    vals = np.concatenate([rng.random(300), rng.random(100) * 1e-6,
+                           rng.random(100) * 1e18])
+    for v in vals:
+        assert format_double(v) == jax_format_double(v)
+
+
+def test_native_formatter_matches_python(monkeypatch):
+    rng = np.random.default_rng(4)
+    mat = rng.random((9, 13))
+    mat[2, 3] = np.nan
+    mat[0, 0] = 0.0
+    rows = native.native_format_matrix(mat, ",")
+    assert rows is not None
+    assert rows == jax_native.native_format_matrix(mat, ",")
+    assert [r.decode() for r in rows] == [
+        ",".join(format_double(v) for v in row) for row in mat]
+    assert native.native_format_row(mat[1], ";") == ";".join(
+        format_double(v) for v in mat[1]).encode()
+
+
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt"])
+@pytest.mark.parametrize("sep", [",", ";", "::"])
+def test_write_aji_csv_bytes_equal(dbs, tmp_path, mode, sep):
+    single, qt = _metas(dbs)
+    if mode == "all":
+        pairs = modes.all_vs_all(single)
+        ref = jax_modes.all_vs_all(_jax_meta(single))
+    elif mode == "qsub":
+        pairs = modes.query_subset(single, QUERIES)
+        ref = jax_modes.query_subset(_jax_meta(single), QUERIES)
+    else:
+        pairs = modes.query_target(qt)
+        ref = jax_modes.query_target(_jax_meta(qt))
+    rng = np.random.default_rng(8)
+    aji = rng.random(pairs.n_pairs)
+    aji[::7] = np.nan
+    got, want = tmp_path / "port.csv", tmp_path / "jax.csv"
+    csv_writer.write_aji_csv(str(got), pairs, aji, sep)
+    jax_csv.write_aji_csv(str(want), ref, aji, sep)
+    assert got.read_bytes() == want.read_bytes()
+    assert got.stat().st_size > 0
+
+
+_FRESH = r"""
+import sys
+import parfastaai_tpu_torch.cli, parfastaai_tpu_torch.engine
+import parfastaai_tpu_torch.bench, parfastaai_tpu_torch.ops.sn_square
+from parfastaai_tpu_torch.cli import run
+db, out = sys.argv[1:3]
+for flags in ([], ["--fast"]):
+    rc = run([db, out, "--quiet", "--device", "cpu", *flags])
+    assert rc == 0, rc
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
+assert not bad, bad
+print("clean", len(open(out).read().splitlines()))
+"""
+
+
+def test_fresh_process_loads_no_jax_package(dbs, tmp_path):
+    """A new interpreter that imports the port's entry modules and runs its
+    CLI on the CPU loads no ``jax*`` module and nothing of
+    ``parfastaai_tpu``."""
+    target, _ = dbs
+    out = tmp_path / "aji.csv"
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    res = subprocess.run(
+        [sys.executable, "-c", _FRESH, target, str(out)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["clean", "33"]

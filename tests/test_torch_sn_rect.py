@@ -53,6 +53,10 @@ def _torch_block(ma, mb, ta, tb):
     "P,A,B,K,density",
     [
         (5, 70, 130, 256, 0.2),
+        # neither A nor B a multiple of the kernel's block, one protein
+        (1, 77, 131, 256, 0.3),
+        # K of a single kernel slice
+        (3, 140, 24, 128, 0.3),
         # K past the single-block limit: the JAX side runs _pallas_sn_rect_kb
         (2, 4, 8, MAX_K_SINGLE_BLOCK + 300, 0.05),
     ],
@@ -108,6 +112,48 @@ def test_wrapper_rejects_bad_operands():
     meta = [x.to("meta") for x in (ma, mb, ta, tb)]
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         sn_rect.fused_sn_block(*meta)
+
+
+def test_kernel_loader_covers_each_staged_chunk_once():
+    """Over a block's threads, the loader's (row, chunk) pairs are each
+    16-byte chunk of each staged row of one side exactly once, and the
+    swizzle sends them to distinct 16-byte cells of the staged tile."""
+    got = [c for tid in range(sn_rect.THREADS)
+           for c in sn_rect.loader_chunks(tid)]
+    assert sorted(got) == [(r, c) for r in range(sn_rect.TILE)
+                           for c in range(sn_rect.K_SLICE // 16)]
+    cells = sorted(sn_rect.staged_offset(r, c) for r, c in got)
+    assert cells == list(range(0, sn_rect.TILE * sn_rect.K_SLICE, 16))
+    assert 2 * sn_rect.TILE == sn_rect.THREADS  # one T value a thread
+
+
+def test_kernel_swizzle_is_the_address_bit_xor():
+    """The staged layout is wgmma's 128-byte swizzle: bits 4-6 of the byte
+    address XORed with bits 7-9, on tiles that start at a multiple of 1024
+    bytes; a row stays within its own 128 bytes."""
+    for row in range(sn_rect.TILE):
+        for chunk in range(8):
+            linear = row * 128 + chunk * 16
+            want = linear ^ (((linear >> 7) & 7) << 4)
+            assert sn_rect.staged_offset(row, chunk) == want
+            assert want // 128 == row
+
+
+def test_kernel_accumulator_cells_cover_the_warpgroup_piece_once():
+    cells = [sn_rect.accumulator_cell(thread, i)
+             for thread in range(128) for i in range(sn_rect.TILE // 2)]
+    assert sorted(cells) == [(r, c) for r in range(64)
+                             for c in range(sn_rect.TILE)]
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """TILE, THREADS and K_SLICE are the constants of csrc/sn_rect.cu."""
+    src = open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
+                            "sn_rect.cu")).read()
+    for name, want in (("kBM", sn_rect.TILE), ("kBN", sn_rect.TILE),
+                       ("kThreads", sn_rect.THREADS),
+                       ("kSliceBytes", sn_rect.K_SLICE)):
+        assert f"constexpr int {name} = {want};" in src
 
 
 @pytest.mark.parametrize("A,B,K", [(3, 5, 7), (40, 24, 256), (17, 9, 131)])
