@@ -7,8 +7,9 @@ Run from the repository root:
 
 1. Builds the CUDA kernels (nvcc) and the host library (g++) from the
    sources in this checkout, checks in the kernels' SASS (cuobjdump) that
-   the tensor-core kernels run on the tensor cores (sn_rect: IGMMA, the
-   warpgroup product, and asynchronous copies, no __dp4a), and checks each
+   the tensor-core kernels run on the tensor cores (sn_rect and
+   sn_square_wgmma: IGMMA, the warpgroup product, and asynchronous copies,
+   no __dp4a), and checks each
    kernel against its plain PyTorch version on the card, in every divide
    mode:
    * sn_rect at the --fast path's block shape, at ragged shapes (one with
@@ -16,18 +17,24 @@ Run from the repository root:
      TPU package's single-block limit and at the kb bench's block, with a
      K sweep at the --fast block that splits its time into a slope per
      presence column and an intercept;
-   * sn_square (the whole-matrix kernel behind ``sn_square.fused_aji``) at
-     the benchmark's shape through ``fused_aji``'s default plan and its
-     other walks, packings and updates, at a ragged G and in the K-blocked
-     regime;
+   * the whole-matrix kernels behind ``sn_square.fused_aji`` at the
+     benchmark's shape: sn_square_wgmma (int8 wgmma in 128 x 128 tiles)
+     through ``fused_aji``'s default plan, one and two proteins per step,
+     the full square and the K-blocked plans, with S and N bit-symmetric
+     and a K sweep that splits its time into a slope per presence column
+     and an intercept; sn_square (``__dp4a`` in 64 x 64 tiles) through the
+     other walks, packings and updates; both also at ragged, one-tile and
+     one-slice shapes and at a K wider than the TPU package's single-block
+     limit;
    * the two-proteins-per-step variants ``pipe``, ``mxu_outer`` and
      ``f32gram`` (sn_square_mma, the counts on the tensor cores) at the
      benchmark's shape, a ragged G and an odd P, each also bit-equal to
      the kernel whose values it keeps (``lean`` or ``fused``).
    Kernel and plain times are taken with CUDA events at the main shapes,
    and each kernel's bound (the larger of its bytes over the card's
-   memory rate and its MACs over the int8 tensor-core peak) is computed
-   from the same inputs.
+   memory rate and the MACs its function needs over the int8 tensor-core
+   peak: P K G (G + 1) / 2 for a symmetric square, whatever tiles the
+   kernel walks) is computed from the same inputs.
 2. Runs the port's CLI once, in process, as a user would:
    ``--fast --device cuda`` all-vs-all on a synthetic database at the
    benchmark's size (4096 genomes, 80 proteins, pool 1200, 400 tetramers
@@ -36,7 +43,8 @@ Run from the repository root:
    against exact integer counts finished in f64 on the host (numpy).
 3. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
-   read just after), once with the default update and once with each
+   read just after), once with the default update, which must launch
+   sn_square_wgmma and no other kernel, and once with each
    ``PARFASTAAI_BENCH_VARIANT`` above, and in kb mode, echoing their JSON
    lines, and checks a band of ``fused_aji`` on the bench's workload
    against exact f64.
@@ -77,7 +85,8 @@ SHAPES = [
     ("wide_k", 2, 256, 256, 34816),
     ("kb", 16, 1024, 1024, 51200),
 ]
-# K sweep of sn_rect at the main shape's P, A, B.
+# K sweep of sn_rect at the main shape's P, A, B and of sn_square_wgmma at
+# the bench shape's P, G.
 K_SWEEP = (640, 1280, 2560)
 MODES = [
     ("newton", {}),
@@ -94,7 +103,10 @@ RTOL_APPROX_AJI = 1e-3
 # of 1280 present), a ragged G, and K past the TPU's single-block limit.
 SQUARE_MAIN = (80, 4096, 1280)
 SQUARE_DENSITY = 400 / 1280
-SQUARE_SMALL = [("ragged", 3, 300, 256), ("wide_k", 2, 256, 34816)]
+# Then: one ragged 128 x 128 tile, and a diagonal tile with a one-row edge
+# at one kernel slice per protein.
+SQUARE_SMALL = [("ragged", 3, 300, 256), ("wide_k", 2, 256, 34816),
+                ("one_tile", 3, 77, 256), ("one_slice", 9, 129, 128)]
 # The 2p variants, each with the update whose values it keeps, checked at
 # the bench shape and at these (a ragged G, an odd P).
 VARIANTS = {"pipe": "lean", "mxu_outer": "fused", "f32gram": "lean"}
@@ -108,6 +120,7 @@ PALLAS = "parfastaai_tpu/ops/pallas_intersect.py"
 REPLACES = {
     "sn_rect": (1112, 697),
     "sn_square": (402, 219, 253, 339, 802, 744, 593, 636, 867, 949, 1035),
+    "sn_square_wgmma": (402, 219, 315, 802, 744, 593, 636),
     "sn_square_mma": (315, 82),
 }
 # Device-memory rate (bytes/s) by a substring of
@@ -161,6 +174,14 @@ def bound(macs: float, nbytes: float) -> dict:
 
 def rect_bound(P, A, B, K) -> dict:
     return bound(P * A * B * K, P * (A + B) * (K + 4) + A * B * 8)
+
+
+def square_bound(P, G, K, symmetric: bool = True) -> dict:
+    """Bound of S, N of the G x G square: the MACs the function needs (the
+    upper triangle with its diagonal when the square is computed as
+    symmetric, K unpadded), not those a kernel's tiles execute."""
+    macs = P * K * (G * (G + 1) // 2 if symmetric else G * G)
+    return bound(macs, P * G * (K + 4) + G * G * 8)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -255,17 +276,23 @@ def kernel_phase(dev) -> dict:
         del ma, mb, ta, tb
         torch.cuda.empty_cache()
     for mode, _ in MODES:
-        t = [times[K][mode] for K in K_SWEEP]
-        slopes = [(t[i + 1] - t[i]) / (K_SWEEP[i + 1] - K_SWEEP[i]) * 1e3
-                  for i in range(len(t) - 1)]
-        print(
-            f"sn_rect K sweep P={P} A={A} B={B} {mode}: "
-            + ", ".join(f"K={K} {ms:.3f} ms" for K, ms in zip(K_SWEEP, t))
-            + "; us per presence column "
-            + ", ".join(f"{v:.3f}" for v in slopes)
-            + f"; intercept {t[0] - slopes[0] * K_SWEEP[0] / 1e3:.3f} ms"
-        )
+        print_sweep(f"sn_rect K sweep P={P} A={A} B={B} {mode}",
+                    [times[K][mode] for K in K_SWEEP])
     return report
+
+
+def print_sweep(label: str, t: list) -> None:
+    """One line of a K sweep: the times at K_SWEEP, the slope between
+    neighbours in us per presence column, and the intercept at K = 0."""
+    slopes = [(t[i + 1] - t[i]) / (K_SWEEP[i + 1] - K_SWEEP[i]) * 1e3
+              for i in range(len(t) - 1)]
+    print(
+        f"{label}: "
+        + ", ".join(f"K={K} {ms:.3f} ms" for K, ms in zip(K_SWEEP, t))
+        + "; us per presence column "
+        + ", ".join(f"{v:.3f}" for v in slopes)
+        + f"; intercept {t[0] - slopes[0] * K_SWEEP[0] / 1e3:.3f} ms"
+    )
 
 
 def check(label: str, s, n, s_ref, n_ref, mode: str) -> float:
@@ -323,8 +350,13 @@ def square_checks(label, m, t_raw, tc, s_ref, n_ref, modes) -> dict:
                            s_ref, n_ref, mode)
         if not torch.equal(torch.isnan(aji), n == 0):
             fail(f"{label}: AJI NaN pattern differs from N == 0")
+        if not (torch.equal(s, s.T) and torch.equal(n, n.T)):
+            fail(f"{label}/{mode}: S or N of the default plan is not "
+                 "bit-symmetric")
         for name, run in (
             ("1 protein/step", lambda: sn_square.fused_sn_square(m, tc, **kw)),
+            ("2 proteins/step base", lambda: sn_square.fused_sn_square(
+                m, tc, pairs_per_step=2, update="base", **kw)),
             ("full square", lambda: sn_square.fused_sn_square(
                 m, tc, symmetric=False, **kw)),
             ("diag", lambda: sn_square.sn_sym_diag(m, tc, **kw)),
@@ -371,8 +403,9 @@ def variant_checks(label, m, t_raw, tc) -> dict:
 
 
 def square_phase(dev) -> dict:
-    """sn_square against its plain version at the bench shape, a ragged G
-    and a wide K; kernel and plain times at the bench shape."""
+    """The whole-matrix kernels against their plain versions at the bench
+    shape, small shapes and a wide K; kernel and plain times at the bench
+    shape, each with the MACs that its route's plan executes."""
     import torch
 
     from parfastaai_tpu_torch.ops import sn_square
@@ -386,8 +419,9 @@ def square_phase(dev) -> dict:
     errs = square_checks(label, m, t_raw, tc, s_ref, n_ref,
                          [mode for mode, _ in MODES])
     s_f, n_f = sn_square.fused_sn_square_plain(m, tc, update="fused")
-    _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", precise=True)
-    check(f"sn_square {label} variant=fused", s, n, s_f, n_f, "precise")
+    for mode, kw in MODES:
+        _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", **kw)
+        check(f"sn_square {label} variant=fused", s, n, s_f, n_f, mode)
     s_c, n_c = sn_square.fused_sn_square_plain(m, tc, update="counts")
     _, s, n = sn_square.fused_aji(m, t_raw, variant="counts")
     check(f"sn_square {label} variant=counts", s, n, s_c, n_c, "precise")
@@ -406,39 +440,57 @@ def square_phase(dev) -> dict:
     # times at the bench shape
     sq = sn_square.fused_sn_square
     mp = sn_square.pack_nibbles(m)
-    plan = sn_square.fused_aji_plan(P, G, K)
-    nt, pp = plan["nt"], plan["pp"]
-    tile_macs = sn_square.TILE ** 2 * plan["kp"]
+    # MACs of each route from its own plan: 128-row tiles on the wgmma
+    # kernel, 64-row tiles (two proteins per step in mode 2p) on the others.
+    plan_of = sn_square.fused_aji_plan
+    wgmma_macs = plan_of(P, G, K)["mxu_macs"]
+    plan64 = plan_of(P, G, K, variant="fused")
+    nt, pp = plan64["nt"], plan64["pp"]
+    tile_macs = plan64["tile"] ** 2 * plan64["kp"]
     triu = nt * (nt + 1) // 2
-    main_macs = triu * tile_macs * pp
-    times = time_all(label, [
-        ("2p (fused_aji default)", lambda: sq(m, tc, pairs_per_step=2),
-         triu * tile_macs * pp),
-        ("1 protein/step triu", lambda: sq(m, tc), triu * tile_macs * P),
+    times = time_all(label, (P, G, K), [
+        ("wgmma triu, 2 proteins/step (fused_aji default)",
+         lambda: sq(m, tc, pairs_per_step=2), wgmma_macs, True),
+        # the same launch: the wgmma kernel's protein loop has no steps
+        ("wgmma triu, 1 protein/step", lambda: sq(m, tc), wgmma_macs, True),
+        ("wgmma full square", lambda: sq(m, tc, symmetric=False),
+         plan_of(P, G, K, symmetric=False)["mxu_macs"], False),
         ("1 protein/step triu packed", lambda: sq(mp, tc, packed=True),
-         triu * tile_macs * P),
-        ("full square", lambda: sq(m, tc, symmetric=False),
-         nt * nt * tile_macs * P),
+         plan_of(P, G, K, packed=True)["mxu_macs"], True),
         ("counts", lambda: sq(m, tc, pairs_per_step=2, update="counts"),
-         triu * tile_macs * pp),
+         plan_of(P, G, K, variant="counts")["mxu_macs"], True),
         *((variant, lambda v=variant: sq(m, tc, pairs_per_step=2, update=v),
-           triu * tile_macs * pp)
+           plan_of(P, G, K, variant=variant)["mxu_macs"], True)
           for variant in ("fused", *VARIANTS)),
         ("diag", lambda: sn_square.sn_sym_diag(m, tc),
-         (nt // 2 + 1) * nt * tile_macs * P),
-        ("bands", lambda: sn_square.sn_sym_bands(m, tc), triu * tile_macs * P),
+         (nt // 2 + 1) * nt * tile_macs * P, True),
+        ("bands", lambda: sn_square.sn_sym_bands(m, tc),
+         triu * tile_macs * P, True),
         ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc),
-         triu * tile_macs * pp),
+         triu * tile_macs * pp, True),
         ("plain", lambda: sn_square.fused_sn_square_plain(m, tc),
-         P * G * G * K),
+         P * G * G * K, True),
         *((f"{variant} plain", lambda v=variant:
-           sn_square.fused_sn_square_plain(m, tc, update=v), P * G * G * K)
-          for variant in VARIANTS),
+           sn_square.fused_sn_square_plain(m, tc, update=v), P * G * G * K,
+           True)
+          for variant in ("fused", *VARIANTS)),
         ("fused_aji default", lambda: sn_square.fused_aji(m, t_raw),
-         plan["mxu_macs"]),
+         wgmma_macs, True),
     ])
     del m, mp, t_raw, tc, s_ref, n_ref
     torch.cuda.empty_cache()
+
+    # K sweep of the wgmma kernel at the bench shape's P and G
+    sweep = {}
+    for Ks in K_SWEEP:
+        m, _, tc = random_square(gen, dev, P, G, Ks, SQUARE_DENSITY)
+        sweep[Ks] = {mode: cuda_ms(lambda: sq(m, tc, **kw), 5)
+                     for mode, kw in MODES}
+        del m, tc
+        torch.cuda.empty_cache()
+    for mode, _ in MODES:
+        print_sweep(f"sn_square_wgmma K sweep P={P} G={G} triu {mode}",
+                    [sweep[Ks][mode] for Ks in K_SWEEP])
 
     for label, P, G, K in SQUARE_SMALL:
         m, t_raw, tc = random_square(gen, dev, P, G, K, 0.33)
@@ -461,41 +513,46 @@ def square_phase(dev) -> dict:
                                           **dict(MODES)[mode])
             check(f"sn_square {label} fused_aji {plan['mode']}", s, n, s_ref,
                   n_ref, mode)
-    nt = -(-G // sn_square.TILE)
-    tile_macs = sn_square.TILE ** 2 * K * P
-    times.update(time_all(label, [
-        ("kb_sym", lambda: sq(m, tc), nt * (nt + 1) // 2 * tile_macs),
-        ("kb_full", lambda: sq(m, tc, symmetric=False), nt * nt * tile_macs),
+    times.update(time_all(label, (P, G, K), [
+        ("kb_sym", lambda: sq(m, tc), plan_of(P, G, K)["mxu_macs"], True),
+        ("kb_full", lambda: sq(m, tc, symmetric=False),
+         plan_of(P, G, K, symmetric=False)["mxu_macs"], False),
         ("kb plain", lambda: sn_square.fused_sn_square_plain(m, tc),
-         P * G * G * K),
+         P * G * G * K, True),
     ]))
     del m, t_raw, tc, s_ref, n_ref, s, n
     torch.cuda.empty_cache()
-    P, G, K = SQUARE_MAIN
-    square_bound = bound(main_macs, P * G * (K + 4) + G * G * 8)
-    print(f"sn_square main: bound {square_bound['bound_ms']:.3f} ms by "
-          f"{square_bound['bound_by']} ({main_macs:.4e} MACs in the triu "
-          "tiles)")
+    # one bound for the three: each computes the symmetric square
+    b = square_bound(*SQUARE_MAIN)
+    print(f"sn_square main: bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+          f"of the symmetric square; the tiles execute {wgmma_macs:.4e} MACs "
+          f"(128 x 128) and {plan64['mxu_macs']:.4e} MACs (64 x 64)")
     return {
-        "sn_square": {"max_abs_err": errs["newton"],
-                      "ms": times["2p (fused_aji default)"],
-                      "plain_ms": times["plain"], **square_bound},
+        "sn_square_wgmma": {
+            "max_abs_err": errs["newton"],
+            "ms": times["wgmma triu, 2 proteins/step (fused_aji default)"],
+            "plain_ms": times["plain"], **b},
+        # a route that still runs on the __dp4a kernel
+        "sn_square": {"max_abs_err": variant_errs["pipe"],
+                      "ms": times["pipe"], "plain_ms": times["pipe plain"],
+                      **b},
         "sn_square_mma": {"max_abs_err": variant_errs["f32gram"],
                           "ms": times["f32gram"],
-                          "plain_ms": times["f32gram plain"], **square_bound},
+                          "plain_ms": times["f32gram plain"], **b},
     }
 
 
-def time_all(label: str, timed) -> dict:
-    """CUDA-event ms of each (name, fn, macs), printed with the int8 MACs
-    per second that each call executes and the least time the card could
-    take for those MACs."""
+def time_all(label: str, shape, timed) -> dict:
+    """CUDA-event ms of each (name, fn, executed MACs, symmetric), printed
+    with the int8 MACs per second that the call executes and the bound of
+    the function it computes (``square_bound`` at ``shape``)."""
     times = {}
-    for name, fn, macs in timed:
+    for name, fn, macs, symmetric in timed:
         times[name] = cuda_ms(fn, 3 if "plain" in name else 5)
+        b = square_bound(*shape, symmetric)["bound_ms"]
         print(f"sn_square {label} {name}: {times[name]:.3f} ms "
               f"({macs / times[name] / 1e9:.3f} TMAC/s executed; bound "
-              f"{bound(macs, 0)['bound_ms']:.3f} ms)")
+              f"{b:.3f} ms, {b / times[name]:.1%} of its time)")
     return times
 
 
@@ -508,36 +565,40 @@ def bench_phase(dev) -> dict:
     from parfastaai_tpu_torch import bench
     from parfastaai_tpu_torch.ops import sn_rect, sn_square
 
-    sn_square.LAUNCHES = 0
-    sn_rect.LAUNCHES = 0
-    t0 = time.perf_counter()
-    bench.main({})
-    wall = time.perf_counter() - t0
-    launches = sn_square.LAUNCHES
-    if launches == 0:
-        fail("the kernel-mode bench launched no sn_square kernel")
-    if sn_rect.LAUNCHES:
-        fail("the kernel-mode bench launched sn_rect")
-    print(f"bench kernel mode: {wall:.1f} s in process, sn_square launches "
-          f"{launches}")
-    mma_launches = 0
-    for variant in VARIANTS:
+    def run(env: dict, name: str, what: str) -> dict:
+        """One kernel-mode bench run with every launch counter set to 0
+        just before it and read just after; fails unless it launched
+        ``name`` and no other kernel."""
         sn_square.LAUNCHES = sn_square.MMA_LAUNCHES = 0
+        sn_square.WGMMA_LAUNCHES = sn_rect.LAUNCHES = 0
         t0 = time.perf_counter()
-        bench.main({"PARFASTAAI_BENCH_VARIANT": variant})
+        result = bench.main(env)
         wall = time.perf_counter() - t0
-        mma = variant == "f32gram"
-        ran, other = ((sn_square.MMA_LAUNCHES, sn_square.LAUNCHES) if mma
-                      else (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES))
-        name = "sn_square_mma" if mma else "sn_square"
-        if ran == 0 or other or sn_rect.LAUNCHES:
-            fail(f"the kernel-mode bench with variant={variant} launched "
-                 f"{name} {ran} times and the other kernels "
-                 f"{other + sn_rect.LAUNCHES} times")
-        if mma:
-            mma_launches = ran
-        print(f"bench kernel mode variant={variant}: {wall:.1f} s in "
-              f"process, {name} launches {ran}")
+        ran = {"sn_square": sn_square.LAUNCHES,
+               "sn_square_mma": sn_square.MMA_LAUNCHES,
+               "sn_square_wgmma": sn_square.WGMMA_LAUNCHES,
+               "sn_rect": sn_rect.LAUNCHES}
+        if ran[name] == 0 or any(v for k, v in ran.items() if k != name):
+            fail(f"the kernel-mode bench{what} should launch {name} alone "
+                 f"and launched {ran}")
+        if f"impl=cuda {name}" not in result["metric"]:
+            fail(f"the bench{what} names another kernel than {name}: "
+                 f"{result['metric']}")
+        if result["mfu"] is None or not 0 < result["mfu"] <= 1:
+            fail(f"the bench{what} reads mfu {result['mfu']}")
+        print(f"bench kernel mode{what}: {wall:.1f} s in process, {name} "
+              f"launches {ran[name]}")
+        return ran
+
+    launches = {"sn_square_wgmma": run({}, "sn_square_wgmma", "")[
+        "sn_square_wgmma"]}
+    for variant in VARIANTS:
+        name = "sn_square_mma" if variant == "f32gram" else "sn_square"
+        ran = run({"PARFASTAAI_BENCH_VARIANT": variant}, name,
+                  f" variant={variant}")[name]
+        # sn_square is reported on its 'pipe' route, as square_phase times it
+        if variant != "mxu_outer":
+            launches[name] = ran
     t0 = time.perf_counter()
     sn_rect.LAUNCHES = 0
     bench.main(BENCH_KB_ENV)
@@ -560,7 +621,7 @@ def bench_phase(dev) -> dict:
     err = np.nanmax(np.abs(got - want) / np.abs(want))
     print(f"bench workload band: rows 0..{R - 1} x {m.shape[1]} columns, N "
           f"exact, AJI max rel err {err:.3e} (rtol {RTOL_E2E_AJI}) ok")
-    return {"launches": launches, "mma_launches": mma_launches}
+    return launches
 
 
 def synth_db() -> str:
@@ -702,7 +763,7 @@ def host_library_phase() -> None:
 def sass_phase() -> None:
     """From the toolkit's cuobjdump on the built library: integer warpgroup
     products (IGMMA) and asynchronous copies (LDGSTS) and no __dp4a (IDP)
-    in every sn_rect kernel; HMMA in the f32gram kernel
+    in every sn_rect and sn_square_wgmma kernel; HMMA in the f32gram kernel
     (sn_square_mma) and in sn_square's mxu_outer instantiations, and no IDP
     in the f32gram kernel."""
     from parfastaai_tpu_torch.ops import _build
@@ -725,12 +786,14 @@ def sass_phase() -> None:
         hmma = len(re.findall(r"\bHMMA\b", sass))
         idp = len(re.findall(r"\bIDP\b", sass))
         args = re.search(r"sn_square_kernelI((?:L[ib]\d+E)+)E", name)
-        if "sn_rect_kernel" in name:
+        wgmma = next((k for k in ("sn_rect", "sn_square_wgmma")
+                      if f"{k}_kernel" in name), None)
+        if wgmma:
             igmma = len(re.findall(r"\bIGMMA\b", sass))
             ldgsts = len(re.findall(r"\bLDGSTS\b", sass))
             ok = igmma > 0 and ldgsts > 0 and idp == 0
             checked += 1
-            print(f"SASS sn_rect {name}: {igmma} IGMMA, {ldgsts} LDGSTS, "
+            print(f"SASS {wgmma} {name}: {igmma} IGMMA, {ldgsts} LDGSTS, "
                   f"{idp} IDP {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"SASS of {name}: {igmma} IGMMA, {ldgsts} LDGSTS and "
@@ -749,8 +812,9 @@ def sass_phase() -> None:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"SASS of {name}: {hmma} HMMA and {idp} IDP instructions")
-    if checked != 9:  # 3 divide modes x (sn_rect, f32gram, mxu_outer)
-        fail(f"SASS: found {checked} of the 9 tensor-core kernels")
+    # 3 divide modes x (sn_rect, sn_square_wgmma, f32gram, mxu_outer)
+    if checked != 12:
+        fail(f"SASS: found {checked} of the 12 tensor-core kernels")
 
 
 def main() -> None:
@@ -777,7 +841,8 @@ def main() -> None:
             print(f"  ptxas: {entry_name}")
         elif "registers" in line or "spill" in line:
             print(f"  ptxas:   {line.strip()}")
-            if "sn_rect" in entry_name and re.search(r"[1-9]\d* bytes spill", line):
+            if (("sn_rect" in entry_name or "sn_square_wgmma" in entry_name)
+                    and re.search(r"[1-9]\d* bytes spill", line)):
                 fail(f"ptxas spills registers in {entry_name}")
 
     host_library_phase()
@@ -799,9 +864,10 @@ def main() -> None:
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")],
                     **kern[("main", "bound")]},
-        "sn_square": {"launches": whole["launches"], **square["sn_square"]},
-        "sn_square_mma": {"launches": whole["mma_launches"],
-                          **square["sn_square_mma"]},
+        # sn_square: its 'pipe' route throughout (the bench run with that
+        # variant, its error and its times)
+        **{name: {"launches": whole[name], **square[name]}
+           for name in ("sn_square", "sn_square_mma", "sn_square_wgmma")},
     }
     print(json.dumps({"kernels": [{
         "name": name,
@@ -812,7 +878,8 @@ def main() -> None:
         # no single PyTorch call computes P Gram products, the per-protein
         # transform and the two running sums
         "library_ms": None,
-    } for name in ("sn_rect", "sn_square", "sn_square_mma")]}))
+    } for name in ("sn_rect", "sn_square", "sn_square_mma",
+                   "sn_square_wgmma")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@
 //
 // and writes S and N once.  Counts never leave registers.
 //
-// Design:
+// Design (the body of a block, from the ring to the accumulator registers,
+// is sn_wgmma_tile of csrc/sn_wgmma.cuh, which csrc/sn_square_wgmma.cu runs
+// too; this file names where the staged rows come from and stores the tile):
 //   * Counts on the int8 tensor cores through the warpgroup instruction
 //     wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8, both operands read
 //     from shared memory.  The 0/1 presence bytes are valid s8 operands as
@@ -74,137 +76,47 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sn_wgmma.cuh"
+
 namespace {
 
-constexpr int kSliceBytes = 128;  // K bytes per staged slice: one swizzled row
-constexpr int kStages = 5;        // ring depth: 3 slices in flight, 2 in use
-constexpr int kBM = 128;          // two warpgroups x 64 rows
-constexpr int kBN = 128;          // the wgmma's N
-constexpr int kThreads = 256;
-constexpr int kRows = kBM + kBN;  // staged rows: A's, then B's
-constexpr int kTileBytes = kRows * kSliceBytes;
-// ring of slices, ring of T rows, slack to align the ring to 1024 bytes
-constexpr int kSmemBytes = kStages * (kTileBytes + kRows * 4) + 1024;
-constexpr int kNT = kBN / 8;      // n8 column groups of the accumulator
-static_assert(kRows == kThreads, "one T value a thread");
+// Where a block's staged rows come from: rows row0 .. of band A, rows col0 ..
+// of band B.
+struct RectSrc {
+  const uint8_t* ma;
+  const uint8_t* mb;
+  const float* ta;
+  const float* tb;
+  int A, B, K, row0, col0;
 
-// ---- PTX primitives ------------------------------------------------------
-
-__device__ __forceinline__ float rcp_approx(float x) {
-  float r;
-  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 fills with zeros
-// (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
-}
-
-// Writes made through the generic proxy (cp.async) become visible to the
-// async proxy (wgmma's reads of shared memory).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
-}
-
-// d (64 x 128 s32, this warpgroup's accumulator) = or += a (64 x 32 s8,
-// K-major in shared memory) . b (128 x 32 s8, K-major in shared memory).
-__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-// ---- end of PTX primitives -----------------------------------------------
-
-// Shared-memory matrix descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle: start address, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// One Jaccard term of the integer count c.  mode: 0 = Newton-refined
-// reciprocal, 1 = raw approximate reciprocal, 2 = IEEE divide (same op
-// order as the plain version).
-template <int kMode>
-__device__ __forceinline__ float jaccard(int c, float ta, float tb) {
-  const float cf = __int2float_rn(c);
-  const float outer = __fadd_rn(ta, tb);
-  const float d = __fsub_rn(outer, cf);  // >= 1; c == 0 gives j == 0
-  if (kMode == 2) return __fdiv_rn(cf, d);
-  if (kMode == 1) return __fmul_rn(cf, rcp_approx(d));
-  float r = rcp_approx(d);
-  r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(d, r)));
-  return __fmul_rn(cf, r);
-}
+  __device__ __forceinline__ void stage_rows(int p, size_t k_off,
+                                             uint32_t dst0, int lrow) const {
+#pragma unroll
+    for (int i = 0; i < kTile / 32; ++i) {
+      const int r = lrow + 32 * i;
+      const bool live = row0 + r < A;
+      const uint8_t* src =
+          ma + ((size_t)p * A + (live ? row0 + r : 0)) * (size_t)K + k_off;
+      cp_async16(dst0 + 32 * i * kSliceBytes, src, live ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kTile / 32; ++i) {
+      const int r = lrow + 32 * i;
+      const bool live = col0 + r < B;
+      const uint8_t* src =
+          mb + ((size_t)p * B + (live ? col0 + r : 0)) * (size_t)K + k_off;
+      cp_async16(dst0 + (kTile + 32 * i) * kSliceBytes, src, live ? 16 : 0);
+    }
+  }
+  __device__ __forceinline__ const float* t_row(int p, int i,
+                                                bool& live) const {
+    const bool is_a = i < kTile;
+    const int idx = is_a ? row0 + i : col0 + i - kTile;
+    live = idx < (is_a ? A : B);
+    return is_a ? ta + (size_t)p * A + (live ? idx : 0)
+                : tb + (size_t)p * B + (live ? idx : 0);
+  }
+};
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -212,141 +124,22 @@ sn_rect_kernel(const uint8_t* __restrict__ ma, const uint8_t* __restrict__ mb,
                const float* __restrict__ ta, const float* __restrict__ tb,
                float* __restrict__ s_out, int32_t* __restrict__ n_out, int P,
                int A, int B, int K, int tiles_b) {
-  extern __shared__ uint4 smem_u4[];
-  // 1024-byte aligned: the swizzle is a function of the address bits.
-  const uint32_t raw_sa = shared_addr(smem_u4);
-  const uint32_t smem_sa = (raw_sa + 1023u) & ~1023u;
-  uint8_t* const smem =
-      reinterpret_cast<uint8_t*>(smem_u4) + (smem_sa - raw_sa);
-  float* const t_s = reinterpret_cast<float*>(smem + kStages * kTileBytes);
-  const uint32_t t_sa = smem_sa + kStages * kTileBytes;
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;          // warpgroup: rows 64 wg .. + 63
-  const int warp = tid % 128 / 32;   // warp of the warpgroup: rows 16 warp
-  const int g = tid % 32 / 4;
-  const int tig = tid % 4;
-  const int row0 = (int)(blockIdx.x / (unsigned)tiles_b) * kBM;
-  const int col0 = (int)(blockIdx.x % (unsigned)tiles_b) * kBN;
-  const int ks_per_p = K / kSliceBytes;
-  const int total = P * ks_per_p;
-
-  // Loader: 16-byte chunk tid % 8 of staged row tid / 8 + 32 i, stored at
-  // chunk ^ (row % 8) of its 128-byte row (the 128-byte swizzle).
-  const int lrow = tid / 8;
-  const int lchunk = tid % 8;
-  const uint32_t lphys = lrow * kSliceBytes + ((lchunk ^ (lrow & 7)) << 4);
-  int lp = 0, lks = 0;
-
-  auto load_slice = [&](int stage) {
-    const size_t k_off = (size_t)lks * kSliceBytes + lchunk * 16;
-    const uint32_t dst0 = smem_sa + stage * kTileBytes + lphys;
-#pragma unroll
-    for (int i = 0; i < kBM / 32; ++i) {
-      const int r = lrow + 32 * i;  // (r & 7) == (lrow & 7)
-      const bool live = row0 + r < A;
-      const uint8_t* src =
-          ma + ((size_t)lp * A + (live ? row0 + r : 0)) * (size_t)K + k_off;
-      cp_async16(dst0 + 32 * i * kSliceBytes, src, live ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < kBN / 32; ++i) {
-      const int r = lrow + 32 * i;
-      const bool live = col0 + r < B;
-      const uint8_t* src =
-          mb + ((size_t)lp * B + (live ? col0 + r : 0)) * (size_t)K + k_off;
-      cp_async16(dst0 + (kBM + 32 * i) * kSliceBytes, src, live ? 16 : 0);
-    }
-    if (lks == 0) {
-      // This protein's T: rows of A, then columns of B (zeros past the
-      // edge: those cells are never stored).
-      const bool is_a = tid < kBM;
-      const int idx = is_a ? row0 + tid : col0 + tid - kBM;
-      const bool live = idx < (is_a ? A : B);
-      const float* src = is_a ? ta + (size_t)lp * A + (live ? idx : 0)
-                              : tb + (size_t)lp * B + (live ? idx : 0);
-      cp_async4(t_sa + ((lp % kStages) * kRows + tid) * 4, src, live ? 4 : 0);
-    }
-    if (++lks == ks_per_p) {
-      lks = 0;
-      ++lp;
-    }
-  };
-
-  int cnt[4 * kNT];
+  const int row0 = (int)(blockIdx.x / (unsigned)tiles_b) * kTile;
+  const int col0 = (int)(blockIdx.x % (unsigned)tiles_b) * kTile;
   float s[4 * kNT];
   int n[4 * kNT];
-#pragma unroll
-  for (int i = 0; i < 4 * kNT; ++i) {
-    cnt[i] = 0;
-    s[i] = 0.0f;
-    n[i] = 0;
-  }
+  sn_wgmma_tile<kMode>(RectSrc{ma, mb, ta, tb, A, B, K, row0, col0}, P, K, s,
+                       n);
 
-  // Slices it .. it + kStages - 3 are loaded or in flight while slice it is
-  // multiplied; the stage of slice it - 1 may still be read by wgmma.
-#pragma unroll
-  for (int st = 0; st < kStages - 2; ++st) {
-    if (lp < P) load_slice(st);
-    cp_async_commit();
-  }
-
-  int p = 0, ks = 0, stage = 0;
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 3>();
-    fence_proxy_async();
-    // Past the barrier slice `it` is visible to all, and both warpgroups
-    // have waited for their wgmma of slice it - 2: its stage is free.
-    __syncthreads();
-    if (lp < P) load_slice((stage + kStages - 2) % kStages);
-    cp_async_commit();
-
-    const uint32_t a_sa = smem_sa + stage * kTileBytes + wg * 64 * kSliceBytes;
-    const uint32_t b_sa = smem_sa + stage * kTileBytes + kBM * kSliceBytes;
-    const uint64_t da = smem_desc(a_sa), db = smem_desc(b_sa);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < kSliceBytes / 32; ++j) {
-      // 32 bytes further along K inside the swizzled row: + 2 in the
-      // descriptor's 16-byte address units.
-      wgmma_m64n128k32(cnt, da + 2 * j, db + 2 * j, (ks | j) != 0);
-    }
-    wgmma_commit();
-    stage = (stage + 1) % kStages;
-
-    if (++ks == ks_per_p) {
-      // Epilogue: protein p's Jaccard terms into the resident S/N cells.
-      wgmma_wait<0>();
-      const float* tp = t_s + (p % kStages) * kRows;
-      const float ta0 = tp[64 * wg + 16 * warp + g];
-      const float ta1 = tp[64 * wg + 16 * warp + g + 8];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float2 tbv =
-            *reinterpret_cast<const float2*>(tp + kBM + 8 * j + 2 * tig);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = cnt[4 * j + e];
-          s[4 * j + e] = __fadd_rn(
-              s[4 * j + e],
-              jaccard<kMode>(c, e / 2 ? ta1 : ta0, e % 2 ? tbv.y : tbv.x));
-          n[4 * j + e] += min(c, 1);
-        }
-      }
-      ks = 0;
-      ++p;
-    } else {
-      wgmma_wait<1>();
-    }
-  }
-  cp_async_wait<0>();
-
+  const int tid = threadIdx.x;
+  const int r0 = row0 + tid / 128 * 64 + tid % 128 / 32 * 16 + tid % 32 / 4;
+  const int c0 = col0 + 2 * (tid % 4);
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = row0 + 64 * wg + 16 * warp + g + 8 * (e / 2);
-      const int c = col0 + 8 * j + 2 * tig + e % 2;
+      const int r = r0 + 8 * (e / 2);
+      const int c = c0 + 8 * j + e % 2;
       if (r < A && c < B) {
         s_out[(size_t)r * B + c] = s[4 * j + e];
         n_out[(size_t)r * B + c] = n[4 * j + e];
@@ -361,21 +154,12 @@ template <int kMode>
 cudaError_t launch(const uint8_t* a, const uint8_t* b, const float* fa,
                    const float* fb, float* so, int32_t* no, int P, int A,
                    int B, int K, cudaStream_t st) {
-  const long long tiles_a = (A + kBM - 1) / kBM, tiles_b = (B + kBN - 1) / kBN;
+  const long long tiles_a = (A + kTile - 1) / kTile;
+  const long long tiles_b = (B + kTile - 1) / kTile;
   if (tiles_a * tiles_b > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // Above 48 KB a block's dynamic shared memory must be allowed, once per
-  // kernel and device; a launch that omits it is refused.
   static bool allowed[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_ring(sn_rect_kernel<kMode>, allowed);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64 || !allowed[dev]) {
-    err = cudaFuncSetAttribute(sn_rect_kernel<kMode>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return err;
-    if (dev >= 0 && dev < 64) allowed[dev] = true;
-  }
   sn_rect_kernel<kMode>
       <<<(unsigned)(tiles_a * tiles_b), kThreads, kSmemBytes, st>>>(
           a, b, fa, fb, so, no, P, A, B, K, (int)tiles_b);

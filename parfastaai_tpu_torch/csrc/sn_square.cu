@@ -8,7 +8,12 @@
 //     S  += cnt / (t_p[i] + t_p[j] - cnt)     (f32, T pre-clamped >= 1)
 //     N  += min(cnt, 1)                       (int32)
 //
-// and differ only in which output tiles they walk and how:
+// and differ only in which output tiles they walk and how.  The tile-list
+// walks of unpacked presence with the `lean` / `base` update (the default
+// plans of the whole-matrix path) run csrc/sn_square_wgmma.cu, on the int8
+// tensor cores; this kernel keeps the other updates, nibble-packed input and
+// the diagonal and band walks, and its `lean` instantiations serve those
+// walks:
 //   `_pallas_sn_sym_2p`      triu tiles, two proteins per step (kPP = 2),
 //                            with the `lean`/`base` (`_sym_kernel_2p_lean`),
 //                            `pipe` (`_sym_kernel_2p_pipe`), `fused` and
@@ -72,8 +77,9 @@
 // sixteenth of the int8 tensor-core peak), and the shared-memory loads that
 // feed it: on an H100 80GB HBM3 at 700 W the packed input, with half the
 // loads and more integer work, ran 13% faster than the unpacked one.  The
-// triu walk halves the work of the full square; the counts on the tensor
-// cores are the next step.
+// triu walk halves the work of the full square.  The counts on the tensor
+// cores are csrc/sn_square_wgmma.cu (int8 wgmma, for the default plans) and
+// csrc/sn_square_mma.cu (f16 mma.sync, the `f32gram` update).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

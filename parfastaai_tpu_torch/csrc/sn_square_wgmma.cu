@@ -1,0 +1,188 @@
+// Square all-vs-all fused (S, N) on the int8 tensor cores of Hopper (sm_90a).
+//
+// Replaces, for unpacked presence and the `lean` / `base` update, the square
+// TPU kernels of parfastaai_tpu/ops/pallas_intersect.py: `_pallas_sn_sym_2p`
+// (bodies `_sym_kernel_2p_lean`, `_sym_kernel_2p`), `_pallas_sn_sym`,
+// `_pallas_sn` and their K-blocked twins `_pallas_sn_sym_kb` and
+// `_pallas_sn_kb`.  For one presence tensor M (P, G, K) against itself it
+// computes, per protein p in ascending order,
+//
+//     cnt = M_p . M_p^T                       (0/1 bytes, int32 counts)
+//     S  += cnt / (t_p[i] + t_p[j] - cnt)     (f32, T pre-clamped >= 1)
+//     N  += min(cnt, 1)                       (int32)
+//
+// over the 128 x 128 output tiles of a list, and writes S and N once.  The
+// other updates, nibble-packed input and the diagonal and band walks stay on
+// the __dp4a body of csrc/sn_square.cu.
+//
+// Design: the block body that csrc/sn_rect.cu runs (sn_wgmma_tile of
+// csrc/sn_wgmma.cuh) with both operands taken from M.
+//   * A block of two warpgroups owns one 128 x 128 tile, each warpgroup 64
+//     rows of it as 64 s32 counts a thread from
+//     wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8, with its S and N in
+//     the same registers' layout (element 4 j + e of a thread is row
+//     16 warp + g + 8 (e / 2), column 8 j + 2 tig + e % 2 of the warpgroup's
+//     64 x 128 piece; g = lane / 4, tig = lane % 4).  192 of a thread's 255
+//     registers are state, which fixes the tile and one block per SM.
+//   * A block reads its (row tile, column tile) from an int32 list that the
+//     wrapper builds: the upper triangle in row-major order, or every tile of
+//     the square (the counterpart of the TPU's scalar-prefetched `rows, cols`
+//     index maps).  Blocks that run together share a row tile and walk the
+//     proteins together, so a protein's slab is read from L2.
+//   * Each K slice stages the tile's 128 rows of M (the A operand) and its 128
+//     columns' rows of M (the B operand) in the 128-byte swizzle of
+//     csrc/sn_wgmma.cuh, through a ring of kStages slices filled by cp.async
+//     over the flat (protein, slice) sequence, T riding in slot p % kStages.
+//     A diagonal tile stages the same rows twice.  Rows past G are zero-filled
+//     and never stored, so a ragged G pads nothing.  One __syncthreads() a
+//     slice, as in sn_rect.cu: after it the slice is visible to all, and both
+//     warpgroups have waited for their wgmma of slice i - 2, whose stage then
+//     takes the load of slice i + kStages - 2.
+//   * The Jaccard transform is an epilogue on the accumulator registers, in
+//     round-to-nearest intrinsics: mode 2 (precise) is bit-identical to the
+//     IEEE f32 plain version.
+//   * The mirror is written in the last epilogue: with `mirror`, an
+//     off-diagonal tile (r, c) also stores its transpose at (c, r).  Counts
+//     are symmetric and ta + tb commutes, so that is bit-equal to computing
+//     (c, r).  A quad of lanes writes 32 consecutive bytes of a row directly;
+//     the eight lanes of equal tig write 32 consecutive bytes of a mirrored
+//     row: whole sectors both ways.
+//   * Two proteins per step, the TPU kernel's answer to the cost of a grid
+//     step, have no counterpart: the protein loop runs inside the block over
+//     one flat ring, and a thread cannot hold two proteins' counts beside S
+//     and N.  `lean` with two proteins per step is bit-identical to one, so
+//     both are this launch.
+//   * No atomics and no split over K or P across blocks: S sums in the plain
+//     version's order and the result is deterministic.
+//
+// What bounds it on the H100: see PERF.md (chip_smoke.py's K sweep); as for
+// sn_rect.cu, the feed from L2 and the epilogue, not the tensor cores.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sn_wgmma.cuh"
+
+namespace {
+
+// Where a block's staged rows come from: rows row0 .. of M as the A side,
+// rows col0 .. of M as the B side.
+struct SquareSrc {
+  const uint8_t* m;
+  const float* t;
+  int G, K, row0, col0;
+
+  __device__ __forceinline__ void stage_rows(int p, size_t k_off,
+                                             uint32_t dst0, int lrow) const {
+    const uint8_t* mp = m + (size_t)p * G * (size_t)K + k_off;
+#pragma unroll
+    for (int i = 0; i < kTile / 32; ++i) {
+      const int r = lrow + 32 * i;
+      const bool a_live = row0 + r < G;
+      cp_async16(dst0 + 32 * i * kSliceBytes,
+                 mp + (size_t)(a_live ? row0 + r : 0) * K, a_live ? 16 : 0);
+      const bool b_live = col0 + r < G;
+      cp_async16(dst0 + (kTile + 32 * i) * kSliceBytes,
+                 mp + (size_t)(b_live ? col0 + r : 0) * K, b_live ? 16 : 0);
+    }
+  }
+  __device__ __forceinline__ const float* t_row(int p, int i,
+                                                bool& live) const {
+    const int idx = i < kTile ? row0 + i : col0 + i - kTile;
+    live = idx < G;
+    return t + (size_t)p * G + (live ? idx : 0);
+  }
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+sn_square_wgmma_kernel(const uint8_t* __restrict__ m,
+                       const float* __restrict__ t,
+                       const int32_t* __restrict__ tiles,
+                       float* __restrict__ s_out, int32_t* __restrict__ n_out,
+                       int P, int G, int K, int mirror) {
+  const int rt = tiles[2 * blockIdx.x];
+  const int ct = tiles[2 * blockIdx.x + 1];
+  const int row0 = rt * kTile;
+  const int col0 = ct * kTile;
+  float s[4 * kNT];
+  int n[4 * kNT];
+  sn_wgmma_tile<kMode>(SquareSrc{m, t, G, K, row0, col0}, P, K, s, n);
+
+  const int tid = threadIdx.x;
+  const int r0 = row0 + tid / 128 * 64 + tid % 128 / 32 * 16 + tid % 32 / 4;
+  const int c0 = col0 + 2 * (tid % 4);
+  const bool mirror_tile = mirror && rt != ct;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e / 2);
+      const int c = c0 + 8 * j + e % 2;
+      if (r < G && c < G) {
+        s_out[(size_t)r * G + c] = s[4 * j + e];
+        n_out[(size_t)r * G + c] = n[4 * j + e];
+        if (mirror_tile) {
+          s_out[(size_t)c * G + r] = s[4 * j + e];
+          n_out[(size_t)c * G + r] = n[4 * j + e];
+        }
+      }
+    }
+  }
+}
+
+// ---- host launch ---------------------------------------------------------
+
+template <int kMode>
+cudaError_t launch(const uint8_t* m, const float* t, const int32_t* tiles,
+                   float* so, int32_t* no, int P, int G, int K, int n_blocks,
+                   int mirror, cudaStream_t st) {
+  static bool allowed[64] = {};
+  const cudaError_t err = allow_ring(sn_square_wgmma_kernel<kMode>, allowed);
+  if (err != cudaSuccess) return err;
+  sn_square_wgmma_kernel<kMode>
+      <<<(unsigned)n_blocks, kThreads, kSmemBytes, st>>>(
+          m, t, tiles, so, no, P, G, K, mirror);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches on `stream` and returns the first CUDA error (0 on success).
+// m (P, G, K) holds 0/1 bytes, K a multiple of 128 and m 16-byte aligned;
+// t (P, G) is f32 T clamped to >= 1; tiles is the int32 (n_blocks, 2) list
+// of (row tile, column tile) in units of 128 rows.  The launch writes
+// s (G, G) f32 and n (G, G) int32 at every cell of the tiles it walks and,
+// with mirror, of the transposes of the off-diagonal ones.  mode: 0 Newton,
+// 1 approximate reciprocal, 2 IEEE divide.
+int sn_square_wgmma_launch(const void* m, const void* t, const void* tiles,
+                           void* s, void* n, int P, int G, int K,
+                           int n_blocks, int mirror, int mode, void* stream) {
+  if (P <= 0 || G <= 0 || K <= 0 || n_blocks <= 0 || K % kSliceBytes ||
+      (long long)P * (K / kSliceBytes) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* mp = static_cast<const uint8_t*>(m);
+  const float* tp = static_cast<const float*>(t);
+  const int32_t* tl = static_cast<const int32_t*>(tiles);
+  float* so = static_cast<float*>(s);
+  int32_t* no = static_cast<int32_t*>(n);
+  switch (mode) {
+    case 0:
+      return (int)launch<0>(mp, tp, tl, so, no, P, G, K, n_blocks, mirror, st);
+    case 1:
+      return (int)launch<1>(mp, tp, tl, so, no, P, G, K, n_blocks, mirror, st);
+    case 2:
+      return (int)launch<2>(mp, tp, tl, so, no, P, G, K, n_blocks, mirror, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* sn_square_wgmma_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

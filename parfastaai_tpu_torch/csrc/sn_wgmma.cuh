@@ -1,0 +1,302 @@
+// What the wgmma kernels share (csrc/sn_rect.cu, csrc/sn_square_wgmma.cu):
+// the PTX wrappers of the asynchronous copies and of the int8 warpgroup
+// product, the shared-memory matrix descriptor of the staged layout, the
+// Jaccard term, and the body of a block: S and N of one 128 x 128 output
+// tile, from a ring of staged K slices to the accumulator registers.  The
+// kernels differ in where the staged rows come from and in how the tile is
+// stored.  All in an unnamed namespace.
+//
+// The staged layout: a tile is K-major, a slice of 128 bytes of K a row; row
+// r lies at byte 128 r and its 16-byte chunk c at chunk c ^ (r % 8) of that
+// row (the 128-byte swizzle that the descriptor names).  A tile starts on a
+// 1024-byte boundary (the swizzle is a function of the address bits), 8-row
+// groups are 1024 bytes apart, and a k32 step advances the descriptor's
+// start address by 32 bytes.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---- PTX primitives ------------------------------------------------------
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 fills with zeros
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Writes made through the generic proxy (cp.async) become visible to the
+// async proxy (wgmma's reads of shared memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
+
+// d (64 x 128 s32, this warpgroup's accumulator) = or += a (64 x 32 s8,
+// K-major in shared memory) . b (128 x 32 s8, K-major in shared memory).
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+// ---- end of PTX primitives -----------------------------------------------
+
+// Shared-memory matrix descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle: start address, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// One Jaccard term of the integer count c.  mode: 0 = Newton-refined
+// reciprocal, 1 = raw approximate reciprocal, 2 = IEEE divide (same op
+// order as the plain version).
+template <int kMode>
+__device__ __forceinline__ float jaccard(int c, float ta, float tb) {
+  const float cf = __int2float_rn(c);
+  const float outer = __fadd_rn(ta, tb);
+  const float d = __fsub_rn(outer, cf);  // >= 1; c == 0 gives j == 0
+  if (kMode == 2) return __fdiv_rn(cf, d);
+  if (kMode == 1) return __fmul_rn(cf, rcp_approx(d));
+  float r = rcp_approx(d);
+  r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(d, r)));
+  return __fmul_rn(cf, r);
+}
+
+// ---- the body of a block -------------------------------------------------
+
+constexpr int kSliceBytes = 128;  // K bytes per staged slice: one swizzled row
+constexpr int kStages = 5;        // ring depth: 3 slices in flight, 2 in use
+constexpr int kTile = 128;        // output tile edge: two warpgroups x 64 rows
+                                  // by the wgmma's N
+constexpr int kThreads = 256;
+constexpr int kRows = 2 * kTile;  // staged rows: the A side's, then the B side's
+constexpr int kTileBytes = kRows * kSliceBytes;
+// ring of slices, ring of T rows, slack to align the ring to 1024 bytes
+constexpr int kSmemBytes = kStages * (kTileBytes + kRows * 4) + 1024;
+constexpr int kNT = kTile / 8;    // n8 column groups of the accumulator
+static_assert(kRows == kThreads, "one T value a thread");
+
+// S and N of one 128 x 128 tile over proteins 0 .. P - 1 in ascending order,
+// left in this thread's accumulator layout: element 4 j + e is row
+// 64 wg + 16 warp + g + 8 (e / 2), column 8 j + 2 tig + e % 2 of the tile
+// (wg = tid / 128, warp = tid % 128 / 32, g = lane / 4, tig = lane % 4).
+// Called by all kThreads threads of a block that was launched with
+// kSmemBytes of dynamic shared memory; K is a multiple of kSliceBytes.
+//
+// `src` names the global memory behind the staged rows:
+//   src.stage_rows(p, k_off, dst0, lrow): this thread's part of one slice of
+//     protein p, 16 bytes at byte k_off of each presence row that is staged
+//     as row lrow + 32 i of the A side (i = 0 .. 3; cp_async16 to dst0 +
+//     32 i kSliceBytes) and of the B side (kTile rows further on); a row
+//     past the edge is filled with zeros (src_bytes 0).  The order of these
+//     eight copies is the kernel's own: it moves the loop's schedule, and
+//     with it the kernel's time, by up to a tenth.
+//   src.t_row(p, i, live): the T value of staged row i (A's 128, then B's);
+//     past the edge `live` is false and the address any valid one.
+template <int kMode, class Src>
+__device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
+                                              float (&s)[4 * kNT],
+                                              int (&n)[4 * kNT]) {
+  extern __shared__ uint4 smem_u4[];
+  // 1024-byte aligned: the swizzle is a function of the address bits.
+  const uint32_t raw_sa = shared_addr(smem_u4);
+  const uint32_t smem_sa = (raw_sa + 1023u) & ~1023u;
+  uint8_t* const smem =
+      reinterpret_cast<uint8_t*>(smem_u4) + (smem_sa - raw_sa);
+  float* const t_s = reinterpret_cast<float*>(smem + kStages * kTileBytes);
+  const uint32_t t_sa = smem_sa + kStages * kTileBytes;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;          // warpgroup: rows 64 wg .. + 63
+  const int warp = tid % 128 / 32;   // warp of the warpgroup: rows 16 warp
+  const int g = tid % 32 / 4;
+  const int tig = tid % 4;
+  const int ks_per_p = K / kSliceBytes;
+  const int total = P * ks_per_p;
+
+  // Loader: 16-byte chunk tid % 8 of staged row tid / 8 + 32 i, stored at
+  // chunk ^ (row % 8) of its 128-byte row (the 128-byte swizzle).
+  const int lrow = tid / 8;
+  const int lchunk = tid % 8;
+  const uint32_t lphys = lrow * kSliceBytes + ((lchunk ^ (lrow & 7)) << 4);
+  int lp = 0, lks = 0;
+
+  auto load_slice = [&](int stage) {
+    const size_t k_off = (size_t)lks * kSliceBytes + lchunk * 16;
+    const uint32_t dst0 = smem_sa + stage * kTileBytes + lphys;
+    // staged rows lrow + 32 i: (row & 7) == (lrow & 7)
+    src.stage_rows(lp, k_off, dst0, lrow);
+    if (lks == 0) {
+      bool live;
+      // This protein's T (zeros past the edge: those cells are never
+      // stored).
+      const float* t = src.t_row(lp, tid, live);
+      cp_async4(t_sa + ((lp % kStages) * kRows + tid) * 4, t, live ? 4 : 0);
+    }
+    if (++lks == ks_per_p) {
+      lks = 0;
+      ++lp;
+    }
+  };
+
+  int cnt[4 * kNT];
+#pragma unroll
+  for (int i = 0; i < 4 * kNT; ++i) {
+    cnt[i] = 0;
+    s[i] = 0.0f;
+    n[i] = 0;
+  }
+
+  // Slices it .. it + kStages - 3 are loaded or in flight while slice it is
+  // multiplied; the stage of slice it - 1 may still be read by wgmma.
+#pragma unroll
+  for (int st = 0; st < kStages - 2; ++st) {
+    if (lp < P) load_slice(st);
+    cp_async_commit();
+  }
+
+  int p = 0, ks = 0, stage = 0;
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 3>();
+    fence_proxy_async();
+    // Past the barrier slice `it` is visible to all, and both warpgroups
+    // have waited for their wgmma of slice it - 2: its stage is free.
+    __syncthreads();
+    if (lp < P) load_slice((stage + kStages - 2) % kStages);
+    cp_async_commit();
+
+    const uint32_t a_sa = smem_sa + stage * kTileBytes + wg * 64 * kSliceBytes;
+    const uint32_t b_sa = smem_sa + stage * kTileBytes + kTile * kSliceBytes;
+    const uint64_t da = smem_desc(a_sa), db = smem_desc(b_sa);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSliceBytes / 32; ++j) {
+      // 32 bytes further along K inside the swizzled row: + 2 in the
+      // descriptor's 16-byte address units.
+      wgmma_m64n128k32(cnt, da + 2 * j, db + 2 * j, (ks | j) != 0);
+    }
+    wgmma_commit();
+    stage = (stage + 1) % kStages;
+
+    if (++ks == ks_per_p) {
+      // Epilogue: protein p's Jaccard terms into the resident S/N cells.
+      wgmma_wait<0>();
+      const float* tp = t_s + (p % kStages) * kRows;
+      const float ta0 = tp[64 * wg + 16 * warp + g];
+      const float ta1 = tp[64 * wg + 16 * warp + g + 8];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float2 tbv =
+            *reinterpret_cast<const float2*>(tp + kTile + 8 * j + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = cnt[4 * j + e];
+          s[4 * j + e] = __fadd_rn(
+              s[4 * j + e],
+              jaccard<kMode>(c, e / 2 ? ta1 : ta0, e % 2 ? tbv.y : tbv.x));
+          n[4 * j + e] += min(c, 1);
+        }
+      }
+      ks = 0;
+      ++p;
+    } else {
+      wgmma_wait<1>();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Allows kernel's kSmemBytes of dynamic shared memory: above 48 KB it must be
+// allowed once per kernel and device, or the launch is refused.  `allowed`
+// is the kernel's own record of the devices done (64 entries).
+template <class Kernel>
+cudaError_t allow_ring(Kernel kernel, bool* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64 || !allowed[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < 64) allowed[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace

@@ -2,10 +2,10 @@
 
 The sources compile with ``nvcc`` into a shared library with a plain C
 interface, loaded with ctypes.  The build runs at first use, into
-``parfastaai_tpu_torch/_build/``, keyed by a hash of the sources and the
-flags, so a fresh checkout builds its kernels the first time it launches one
-and a rebuilt source never loads a stale library.  Nothing here runs when the
-module is imported.
+``parfastaai_tpu_torch/_build/``, keyed by a hash of the sources, their
+shared header and the flags, so a fresh checkout builds its kernels the
+first time it launches one and a rebuilt source never loads a stale library.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -20,8 +20,12 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [
     os.path.join(_PKG, "csrc", name)
-    for name in ("sn_rect.cu", "sn_square.cu", "sn_square_mma.cu")
+    for name in ("sn_rect.cu", "sn_square.cu", "sn_square_mma.cu",
+                 "sn_square_wgmma.cu")
 ]
+# Headers the sources include: hashed with them, so that a changed header
+# never loads a stale library.
+_HDRS = [os.path.join(_PKG, "csrc", "sn_wgmma.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = [
@@ -56,7 +60,7 @@ def nvcc_path() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256()
-    for src in _SRCS:
+    for src in _SRCS + _HDRS:
         with open(src, "rb") as fp:
             h.update(fp.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -130,8 +134,13 @@ def load() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
             ]
             lib.sn_square_mma_launch.restype = ci
+            lib.sn_square_wgmma_launch.argtypes = [
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+            ]
+            lib.sn_square_wgmma_launch.restype = ci
             for fn in (lib.sn_rect_error_string, lib.sn_square_error_string,
-                       lib.sn_square_mma_error_string):
+                       lib.sn_square_mma_error_string,
+                       lib.sn_square_wgmma_error_string):
                 fn.argtypes = [ci]
                 fn.restype = ctypes.c_char_p
             _lib = lib

@@ -12,14 +12,19 @@ its dispatch plan ``fused_aji_plan`` and the square TPU kernels behind them:
     S  += cnt / (t_p[:, None] + t_p[None, :] - cnt)
     N  += min(cnt, 1)
 
-with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are one
-hand-written CUDA kernel (csrc/sn_square.cu) that differs only in the
-output tiles it walks, the proteins it takes per step, the input's packing
-and the two-proteins-per-step update; the ``f32gram`` update, whose counts
-come out of the tensor cores as f32, is a second kernel
-(csrc/sn_square_mma.cu).  CUDA tensors go to those kernels, CPU tensors to
-``fused_sn_square_plain``, and any other device raises; there is no
-fallback from a kernel to the plain version.
+with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are
+three hand-written CUDA kernels.  The tile-list walks of unpacked presence
+with the ``lean`` / ``base`` update (``fused_aji``'s default plan, one or
+two proteins per step, the full square and the K-blocked plans) run
+csrc/sn_square_wgmma.cu: int8 counts on the tensor cores in 128 x 128
+tiles.  Nibble-packed input, the other two-proteins-per-step updates and
+the diagonal and band walks run csrc/sn_square.cu, one ``__dp4a`` kernel in
+64 x 64 tiles that differs only in the tiles it walks, the proteins it
+takes per step, the packing and the update; the ``f32gram`` update, whose
+counts come out of the tensor cores as f32, is csrc/sn_square_mma.cu.  CUDA
+tensors go to those kernels, CPU tensors to ``fused_sn_square_plain``, and
+any other device raises; there is no fallback from a kernel to the plain
+version.
 """
 
 from __future__ import annotations
@@ -34,18 +39,28 @@ import torch.nn.functional as F
 from ..constants import MAX_K_SINGLE_BLOCK
 from . import _build
 from .fused import int_gram
-from .sn_rect import _as_int8, clamp_t
+from .sn_rect import _as_int8, accumulator_cell, clamp_t
 
 # Kernel launches since the process started (or since a caller reset it):
-# csrc/sn_square.cu's and, apart, csrc/sn_square_mma.cu's.
+# csrc/sn_square.cu's and, apart, csrc/sn_square_mma.cu's and
+# csrc/sn_square_wgmma.cu's.
 LAUNCHES = 0
 MMA_LAUNCHES = 0
+WGMMA_LAUNCHES = 0
 
-# Output tile edge of the kernel (rows and columns per thread block) and
-# the K bytes it stages per shared-memory slice (K is zero-padded to a
-# multiple).
+# Output tile edge of the __dp4a and f32gram kernels (rows and columns per
+# thread block) and the K bytes they stage per shared-memory slice (K is
+# zero-padded to a multiple).
 TILE = 64
 K_SLICE = 64
+# The same of csrc/sn_square_wgmma.cu, and its threads per block: two
+# warpgroups with 64 rows of the tile each.  They equal sn_rect's, whose
+# block body it shares (csrc/sn_wgmma.cuh), so sn_rect's index maps
+# (``sn_rect.loader_chunks`` and ``sn_rect.staged_offset`` for each of the
+# two staged sides, ``sn_rect.accumulator_cell``) are this kernel's too.
+WGMMA_TILE = 128
+WGMMA_K_SLICE = 128
+WGMMA_THREADS = 256
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 # Updates of the two-proteins-per-step body (the 2p variants of the TPU
 # kernel), as csrc/sn_square.cu's kUpdate codes.  'lean' and 'base' run
@@ -61,6 +76,26 @@ def _check_variant(variant: str) -> None:
         raise ValueError(
             f"unknown variant {variant!r}; one of {sorted(_UPDATES)}"
         )
+
+
+def _on_wgmma(packed: bool, update: str) -> bool:
+    """True where a tile-list walk runs csrc/sn_square_wgmma.cu: unpacked
+    presence with the 'lean' / 'base' update."""
+    return not packed and _UPDATES[update] == 0
+
+
+def stored_cells(
+    tid: int, i: int, rt: int, ct: int, mirror: bool
+) -> list[tuple[int, int]]:
+    """(row, column) cells of the G x G output that thread ``tid`` of the
+    wgmma kernel's block at tile (rt, ct) stores accumulator element ``i``
+    to, as csrc/sn_square_wgmma.cu computes them: the cell itself and, with
+    ``mirror`` off the diagonal tiles, its transpose (cells past G are
+    masked by the kernel)."""
+    r, c = accumulator_cell(tid % 128, i)
+    r += rt * WGMMA_TILE + 64 * (tid // 128)
+    c += ct * WGMMA_TILE
+    return [(r, c), (c, r)] if mirror and rt != ct else [(r, c)]
 
 
 def pack_nibbles(m: torch.Tensor) -> torch.Tensor:
@@ -80,6 +115,7 @@ def fused_aji_plan(
     tile: int | None = None,
     symmetric: bool = True,
     packed: bool = False,
+    variant: str = "lean",
 ) -> dict:
     """The dispatch plan of ``fused_aji`` as data, with the JAX plan's keys.
 
@@ -88,19 +124,22 @@ def fused_aji_plan(
     boundaries at MAX_K_SINGLE_BLOCK // 4 and MAX_K_SINGLE_BLOCK).  The
     ``kb_*`` modes run the same kernel as 'sym' / 'full': the kernel's K
     loop has no fast-memory cap, so K-blocking has nothing to do on the
-    card.  The other keys describe what the CUDA kernel really executes:
-    ``tile`` is its 64-row tile, ``gp`` G rounded up to it (rows past G
-    are masked but their products are computed), ``nt`` and ``n_tiles``
-    the tiles walked (triu over-coverage included), ``pp`` P rounded up to
-    the proteins per step, ``kp`` the presence columns contracted (K
-    padded to the kernel's 64-byte slice; packed rows hold two columns a
-    byte, so the kernel reads kp / 2 bytes a row) and ``mxu_macs`` =
-    n_tiles * tile^2 * pp * kp.
+    card.  The other keys describe what the CUDA kernel really executes.
+    ``tile`` is the route's tile: 128 rows on the wgmma kernel (unpacked
+    presence; in mode '2p' only with ``variant`` 'lean' / 'base', the one
+    mode in which ``variant`` selects anything), 64 on the others.  ``gp``
+    is G rounded up to it (rows past G are masked but their products are
+    computed), ``nt`` and ``n_tiles`` the tiles walked (triu over-coverage
+    included), ``pp`` the proteins multiplied (P; rounded up to the two per
+    step where a 64-row kernel takes two), ``kp`` the presence columns
+    contracted (K padded to the kernel's slice, 128 or 64 bytes; packed
+    rows hold two columns a byte, so the kernel reads kp / 2 bytes a row)
+    and ``mxu_macs`` = n_tiles * tile^2 * pp * kp.
 
     The JAX ``auto_tile`` model (v5e rates and VMEM budget) has no
-    counterpart: ``tile`` other than None or 64 raises ValueError."""
-    if tile not in (None, TILE):
-        raise ValueError(f"the CUDA kernel's tile is {TILE}, not {tile}")
+    counterpart: ``tile`` other than None or the route's own raises
+    ValueError."""
+    _check_variant(variant)
     if packed and k % 2:
         k += 1
     k_eff = k // 2 if packed else k
@@ -117,20 +156,26 @@ def fused_aji_plan(
         mode = "kb_sym" if symmetric else "kb_full"
     else:
         mode = "sym" if symmetric else "full"
-    nt = -(-g // TILE)
-    kbytes = -(-k_eff // K_SLICE) * K_SLICE
+    wgmma = _on_wgmma(packed, variant if two_per_step else "lean")
+    own, k_slice = (WGMMA_TILE, WGMMA_K_SLICE) if wgmma else (TILE, K_SLICE)
+    if tile not in (None, own):
+        raise ValueError(
+            f"the CUDA kernel's tile on this route is {own}, not {tile}"
+        )
+    nt = -(-g // own)
+    kbytes = -(-k_eff // k_slice) * k_slice
     kp = 2 * kbytes if packed else kbytes
     n_tiles = nt * (nt + 1) // 2 if symmetric else nt * nt
-    pp = p + p % 2 if two_per_step else p
+    pp = p + p % 2 if two_per_step and not wgmma else p
     return {
         "mode": mode,
-        "tile": TILE,
-        "gp": nt * TILE,
+        "tile": own,
+        "gp": nt * own,
         "nt": nt,
         "n_tiles": n_tiles,
         "pp": pp,
         "kp": kp,
-        "mxu_macs": n_tiles * TILE * TILE * pp * kp,
+        "mxu_macs": n_tiles * own * own * pp * kp,
     }
 
 
@@ -295,6 +340,44 @@ def _launch(
     return s, n
 
 
+def _launch_wgmma(
+    m: torch.Tensor, t: torch.Tensor, *, symmetric: bool, approx: bool,
+    precise: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run csrc/sn_square_wgmma.cu once over the upper-triangle tiles (with
+    the mirror) or every tile of the square, on m's CUDA device."""
+    global WGMMA_LAUNCHES
+    dev = m.device
+    P, G, K = m.shape
+    if K % WGMMA_K_SLICE:
+        m = F.pad(m, (0, WGMMA_K_SLICE - K % WGMMA_K_SLICE))
+        K = m.shape[2]
+    if m.data_ptr() % 16:
+        raise ValueError("m must be 16-byte aligned")
+    if G == 0 or P == 0 or K == 0:
+        return (torch.zeros((G, G), dtype=torch.float32, device=dev),
+                torch.zeros((G, G), dtype=torch.int32, device=dev))
+    tiles = _tile_list(-(-G // WGMMA_TILE), symmetric, dev)
+    s = torch.empty((G, G), dtype=torch.float32, device=dev)
+    n = torch.empty((G, G), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sn_square_wgmma_launch(
+            m.data_ptr(), t.data_ptr(), tiles.data_ptr(), s.data_ptr(),
+            n.data_ptr(), P, G, K, tiles.shape[0], int(symmetric),
+            _MODES[(approx, precise)], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"sn_square_wgmma kernel launch failed: "
+            f"{lib.sn_square_wgmma_error_string(rc).decode()} "
+            f"(cudaError {rc})"
+        )
+    WGMMA_LAUNCHES += 1
+    return s, n
+
+
 def _route(m, t, approx, precise, name):
     """Validate; True when the operands go to the kernel (CUDA), False for
     the plain version (CPU).  Any other device raises."""
@@ -326,7 +409,11 @@ def fused_sn_square(
     On CUDA the kernel walks the upper-triangle tiles and writes each
     off-diagonal tile's mirror (``symmetric``, the TPU's ``_pallas_sn_sym``
     / ``_pallas_sn_sym_2p`` / ``_pallas_sn_sym_kb``) or every tile
-    (``_pallas_sn`` / ``_pallas_sn_kb``), taking ``pairs_per_step``
+    (``_pallas_sn`` / ``_pallas_sn_kb``).  Unpacked presence with the
+    'lean' / 'base' update runs the wgmma kernel (csrc/sn_square_wgmma.cu,
+    128 x 128 tiles), whose protein loop has no steps: ``pairs_per_step``
+    1 and 2 are the same launch there, bit-identical by construction.  The
+    rest runs csrc/sn_square.cu in 64 x 64 tiles, taking ``pairs_per_step``
     proteins (1 or 2) per step.  ``update`` other than 'lean' / 'base'
     selects a 2p variant and needs two proteins per step: 'pipe' carries
     each step's counts into the next step's epilogue, 'mxu_outer' builds
@@ -347,6 +434,9 @@ def fused_sn_square(
         raise ValueError("packed input needs pairs_per_step=1")
     if not _route(m, t, approx, precise, "fused_sn_square"):
         return fused_sn_square_plain(m, t, packed=packed, update=update)
+    if _on_wgmma(packed, update):
+        return _launch_wgmma(m, t, symmetric=symmetric, approx=approx,
+                             precise=precise)
     nt = -(-m.shape[1] // TILE)
     tiles = _tile_list(nt, symmetric, m.device)
     return _launch(
@@ -443,7 +533,7 @@ def fused_aji(
     _check_variant(variant)
     P, G, K = m.shape
     plan = fused_aji_plan(P, G, K, tile=tile, symmetric=symmetric,
-                          packed=packed)
+                          packed=packed, variant=variant)
     if packed and plan["mode"] in ("kb_sym", "kb_full"):
         raise ValueError(
             "packed presence is not supported with K-blocked execution "

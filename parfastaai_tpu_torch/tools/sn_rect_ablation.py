@@ -1,11 +1,11 @@
-"""What binds the sn_rect kernel: times of csrc/sn_rect.cu with one part cut.
+"""What binds the sn_rect kernel: times of csrc/sn_rect.cu with one part of
+its block body (csrc/sn_wgmma.cuh) cut.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
     python -m parfastaai_tpu_torch.tools.sn_rect_ablation
 
-Builds four copies of the kernel source into a temporary directory: as it
-is, without the global loads after the ring's first fill (``noload``: the
+Builds four copies of the kernel into a temporary directory: as it is, without the global loads after the ring's first fill (``noload``: the
 products and the epilogue alone), without the wgmma products (``nomma``:
 the feed from L2 and the epilogue on zero counts alone), and without the
 epilogue's transform (``noepi``).  The cut copies compute nothing useful;
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -30,39 +31,49 @@ from ..ops import _build, sn_rect
 
 SHAPES = [(80, 1024, 4096, 1280), (80, 1024, 4096, 2560),
           (16, 1024, 1024, 51200)]
-# (name, text of csrc/sn_rect.cu to replace, replacement)
+HEADER = "sn_wgmma.cuh"
+# (name, [(text of csrc/sn_wgmma.cuh to replace, replacement), ...]): the
+# block body that sn_rect and sn_square_wgmma share
 CUTS = [
-    ("full", None, None),
-    ("noload",
-     "    if (lp < P) load_slice((stage + kStages - 2) % kStages);",
-     "    if (lp < 0) load_slice((stage + kStages - 2) % kStages);"),
-    ("nomma",
-     "      wgmma_m64n128k32(cnt, da + 2 * j, db + 2 * j, (ks | j) != 0);",
-     "      (void)da, (void)db;"),
-    ("noepi",
-     "      const float ta1 = tp[64 * wg + 16 * warp + g + 8];\n"
-     "#pragma unroll\n      for (int j = 0; j < kNT; ++j) {",
-     "      const float ta1 = tp[64 * wg + 16 * warp + g + 8];\n"
-     "#pragma unroll\n      for (int j = 0; j < 0; ++j) {"),
+    ("full", []),
+    ("noload", [
+        ("    if (lp < P) load_slice((stage + kStages - 2) % kStages);",
+         "    if (lp < 0) load_slice((stage + kStages - 2) % kStages);")]),
+    ("nomma", [
+        ("      wgmma_m64n128k32(cnt, da + 2 * j, db + 2 * j, (ks | j) != 0);",
+         "      (void)da, (void)db;")]),
+    ("noepi", [
+        ("      const float ta1 = tp[64 * wg + 16 * warp + g + 8];\n"
+         "#pragma unroll\n      for (int j = 0; j < kNT; ++j) {",
+         "      const float ta1 = tp[64 * wg + 16 * warp + g + 8];\n"
+         "#pragma unroll\n      for (int j = 0; j < 0; ++j) {")]),
 ]
 
 
-def build_variants(tmp: str) -> dict:
-    src_path = os.path.join(os.path.dirname(_build.BUILD_DIR), "csrc",
-                            "sn_rect.cu")
-    with open(src_path) as fp:
-        src = fp.read()
+def build_variants(tmp: str, source: str = "sn_rect.cu",
+                   entry: str = "sn_rect_launch", n_pointers: int = 6,
+                   n_ints: int = 5) -> dict:
+    """Build one library per cut into ``tmp``: csrc/``source`` beside a
+    copy of the shared header with the cut made (all nvcc runs started
+    together), and bind ``entry`` (``n_pointers`` pointers, ``n_ints``
+    ints, the stream) in each."""
+    csrc = os.path.join(os.path.dirname(_build.BUILD_DIR), "csrc")
+    with open(os.path.join(csrc, HEADER)) as fp:
+        header = fp.read()
     procs = {}
-    for name, old, new in CUTS:
-        text = src
-        if old is not None:
-            if src.count(old) != 1:
-                raise SystemExit(f"cut {name!r}: its text is not in {src_path} "
+    for name, replacements in CUTS:
+        text = header
+        for old, new in replacements:
+            if header.count(old) != 1:
+                raise SystemExit(f"cut {name!r}: its text is not in {HEADER} "
                                  "exactly once; bring CUTS up to date")
-            text = src.replace(old, new)
-        cu = os.path.join(tmp, f"{name}.cu")
-        with open(cu, "w") as fp:
+            text = text.replace(old, new)
+        # the source includes the header by name: its copy's own directory
+        # is searched first
+        os.mkdir(os.path.join(tmp, name))
+        with open(os.path.join(tmp, name, HEADER), "w") as fp:
             fp.write(text)
+        cu = shutil.copy(os.path.join(csrc, source), os.path.join(tmp, name))
         procs[name] = subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS[:6], "-shared", "-o",
              os.path.join(tmp, f"{name}.so"), cu],
@@ -75,8 +86,8 @@ def build_variants(tmp: str) -> dict:
             raise SystemExit(f"nvcc failed on the {name} copy:\n{err}")
         lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sn_rect_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp]
-        lib.sn_rect_launch.restype = ci
+        getattr(lib, entry).argtypes = [vp] * n_pointers + [ci] * n_ints + [vp]
+        getattr(lib, entry).restype = ci
         libs[name] = lib
     return libs
 

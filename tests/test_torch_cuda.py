@@ -93,6 +93,11 @@ _DIVIDE = {"newton": {}, "approx": {"approx": True},
            "precise": {"precise": True}}
 
 
+def _launches():
+    return (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
+            sn_square.WGMMA_LAUNCHES)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "P,G,K,kw",
@@ -111,17 +116,67 @@ _DIVIDE = {"newton": {}, "approx": {"approx": True},
 )
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_square_kernel_matches_plain(cuda, P, G, K, kw, mode):
+    """Unpacked 'lean' walks launch csrc/sn_square_wgmma.cu once, packed
+    input and the 'fused' update csrc/sn_square.cu once."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     packed = kw.get("packed", False)
-    s_ref, n_ref = sn_square.fused_sn_square_plain(
-        m, t, update=kw.get("update", "lean")
-    )
-    before = sn_square.LAUNCHES
+    update = kw.get("update", "lean")
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=update)
+    before = _launches()
     s, n = sn_square.fused_sn_square(
         sn_square.pack_nibbles(m) if packed else m, t, **kw, **_DIVIDE[mode]
     )
-    assert sn_square.LAUNCHES == before + 1
+    wgmma = not packed and update == "lean"
+    assert _launches() == (before[0] + (not wgmma), before[1],
+                           before[2] + wgmma)
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "P,G,K,kw",
+    [
+        (1, 300, 256, {}),  # one protein
+        (5, 300, 256, {"pairs_per_step": 2}),  # odd P: no zero protein here
+        (4, 300, 256, {"pairs_per_step": 2, "update": "base"}),
+        (3, 77, 256, {}),  # one ragged tile
+        (3, 128, 256, {}),  # one whole tile
+        (3, 129, 256, {}),  # a diagonal tile and a ragged edge
+        (3, 300, 256, {}),  # three row tiles, six triu tiles
+        (9, 300, 128, {}),  # one slice a protein: the ring wraps at once
+        (3, 130, 200, {}),  # K zero-padded to the 128-byte slice
+        (5, 256, 896, {}),  # whole tiles, more slices than ring stages
+        (2, 130, 34816, {}),  # K past the TPU's single-block limit
+        (3, 300, 256, {"symmetric": False}),
+        (3, 77, 200, {"symmetric": False}),
+    ],
+    ids=["p1", "2p_odd", "2p_base", "g77", "g128", "g129", "g300",
+         "one_slice", "k200", "k896", "kb", "full", "full_ragged"],
+)
+@pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
+def test_sn_square_wgmma_matches_plain(cuda, P, G, K, kw, mode):
+    """csrc/sn_square_wgmma.cu against the plain version: N exact, S
+    bit-equal under the IEEE divide and within the other modes'
+    tolerances; S and N bit-symmetric; one launch of it and of no other
+    kernel."""
+    m, t = _square(cuda, P, G, K, seed=P + G + K)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t)
+    before = _launches()
+    s, n = sn_square.fused_sn_square(m, t, **kw, **_DIVIDE[mode])
+    assert _launches() == (before[0], before[1], before[2] + 1)
+    _assert_matches_plain(s, n, s_ref, n_ref, mode)
+    assert torch.equal(s, s.T) and torch.equal(n, n.T)
+
+
+@pytest.mark.cuda
+def test_sn_square_wgmma_empty_protein_axis(cuda):
+    """No protein: S and N are zeros and nothing is launched."""
+    m = torch.zeros((0, 70, 128), dtype=torch.uint8, device=cuda)
+    t = torch.zeros((0, 70), dtype=torch.float32, device=cuda)
+    before = _launches()
+    s, n = sn_square.fused_sn_square(m, t)
+    assert _launches() == before
+    assert tuple(s.shape) == (70, 70) and not s.any() and not n.any()
 
 
 @pytest.mark.cuda
@@ -144,16 +199,15 @@ def test_sn_square_counts_variant(cuda):
 def test_sn_square_2p_variant(cuda, P, G, K, variant, like, mode):
     """'pipe', 'f32gram' (csrc/sn_square_mma.cu) and 'mxu_outer' against
     their plain versions, and bit-equal to the kernel whose values they
-    keep ('lean' or 'fused') in every divide mode."""
+    keep ('lean', on csrc/sn_square_wgmma.cu, or 'fused') in every divide
+    mode."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
     mma = variant == "f32gram"
-    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES)
+    before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant,
                                      **_DIVIDE[mode])
-    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES) == (
-        before[0] + (not mma), before[1] + mma
-    )
+    assert _launches() == (before[0] + (not mma), before[1] + mma, before[2])
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
     ws, wn = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=like,
                                        **_DIVIDE[mode])

@@ -147,13 +147,16 @@ def test_kernel_accumulator_cells_cover_the_warpgroup_piece_once():
 
 
 def test_wrapper_constants_match_the_kernel_source():
-    """TILE, THREADS and K_SLICE are the constants of csrc/sn_rect.cu."""
-    src = open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
-                            "sn_rect.cu")).read()
-    for name, want in (("kBM", sn_rect.TILE), ("kBN", sn_rect.TILE),
+    """TILE, THREADS and K_SLICE are the constants of the block body that
+    csrc/sn_rect.cu includes (csrc/sn_wgmma.cuh)."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+    assert '#include "sn_wgmma.cuh"' in open(
+        os.path.join(csrc, "sn_rect.cu")).read()
+    hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
+    for name, want in (("kTile", sn_rect.TILE),
                        ("kThreads", sn_rect.THREADS),
                        ("kSliceBytes", sn_rect.K_SLICE)):
-        assert f"constexpr int {name} = {want};" in src
+        assert f"constexpr int {name} = {want};" in hdr
 
 
 @pytest.mark.parametrize("A,B,K", [(3, 5, 7), (40, 24, 256), (17, 9, 131)])

@@ -8,6 +8,8 @@ in TPU interpret mode (as tests/test_fused.py runs them), and the XLA-scan
 relative, the JAX package's own bound for its fused paths.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 from parfastaai_tpu.constants import MAX_K_SINGLE_BLOCK
 from parfastaai_tpu.ops import fused as jax_fused
 from parfastaai_tpu.ops import pallas_intersect as jpi
-from parfastaai_tpu_torch.ops import fused, sn_rect, sn_square
+from parfastaai_tpu_torch.ops import _build, fused, sn_rect, sn_square
 
 RTOL = 2e-6
 
@@ -114,20 +116,174 @@ def test_plan_mode_matches_jax(p, g, k, sym, packed):
     assert set(plan) == set(want)
     assert plan["mode"] == want["mode"]
     nt = plan["nt"]
-    assert plan["tile"] == 64 and plan["gp"] == 64 * nt >= g > plan["gp"] - 64
+    # the route's tile and K slice: the wgmma kernel's for unpacked presence
+    # (the default variant), the __dp4a kernel's for packed
+    tile = 64 if packed else 128
+    assert plan["tile"] == tile
+    assert plan["gp"] == tile * nt >= g > plan["gp"] - tile
     assert plan["n_tiles"] == (nt * (nt + 1) // 2 if sym else nt * nt)
-    assert plan["pp"] == (p + p % 2 if plan["mode"] == "2p" else p)
+    assert plan["pp"] == p  # the wgmma kernel takes no steps; packed takes 1
     kbytes = plan["kp"] // 2 if packed else plan["kp"]
-    assert kbytes % 64 == 0 and plan["kp"] >= k
+    assert kbytes % tile == 0 and plan["kp"] >= k
+    assert plan["kp"] - k < 2 * tile
     assert plan["mxu_macs"] == (
-        plan["n_tiles"] * 64 * 64 * plan["pp"] * plan["kp"]
+        plan["n_tiles"] * tile * tile * plan["pp"] * plan["kp"]
     )
 
 
 def test_plan_rejects_other_tiles():
-    assert sn_square.fused_aji_plan(3, 100, 64, tile=64)["tile"] == 64
-    with pytest.raises(ValueError, match="tile is 64"):
-        sn_square.fused_aji_plan(3, 100, 64, tile=128)
+    assert sn_square.fused_aji_plan(3, 100, 64, tile=128)["tile"] == 128
+    with pytest.raises(ValueError, match="tile on this route is 128"):
+        sn_square.fused_aji_plan(3, 100, 64, tile=64)
+    assert sn_square.fused_aji_plan(3, 100, 64, tile=64,
+                                    packed=True)["tile"] == 64
+    assert sn_square.fused_aji_plan(3, 100, 64, tile=64,
+                                    variant="pipe")["tile"] == 64
+    for kw in ({"packed": True}, {"variant": "fused"}):
+        with pytest.raises(ValueError, match="tile on this route is 64"):
+            sn_square.fused_aji_plan(3, 100, 64, tile=128, **kw)
+    with pytest.raises(ValueError, match="unknown variant"):
+        sn_square.fused_aji_plan(3, 100, 64, variant="nope")
+
+
+@pytest.mark.parametrize(
+    "p,g,k,kw,want",
+    [
+        # the bench shape on the default route: 32 row tiles of 128
+        (80, 4096, 1280, {},
+         dict(mode="2p", tile=128, gp=4096, nt=32, n_tiles=528, pp=80,
+              kp=1280, mxu_macs=885837004800)),
+        (80, 4096, 1280, {"symmetric": False},
+         dict(mode="full", tile=128, nt=32, n_tiles=1024, pp=80,
+              mxu_macs=1024 * 128 * 128 * 80 * 1280)),
+        # ragged G: one tile and an edge, three tiles
+        (3, 129, 256, {}, dict(tile=128, gp=256, nt=2, n_tiles=3, pp=3)),
+        (3, 300, 200, {}, dict(tile=128, gp=384, nt=3, n_tiles=6, kp=256)),
+        (5, 77, 128, {}, dict(tile=128, gp=128, nt=1, n_tiles=1, pp=5,
+                              mxu_macs=128 * 128 * 5 * 128)),
+        # packed presence stays on the 64-row kernel, one protein a step
+        (80, 4096, 1280, {"packed": True},
+         dict(mode="sym", tile=64, nt=64, n_tiles=2080, pp=80, kp=1280,
+              mxu_macs=872415232000)),
+        (3, 300, 200, {"packed": True}, dict(tile=64, nt=5, kp=256)),
+        # the K-blocked plans at the kb bench's shape
+        (16, 1024, 51200, {},
+         dict(mode="kb_sym", tile=128, nt=8, n_tiles=36, pp=16, kp=51200,
+              mxu_macs=36 * 128 * 128 * 16 * 51200)),
+        (16, 1024, 51200, {"symmetric": False},
+         dict(mode="kb_full", tile=128, n_tiles=64,
+              mxu_macs=16 * 1024 * 1024 * 51200)),
+        # the variant selects a kernel in mode 2p only
+        (16, 1024, 51200, {"variant": "fused"},
+         dict(mode="kb_sym", tile=128, n_tiles=36)),
+        (5, 4096, 1280, {"variant": "base"},
+         dict(mode="2p", tile=128, n_tiles=528, pp=5)),
+        *((5, 4096, 1280, {"variant": v},
+           dict(mode="2p", tile=64, nt=64, n_tiles=2080, pp=6, kp=1280,
+                mxu_macs=2080 * 64 * 64 * 6 * 1280))
+          for v in ("counts", "fused", "pipe", "mxu_outer", "f32gram")),
+    ],
+)
+def test_plan_describes_the_route(p, g, k, kw, want):
+    """The plan's tile, tile count and MACs are those of the kernel the
+    same arguments launch: 128-row tiles on the wgmma kernel, 64-row tiles
+    and two proteins per step on the others."""
+    plan = sn_square.fused_aji_plan(p, g, k, **kw)
+    assert {key: plan[key] for key in want} == want
+
+
+@pytest.mark.parametrize("nt", [1, 2, 3, 32])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_tile_list_over_128_row_tiles(nt, symmetric):
+    """Row-major upper triangle (np.triu_indices, as the TPU wrapper's
+    scalar-prefetched maps) or the whole square, int32 (n_tiles, 2)."""
+    tiles = sn_square._tile_list(nt, symmetric, torch.device("cpu"))
+    assert tiles.dtype == torch.int32 and tiles.is_contiguous()
+    got = [tuple(x) for x in tiles.tolist()]
+    want = [(r, c) for r in range(nt) for c in range(nt)
+            if c >= r or not symmetric]
+    assert got == want
+    plan = sn_square.fused_aji_plan(1, nt * 128, 128, symmetric=symmetric)
+    assert len(got) == plan["n_tiles"]
+
+
+def test_wgmma_loader_covers_each_staged_chunk_once():
+    """Both staged sides (the tile's rows, then its columns' rows) take
+    sn_rect's loader map: over a block's threads every 16-byte chunk of
+    every row once, swizzled to distinct cells of the side's 16 KB."""
+    tile, ks = sn_square.WGMMA_TILE, sn_square.WGMMA_K_SLICE
+    got = [c for tid in range(sn_square.WGMMA_THREADS)
+           for c in sn_rect.loader_chunks(tid)]
+    assert sorted(got) == [(r, c) for r in range(tile)
+                           for c in range(ks // 16)]
+    cells = sorted(sn_rect.staged_offset(r, c) for r, c in got)
+    assert cells == list(range(0, tile * ks, 16))
+    assert 2 * tile == sn_square.WGMMA_THREADS  # one T value a thread
+
+
+def test_wgmma_accumulator_cells_cover_the_tile_once():
+    """Direct cells of one block: every cell of the 128 x 128 tile once."""
+    tile = sn_square.WGMMA_TILE
+    cells = [cell for tid in range(sn_square.WGMMA_THREADS)
+             for i in range(tile // 2)
+             for cell in sn_square.stored_cells(tid, i, 2, 2, True)]
+    assert sorted(cells) == [(r, c) for r in range(2 * tile, 3 * tile)
+                             for c in range(2 * tile, 3 * tile)]
+
+
+@pytest.mark.parametrize("G", [77, 128, 129, 300])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_wgmma_stored_cells_cover_the_square_once(G, symmetric):
+    """Over the tile list, the cells the kernel stores (direct and, off the
+    diagonal tiles of the triu walk, mirrored; cells past G masked) are
+    every cell of the G x G square exactly once."""
+    tile = sn_square.WGMMA_TILE
+    nt = -(-G // tile)
+    hits = np.zeros((G, G), np.int32)
+    for rt, ct in sn_square._tile_list(nt, symmetric,
+                                       torch.device("cpu")).tolist():
+        for tid in range(sn_square.WGMMA_THREADS):
+            for i in range(tile // 2):
+                direct, *mirror = sn_square.stored_cells(tid, i, rt, ct,
+                                                         symmetric)
+                if direct[0] < G and direct[1] < G:
+                    hits[direct] += 1
+                    for cell in mirror:
+                        hits[cell] += 1
+    assert (hits == 1).all()
+
+
+def test_wgmma_constants_match_the_kernel_source():
+    """WGMMA_TILE, WGMMA_THREADS and WGMMA_K_SLICE are the constants of the
+    block body in csrc/sn_wgmma.cuh, which csrc/sn_square_wgmma.cu and
+    csrc/sn_rect.cu both run, and equal sn_rect's, whose index maps the
+    kernel shares; the build compiles the source and hashes its header."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+    hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
+    for name, want in (("kTile", sn_square.WGMMA_TILE),
+                       ("kThreads", sn_square.WGMMA_THREADS),
+                       ("kSliceBytes", sn_square.WGMMA_K_SLICE)):
+        assert f"constexpr int {name} = {want};" in hdr
+    assert (sn_square.WGMMA_TILE, sn_square.WGMMA_THREADS,
+            sn_square.WGMMA_K_SLICE) == (sn_rect.TILE, sn_rect.THREADS,
+                                         sn_rect.K_SLICE)
+    for source in ("sn_square_wgmma.cu", "sn_rect.cu"):
+        src = open(os.path.join(csrc, source)).read()
+        assert '#include "sn_wgmma.cuh"' in src
+        assert src.count("sn_wgmma_tile<kMode>(") == 1
+        # one body: no second copy of the ring or of its constants
+        assert "wgmma_m64n128k32(" not in src and "constexpr" not in src
+    names = {os.path.basename(path) for path in _build._SRCS + _build._HDRS}
+    assert {"sn_square_wgmma.cu", "sn_wgmma.cuh", "sn_rect.cu"} <= names
+
+
+def test_build_tag_follows_the_shared_header(monkeypatch, tmp_path):
+    """A changed header changes the library's name, so it is rebuilt."""
+    before = _build._tag()
+    hdr = tmp_path / "sn_wgmma.cuh"
+    hdr.write_bytes(open(_build._HDRS[0], "rb").read() + b"\n// changed\n")
+    monkeypatch.setattr(_build, "_HDRS", [str(hdr)])
+    assert _build._tag() != before
 
 
 @pytest.mark.parametrize("K", [256, 255, 1])
@@ -291,8 +447,10 @@ def test_alternative_walks_match_jax(fn, jax_fn):
 def test_wrappers_on_cpu_launch_nothing():
     m, t = _square_inputs(P=3, G=40)
     ref = sn_square.fused_sn_square_plain(m, t)
-    before = sn_square.LAUNCHES
+    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
+              sn_square.WGMMA_LAUNCHES)
     for kw in ({}, {"symmetric": False}, {"pairs_per_step": 2},
+               {"pairs_per_step": 2, "update": "base"},
                {"approx": True}, {"precise": True}):
         s, n = sn_square.fused_sn_square(m, t, **kw)
         assert torch.equal(s, ref[0]) and torch.equal(n, ref[1])
@@ -301,7 +459,9 @@ def test_wrappers_on_cpu_launch_nothing():
         s, n = fn(m, t)
         assert torch.equal(s, ref[0]) and torch.equal(n, ref[1])
     sn_square.fused_aji(m, t)
-    assert sn_square.LAUNCHES == before
+    sn_square.fused_aji(m, t, symmetric=False)
+    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
+            sn_square.WGMMA_LAUNCHES) == before
 
 
 def test_wrappers_reject_bad_operands():
@@ -333,3 +493,29 @@ def test_wrappers_reject_bad_operands():
                sn_square.sn_sym_bands_2p):
         with pytest.raises(ValueError, match="runs on cuda or cpu"):
             fn(m.to("meta"), t.to("meta"))
+
+
+@pytest.mark.parametrize("tool,source", [
+    ("sn_rect_ablation", "sn_rect.cu"),
+    ("sn_square_ablation", "sn_square_wgmma.cu"),
+])
+def test_ablation_cuts_match_the_sources(tool, source):
+    """Every text that the ablation tools replace stands exactly once in the
+    block body that both kernels include (the tools raise on the card
+    otherwise), and each tool builds its own kernel's source."""
+    import importlib
+
+    from parfastaai_tpu_torch.tools import sn_rect_ablation
+
+    mod = importlib.import_module(f"parfastaai_tpu_torch.tools.{tool}")
+    assert mod.build_variants is sn_rect_ablation.build_variants
+    cuts = sn_rect_ablation.CUTS
+    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+    hdr = open(os.path.join(csrc, sn_rect_ablation.HEADER)).read()
+    assert f'#include "{sn_rect_ablation.HEADER}"' in open(
+        os.path.join(csrc, source)).read()
+    assert source in open(mod.__file__).read()
+    assert [name for name, _ in cuts] == ["full", "noload", "nomma", "noepi"]
+    for name, replacements in cuts:
+        for old, new in replacements:
+            assert hdr.count(old) == 1 and new != old, name
