@@ -41,14 +41,26 @@ Run from the repository root:
    per genome, seed 0), with every kernel launch counter reset just before
    and read just after.  A band of 64 rows of the result is then checked
    against exact integer counts finished in f64 on the host (numpy).
-3. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
+3. Runs the exact path on the card.  On a 1024-genome database of the same
+   generator: the default (dense) call, ``--streamed --exact`` (the banded
+   exact engine on its symmetric walk) and the same with
+   PARFASTAAI_MIRROR_BYTES=1 (the full square) must write the same bytes,
+   and a ``--resume`` from the second file cut inside a band must restore
+   it.  Then the CLI with no flag but ``--device cuda`` on the 4096-genome
+   database of step 2: it must route itself into the banded exact engine,
+   launch none of the hand-written kernels (its device work is the library
+   int8 Gram), and its first 64 rows must equal, as text, the formatter's
+   output on exact f64 computed on the host (numpy): both accumulate IEEE
+   f64 in ascending protein order, so this is equality, not a tolerance.
+   Its wall, genome pairs per second and stage split are printed.
+4. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
    sn_square_wgmma and no other kernel, and once with each
    ``PARFASTAAI_BENCH_VARIANT`` above, and in kb mode, echoing their JSON
    lines, and checks a band of ``fused_aji`` on the bench's workload
    against exact f64.
-4. Prints the card's name and power limit, one JSON line of kernel results
+5. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, when CUDA is not available,
@@ -136,6 +148,9 @@ MEMORY_RATE = {
 E2E = dict(n_genomes=4096, n_proteins=80, pool_size=1200, tetras_per_genome=400)
 BAND_ROWS = 64
 RTOL_E2E_AJI = 1e-6
+# The exact path's byte comparisons (dense, banded, banded without the
+# mirror, resumed) run at this many genomes of the E2E generator.
+EXACT_SMALL_G = 1024
 
 
 def fail(msg: str) -> None:
@@ -569,15 +584,11 @@ def bench_phase(dev) -> dict:
         """One kernel-mode bench run with every launch counter set to 0
         just before it and read just after; fails unless it launched
         ``name`` and no other kernel."""
-        sn_square.LAUNCHES = sn_square.MMA_LAUNCHES = 0
-        sn_square.WGMMA_LAUNCHES = sn_rect.LAUNCHES = 0
+        reset_launches()
         t0 = time.perf_counter()
         result = bench.main(env)
         wall = time.perf_counter() - t0
-        ran = {"sn_square": sn_square.LAUNCHES,
-               "sn_square_mma": sn_square.MMA_LAUNCHES,
-               "sn_square_wgmma": sn_square.WGMMA_LAUNCHES,
-               "sn_rect": sn_rect.LAUNCHES}
+        ran = read_launches()
         if ran[name] == 0 or any(v for k, v in ran.items() if k != name):
             fail(f"the kernel-mode bench{what} should launch {name} alone "
                  f"and launched {ran}")
@@ -624,17 +635,20 @@ def bench_phase(dev) -> dict:
     return launches
 
 
-def synth_db() -> str:
+def synth_db(n_genomes: int | None = None) -> str:
+    """The E2E generator's database, at ``n_genomes`` genomes if given."""
     from parfastaai_tpu_torch.tools.synth_db import generate
 
-    tag = "_".join(f"{k}{v}" for k, v in E2E.items())
+    args = dict(E2E, n_genomes=n_genomes or E2E["n_genomes"])
+    tag = "_".join(f"{k}{v}" for k, v in args.items())
     path = os.path.join(tempfile.gettempdir(), f"parfastaai_synth_{tag}_s{SEED}.db")
     if not os.path.exists(path):
         t0 = time.perf_counter()
         tmp = f"{path}.tmp{os.getpid()}"
-        generate(tmp, seed=SEED, **E2E)
+        generate(tmp, seed=SEED, **args)
         os.replace(tmp, path)
-        print(f"synthetic DB generated in {time.perf_counter() - t0:.1f} s")
+        print(f"synthetic DB of {args['n_genomes']} genomes generated in "
+              f"{time.perf_counter() - t0:.1f} s")
     return path
 
 
@@ -655,8 +669,10 @@ def exact_band(m: np.ndarray, t: np.ndarray, rows: int):
     return s, n
 
 
-def band_check(db: str, csv_path: str, dev) -> None:
-    """Rows 0..BAND_ROWS-1 of the run against exact f64 on the host."""
+def band_check(db: str, csv_path: str, dev) -> np.ndarray:
+    """Rows 0..BAND_ROWS-1 of the run against exact f64 on the host.
+    Returns that exact (BAND_ROWS, G) f64 AJI with the diagonal at 0, as
+    the CSV holds it."""
     from parfastaai_tpu_torch import engine
     from parfastaai_tpu_torch.etl.database import SCPDatabase
 
@@ -698,6 +714,141 @@ def band_check(db: str, csv_path: str, dev) -> None:
         f"band check: rows 0..{R - 1} x {G} columns, N exact, "
         f"AJI max rel err {err.max():.3e} (rtol {RTOL_E2E_AJI}) ok"
     )
+    return want
+
+
+def cli_phases(text: str) -> dict:
+    """The milliseconds of every ``label: x ms`` line the CLI printed."""
+    return {
+        m.group(1).strip(): float(m.group(2))
+        for m in re.finditer(r"^\s*(.+?)\s*: ([0-9.]+) ms", text, re.M)
+    }
+
+
+def reset_launches() -> None:
+    from parfastaai_tpu_torch.ops import sn_rect, sn_square
+
+    sn_square.LAUNCHES = sn_square.MMA_LAUNCHES = 0
+    sn_square.WGMMA_LAUNCHES = sn_rect.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from parfastaai_tpu_torch.ops import sn_rect, sn_square
+
+    return {"sn_square": sn_square.LAUNCHES,
+            "sn_square_mma": sn_square.MMA_LAUNCHES,
+            "sn_square_wgmma": sn_square.WGMMA_LAUNCHES,
+            "sn_rect": sn_rect.LAUNCHES}
+
+
+def exact_phase(want_band: np.ndarray) -> None:
+    """The exact path on the card: byte comparisons of its routes at
+    EXACT_SMALL_G genomes, then the CLI's default call at the E2E size,
+    whose first rows must equal ``want_band`` as text."""
+    from parfastaai_tpu_torch import cli
+    from parfastaai_tpu_torch.io.csv_writer import format_matrix
+
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_exact_")
+
+    def call(db: str, name: str, flags=(), env=None) -> tuple[str, str, float]:
+        """One CLI run on the card: (CSV path, what it printed, wall s)."""
+        out = os.path.join(out_dir, f"{name}.csv")
+        lines: list[str] = []
+        saved = {k: os.environ.get(k) for k in env or {}}
+        os.environ.update(env or {})
+        try:
+            t0 = time.perf_counter()
+            with captured_stdout(lines):
+                rc = cli.run([db, out, "--device", "cuda", *flags])
+            wall = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+        if rc != 0:
+            print("\n".join(lines))
+            fail(f"CLI {' '.join(flags) or '(default)'} {env or ''} exited {rc}")
+        return out, "\n".join(lines), wall
+
+    def read(path: str) -> bytes:
+        with open(path, "rb") as fp:
+            return fp.read()
+
+    try:
+        small = synth_db(EXACT_SMALL_G)
+        banded_flags = ["--streamed", "--exact"]
+        dense, dense_text, dense_wall = call(small, "dense")
+        banded, banded_text, banded_wall = call(small, "banded", banded_flags)
+        full, _, full_wall = call(small, "full", banded_flags,
+                                  {"PARFASTAAI_MIRROR_BYTES": "1"})
+        if "banded exact" in dense_text or "(banded exact)" not in banded_text:
+            fail(f"G={EXACT_SMALL_G}: the dense call or --streamed --exact "
+                 "took the other's route")
+        want = read(dense)
+        if want.count(b"\n") != EXACT_SMALL_G + 1:
+            fail(f"G={EXACT_SMALL_G}: the dense CSV has "
+                 f"{want.count(b'\n')} lines")
+        for name, path in (("--streamed --exact", banded),
+                           ("--streamed --exact without the mirror", full)):
+            if read(path) != want:
+                fail(f"G={EXACT_SMALL_G}: the CSV of {name} differs from the "
+                     "dense default call's")
+        # header, one band of 512 rows, 100 rows of the next and a torn line
+        lines = want.split(b"\n")
+        with open(banded, "wb") as fp:
+            fp.write(b"\n".join(lines[: 1 + 512 + 100]) + b"\n" + lines[700][:37])
+        _, _, resume_wall = call(small, "banded", [*banded_flags, "--resume"])
+        if read(banded) != want:
+            fail(f"G={EXACT_SMALL_G}: --resume did not restore the CSV")
+        print(
+            f"exact path G={EXACT_SMALL_G}: dense, --streamed --exact, the "
+            "same without the mirror and a --resume from a file cut inside "
+            f"a band write the same {len(want)} bytes (walls {dense_wall:.3f}, "
+            f"{banded_wall:.3f}, {full_wall:.3f}, {resume_wall:.3f} s)"
+        )
+
+        db = synth_db()
+        reset_launches()
+        out, text, wall = call(db, "default")
+        ran = read_launches()
+        print(text)
+        if "routing through the banded exact engine" not in text:
+            fail("the default call did not route to the banded exact engine")
+        if any(ran.values()):
+            fail(f"the default call launched hand-written kernels: {ran}")
+        G, R = E2E["n_genomes"], BAND_ROWS
+        with open(out) as fp:
+            names = fp.readline().rstrip("\n").split(",")[1:]
+            got = [fp.readline().rstrip("\n") for _ in range(R)]
+            n_lines = 1 + R + sum(1 for _ in fp)
+        if len(names) != G or n_lines != G + 1:
+            fail(f"default CSV shape: {n_lines} lines, {len(names)} columns")
+        rows = format_matrix(want_band, ",")
+        differ = [i for i in range(R) if got[i] != f"{names[i]},{rows[i]}"]
+        if differ:
+            fail(f"default call: rows {differ[:5]} of the CSV differ from the "
+                 "host's exact f64")
+        phases = cli_phases(text)
+        pairs = G * (G - 1) // 2
+        print(
+            f"e2e default G={G}: wall {wall:.3f} s, routed to the banded "
+            f"exact engine, kernel launches {sum(ran.values())}, rows "
+            f"0..{R - 1} byte-equal to exact f64, "
+            f"{pairs / (phases['Banded exact + CSV'] / 1e3):.4e} genome "
+            f"pairs/s over Banded exact + CSV, {pairs / wall:.4e} over the "
+            "wall; split ms (stages overlap): "
+            + ", ".join(
+                f"{k} {phases.get(k, 0.0):.1f}"
+                for k in ("Presence ETL", "Banded exact + CSV",
+                          "host bucketize", "H2D", "Gram", "D2H",
+                          "host finish", "CSV write", "producer wait",
+                          "worker wait")
+            )
+        )
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def e2e_phase(dev) -> dict:
@@ -721,10 +872,7 @@ def e2e_phase(dev) -> dict:
             fail(f"CLI --fast exited {rc}")
         if launches == 0:
             fail("the --fast run launched no sn_rect kernel")
-        phases = {
-            m.group(1).strip(): float(m.group(2))
-            for m in re.finditer(r"^\s*(.+?)\s*: ([0-9.]+) ms", text, re.M)
-        }
+        phases = cli_phases(text)
         G = E2E["n_genomes"]
         jac_s = phases["JAC + AJI"] / 1e3
         print(
@@ -738,10 +886,10 @@ def e2e_phase(dev) -> dict:
                           "CSV write")
             )
         )
-        band_check(db, out, dev)
+        band = band_check(db, out, dev)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    return {"launches": launches}
+    return {"launches": launches, "band": band}
 
 
 def host_library_phase() -> None:
@@ -850,6 +998,7 @@ def main() -> None:
     kern = kernel_phase(dev)
     square = square_phase(dev)
     e2e = e2e_phase(dev)
+    exact_phase(e2e["band"])
     whole = bench_phase(dev)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))

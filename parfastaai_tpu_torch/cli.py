@@ -3,11 +3,14 @@
 ``python -m parfastaai_tpu_torch <db> <out.csv> [flags]`` takes the parser
 and flags of ``parfastaai_tpu.cli`` plus ``--device {cuda,cpu}`` (default
 cuda).  It runs the three modes (all-vs-all, ``-q`` query-subset, ``-r``
-two-database) on the exact default path and on ``--fast``, with the same
-validation, error codes and phase timers.  Flags whose engines the port
-does not run yet (``--streamed``, ``--exact``, ``--staged``, ``--mesh``,
-``--resume``, ``--profile``) and the default path's auto-route into the
-banded exact engine exit with CONSTRUCT_ERROR (3) and write no CSV.
+two-database) on the exact default path, on ``--fast`` and on the banded
+exact engine (``--streamed --exact``, with ``--resume``), with the same
+validation, error codes and phase timers.  Above the host budget of the
+dense exact path (PARFASTAAI_EXACT_HOST_BYTES, default 4 GiB) the default
+call routes itself through the banded exact engine and writes the same
+bytes.  Flags whose engines the port does not run yet (``--streamed``
+without ``--exact``, ``--staged``, ``--mesh``, ``--profile``) exit with
+CONSTRUCT_ERROR (3) and write no CSV.
 """
 
 from __future__ import annotations
@@ -18,13 +21,14 @@ import sys
 
 from . import __version__
 from .device import resolve_device
-from .engine import compute, compute_fast
+from .engine import compute, compute_fast, compute_streamed_exact
 from .etl.database import QueryTargetDatabase, SCPDatabase
 from .etl.derive import derive_qsub, derive_qt, derive_single
 from .io.csv_writer import write_aji_csv
 from .io.fmtfloat import format_double
 from .modes import (
     all_vs_all,
+    all_vs_all_axes,
     query_subset,
     query_subset_axes,
     query_target,
@@ -33,7 +37,7 @@ from .modes import (
 from .types import ErrorCode, PFAAIError
 from .utils.timing import phase_timer
 
-_NOT_PORTED = ("streamed", "exact", "staged", "mesh", "resume", "profile")
+_NOT_PORTED = ("staged", "mesh", "profile")
 
 
 def _as_pfaai_error(e: Exception) -> PFAAIError:
@@ -124,10 +128,22 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     for flag, help_ in (
-        ("--streamed", "Streaming row-band engine (not in the port yet)"),
-        ("--exact", "Banded exact engine, with --streamed (not in the port yet)"),
+        (
+            "--streamed",
+            "Streaming row-band engine: with --exact the banded exact "
+            "engine (the f32 streamed engine is not in the port yet)",
+        ),
+        (
+            "--exact",
+            "With --streamed: banded exact engine, bit-parity f64 CSV in "
+            "memory that does not grow with the genome count",
+        ),
         ("--staged", "Presence-slab staging (not in the port yet)"),
-        ("--resume", "Resume a streamed run (not in the port yet)"),
+        (
+            "--resume",
+            "Banded exact engine: keep the complete band-aligned rows "
+            "already in the output file and continue after them",
+        ),
     ):
         p.add_argument(flag, action="store_true", help=help_)
     p.add_argument(
@@ -182,7 +198,8 @@ def _print_args_box(args) -> None:
 
 def _validate(args) -> None:
     """The flag checks of ``parfastaai_tpu.cli.run``, in its order, then the
-    flags the port does not run yet."""
+    flags the port does not run yet (``--streamed`` runs with ``--exact``
+    only)."""
     if args.exact and not args.streamed:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -225,22 +242,32 @@ def _validate(args) -> None:
             "--approx/--precise select the fused kernel's divide and "
             "require --fast or --streamed",
         )
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            raise PFAAIError(
-                ErrorCode.CONSTRUCT_ERROR,
-                f"--{name}: the PyTorch port does not run this yet "
-                "(parfastaai_tpu.cli does)",
-            )
+    not_run = [name for name in _NOT_PORTED if getattr(args, name)]
+    if args.streamed and not args.exact:
+        not_run.append("streamed")  # the f32 streamed engine
+    if not_run:
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            f"--{not_run[0]}: the PyTorch port does not run this yet "
+            "(parfastaai_tpu.cli does)",
+        )
 
 
 def _pair_space(args, meta, two_db: bool):
-    """(PairSpace, query names or None) of the run's mode.  Where the JAX
-    CLI would auto-route the default exact path to the banded exact engine,
-    the mode's inputs are validated as its axes constructors do and the run
-    stops with CONSTRUCT_ERROR, before any O(n_pairs) table exists."""
+    """(pairs, query names or None, banded_auto) of the run's mode, decided
+    from the metadata alone as ``parfastaai_tpu.cli.run`` decides it.
+
+    ``banded_auto``: the default exact path's dense host footprint would
+    exceed the budget, so the run goes through the banded exact engine
+    (the same f64 values and CSV bytes in bounded memory).  ``--dump-jac``
+    needs the per-pair result and pins the dense path.  For the banded
+    engine (``--streamed --exact`` or ``banded_auto``) ``pairs`` is the
+    mode's O(rows + cols) StreamAxes, with the validation of its PairSpace
+    and no O(n_pairs) table; otherwise it is the PairSpace."""
+    exact_default = not (args.fast or args.streamed)
     n_prot = len(meta.protein_set)
     n_tgt = len(meta.genome_set)
+    compat = not args.no_compat_qt_t_swap
     queries = None
     if two_db:
         n_pairs_est = len(meta.query_genome_set) * n_tgt
@@ -253,29 +280,21 @@ def _pair_space(args, meta, two_db: bool):
         n_pairs_est = nq * (n_tgt - nq) + nq * (nq - 1) // 2
     else:
         n_pairs_est = n_tgt * (n_tgt - 1) // 2
-    compat = not args.no_compat_qt_t_swap
-    if (
-        not args.fast
+    banded_auto = (
+        exact_default
         and not args.dump_jac
         and _route_banded_exact(n_pairs_est, n_prot)
-    ):
-        if two_db:
-            query_target_axes(meta, compat_qt_t_swap=compat)
-        elif queries is not None:
-            query_subset_axes(meta, queries)
-        raise PFAAIError(
-            ErrorCode.CONSTRUCT_ERROR,
-            "exact path: host footprint exceeds "
-            f"{_exact_host_budget() >> 30} GiB, where parfastaai_tpu.cli "
-            "routes to the banded exact engine; the PyTorch port does not "
-            "run that engine yet (use --fast, or raise "
-            "PARFASTAAI_EXACT_HOST_BYTES)",
-        )
+    )
+    use_axes = args.streamed or banded_auto
     if two_db:
-        return query_target(meta, compat_qt_t_swap=compat), None
-    if queries is not None:
-        return query_subset(meta, queries), queries
-    return all_vs_all(meta), None
+        mode_fn = query_target_axes if use_axes else query_target
+        pairs = mode_fn(meta, compat_qt_t_swap=compat)
+    elif queries is not None:
+        mode_fn = query_subset_axes if use_axes else query_subset
+        pairs = mode_fn(meta, queries)
+    else:
+        pairs = all_vs_all_axes(meta) if use_axes else all_vs_all(meta)
+    return pairs, queries, banded_auto
 
 
 def _dump_e(args, db, two_db: bool, queries, verbose: bool) -> None:
@@ -299,6 +318,40 @@ def _print_phases(phases: dict, verbose: bool) -> None:
             print(f"  {label:<17}: {seconds * 1e3:.1f} ms")
 
 
+def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
+    """The banded exact engine's one call, for ``--streamed --exact`` and
+    for the auto-routed default path alike (``pairs`` is the StreamAxes)."""
+    phases: dict[str, float] = {}
+    with phase_timer("Banded exact + CSV ", enabled=verbose):
+        compute_streamed_exact(
+            presence,
+            pairs.row_db_ids,
+            pairs.col_db_ids,
+            args.path_to_output_file,
+            pairs.query_names,
+            pairs.target_names,
+            device,
+            separator=args.separator,
+            band=min(args.band, 512),
+            col_chunk=min(args.col_chunk, 2048),
+            resume=args.resume,
+            row_denom_ids=pairs.row_denom_ids,
+            col_denom_ids=pairs.col_denom_ids,
+            phases=phases,
+        )
+    _print_phases(phases, verbose)
+    if verbose:
+        print(
+            "  (the stages above overlap: they do not sum to the phase's "
+            "wall)"
+        )
+        print(
+            f"Wrote {len(pairs.query_names)} x "
+            f"{len(pairs.target_names)} AJI matrix to "
+            f"{args.path_to_output_file} (banded exact) on {device}"
+        )
+
+
 def run(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     verbose = not args.quiet
@@ -320,7 +373,7 @@ def run(argv: list[str] | None = None) -> int:
         except Exception as e:  # noqa: BLE001 — same codes as the JAX CLI
             raise _as_pfaai_error(e) from e
         try:
-            pairs, queries = _pair_space(args, meta, two_db)
+            pairs, queries, banded_auto = _pair_space(args, meta, two_db)
             try:
                 with phase_timer("Presence ETL       ", enabled=verbose):
                     presence = db.load_presence(verbose=verbose)
@@ -330,6 +383,18 @@ def run(argv: list[str] | None = None) -> int:
                 _dump_e(args, db, two_db, queries, verbose)
         finally:
             db.close()
+        if banded_auto and verbose:
+            # Dense exact would exceed the host budget: the same f64
+            # values and CSV bytes through the banded exact engine.
+            print(
+                "exact path: host footprint exceeds "
+                f"{_exact_host_budget() >> 30} GiB — routing through the "
+                "banded exact engine (identical CSV bytes; "
+                "PARFASTAAI_EXACT_HOST_BYTES overrides)"
+            )
+        if args.streamed or banded_auto:
+            _banded_exact_run(args, presence, pairs, device, verbose)
+            return 0
         phases: dict[str, float] = {}
         with phase_timer("JAC + AJI          ", enabled=verbose):
             if args.fast:

@@ -11,25 +11,37 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   the presence tensor live on the device (``to_device_buckets``); output
   blocks of band x col_chunk genome pairs run through the hand-written
   rectangular kernel (ops.sn_rect) and are assembled on the host.
+* ``compute_streamed_exact`` (``--streamed --exact``, and the default call
+  above the host budget): the banded exact engine.  Integer count blocks
+  of band x col_chunk genome pairs from the same resident width buckets
+  (``_bucket_count_engine``), copied to page-locked host memory on a side
+  stream while a worker thread finishes earlier blocks in f64 and appends
+  whole bands to the CSV; the bytes of ``compute`` + ``write_aji_csv`` in
+  memory that does not grow with the genome count.
 
 Every function computes on the device it is given.  ``phases``, where
-accepted, is a dict that collects wall seconds per sub-phase; the device
-is synchronised at each phase boundary, which the block loop's host copies
-do anyway.
+accepted, is a dict that collects seconds per sub-phase.  ``compute`` and
+``compute_fast`` synchronise the device at each phase boundary, which
+their host copies do anyway; the banded exact engine never does, and reads
+its device phases from CUDA events after the last block.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 from .etl.database import PresenceData, bucket_bounds, bucketize_presence
+from .io.csv_writer import format_matrix
 from .modes import PairSpace
-from .native import native_jaccard_finish
-from .ops.fused import pair_counts_device
+from .native import native_jaccard_finish, native_jaccard_finish_block
+from .ops.fused import int_gram, pair_counts_device
 from .ops.sn_rect import clamp_t, fused_sn_block
 from .types import ErrorCode, JacResult, PFAAIError
 
@@ -70,6 +82,65 @@ def jaccard_finish(
         s[mask] += cm / dm
         nacc += mask
     return s, nacc
+
+
+def jaccard_finish_block(
+    counts: np.ndarray,  # integer (P, A, B)
+    ta: np.ndarray,  # int (P, A) — T[p, row_denom_ids]
+    tb: np.ndarray,  # int (P, B) — T[p, col_denom_ids]
+) -> tuple[np.ndarray, np.ndarray]:
+    """Block twin of ``jaccard_finish``: (S, N) of an (A, B) output block
+    with the denominator columns given per axis, so no (P, A * B) gather
+    exists.  The same ascending-protein f64 accumulation per cell, so
+    bit-for-bit the per-pair finish (parfastaai_tpu.engine
+    .jaccard_finish_block)."""
+    res = native_jaccard_finish_block(counts, ta, tb)
+    if res is not None:
+        return res
+    P, A, B = counts.shape
+    s = np.zeros((A, B), dtype=np.float64)
+    n = np.zeros((A, B), dtype=np.int32)
+    ta64 = ta.astype(np.float64)
+    tb64 = tb.astype(np.float64)
+    for p in range(P):
+        mask = counts[p] > 0
+        if not mask.any():
+            continue
+        c = counts[p].astype(np.float64)
+        denom = ta64[p][:, None] + tb64[p][None, :] - c
+        with np.errstate(divide="ignore", invalid="ignore"):
+            s += np.where(mask, c / denom, 0.0)
+        n += mask
+    return s, n
+
+
+def _resume_point(out_path: str, header: str, band: int) -> int:
+    """Rows already complete in a partial banded CSV, rounded down to a
+    band boundary; truncates the file to exactly those rows.  Returns 0 (and
+    leaves rewriting to the caller) when the file is absent or its header
+    does not match this run's column set."""
+    if not os.path.exists(out_path):
+        return 0
+    rows = 0
+    keep_bytes = 0
+    with open(out_path, "rb") as fp:
+        first = fp.readline()
+        if not first.endswith(b"\n") or first.decode() != header:
+            return 0
+        offset = len(first)
+        for line in fp:
+            if not line.endswith(b"\n"):
+                break  # trailing partial write of the interrupted run
+            offset += len(line)
+            rows += 1
+            if rows % band == 0:
+                keep_bytes = offset  # only band-aligned prefixes resume
+    rows -= rows % band
+    if rows == 0:
+        return 0
+    with open(out_path, "r+b") as fp:
+        fp.truncate(keep_bytes)
+    return rows
 
 
 def _count_wire_dtype(presence: PresenceData) -> torch.dtype:
@@ -147,20 +218,13 @@ def _device_budget(device: torch.device) -> int | None:
     return None
 
 
-def _bucket_block_engine(
-    presence: PresenceData,
-    approx: bool,
-    precise: bool,
-    device: torch.device,
-    phases: dict | None = None,
-):
-    """``block_sn(rids, cids, drids, dcids) -> (s, n)`` device tensors for
-    one output block, summed over the width buckets in bucket order.  The
-    index arguments are int64 host arrays: genome ids of the rows and
-    columns and the T columns of their denominators.  Raises
-    PFAAIError(CONSTRUCT_ERROR) when the buckets exceed the device budget
-    and so need the staged slab engine, which this package does not run
-    yet."""
+def _resident_buckets(
+    presence: PresenceData, device: torch.device, phases: dict | None = None
+) -> list[tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
+    """``to_device_buckets`` behind the device-budget check that the fused
+    and the integer-count block engines share.  Raises
+    PFAAIError(CONSTRUCT_ERROR) when the buckets exceed the budget and so
+    need the staged slab engine, which this package does not run yet."""
     budget = _device_budget(device)
     if budget is not None and presence_device_bytes(presence) > budget:
         raise PFAAIError(
@@ -170,28 +234,52 @@ def _bucket_block_engine(
             "the staged slab engine, which the PyTorch port does not run "
             "yet (PARFASTAAI_HBM_BYTES sets the budget)",
         )
-    buckets = to_device_buckets(presence, device, phases)
-    everyone = np.arange(presence.m.shape[1], dtype=np.int64)
+    return to_device_buckets(presence, device, phases)
 
-    def selector(ids: np.ndarray) -> torch.Tensor | None:
-        """None when ``ids`` is every genome in order (no gather needed),
-        else the ids on the device."""
-        if np.array_equal(ids, everyone):
-            return None
-        return torch.from_numpy(ids).to(device)
 
-    def take(x: torch.Tensor, sel: torch.Tensor | None) -> torch.Tensor:
-        return x if sel is None else x.index_select(1, sel)
+def _selector(
+    ids: np.ndarray, n_genomes: int, device: torch.device
+) -> torch.Tensor | None:
+    """None when ``ids`` is every genome in order (no gather needed), else
+    the ids as an int64 tensor on the device."""
+    ids = np.asarray(ids, np.int64)
+    if np.array_equal(ids, np.arange(n_genomes, dtype=np.int64)):
+        return None
+    return _to_device(ids, device)
+
+
+def _take(x: torch.Tensor, sel: torch.Tensor | None) -> torch.Tensor:
+    """Genomes ``sel`` of a (Pb, G, ...) bucket tensor; the tensor itself
+    for ``sel`` None."""
+    return x if sel is None else x.index_select(1, sel)
+
+
+def _bucket_block_engine(
+    presence: PresenceData,
+    approx: bool,
+    precise: bool,
+    device: torch.device,
+    phases: dict | None = None,
+):
+    """``block_sn(rids, cids, drids, dcids) -> (s, n)`` device tensors for
+    one output block, summed over the width buckets in bucket order.  The
+    index arguments are host arrays: genome ids of the rows and columns and
+    the T columns of their denominators.  Raises as ``_resident_buckets``
+    does."""
+    buckets = _resident_buckets(presence, device, phases)
+    G = presence.m.shape[1]
 
     def block_sn(rids, cids, drids, dcids):
         t0 = time.perf_counter()
-        rsel, csel, drsel, dcsel = map(selector, (rids, cids, drids, dcids))
+        rsel, csel, drsel, dcsel = (
+            _selector(ids, G, device) for ids in (rids, cids, drids, dcids)
+        )
         _add(phases, "gather", time.perf_counter() - t0)
         s = n = None
         for _, md, td in buckets:
             t0 = time.perf_counter()
-            ma, mb = take(md, rsel), take(md, csel)
-            ta, tb = take(td, drsel), take(td, dcsel)
+            ma, mb = _take(md, rsel), _take(md, csel)
+            ta, tb = _take(td, drsel), _take(td, dcsel)
             _sync(device)
             t1 = time.perf_counter()
             s_b, n_b = fused_sn_block(
@@ -205,6 +293,38 @@ def _bucket_block_engine(
         return s, n
 
     return block_sn
+
+
+def _bucket_count_engine(
+    presence: PresenceData, device: torch.device, phases: dict | None = None
+):
+    """``block_counts(rids, cids) -> (P, len(rids), len(cids))`` device
+    tensor of exact intersection counts for one output block, in the wire
+    dtype (int16 when max(T) < 2^15, which halves the copy to the host).
+
+    Each width bucket's per-protein int8 Grams (``ops.fused.int_gram``) are
+    written straight into the rows of the block that its proteins own, so
+    the block is in ascending protein order, the order of the f64 finish
+    that byte parity rides on, and one copy carries it to the host.  Blocks
+    have their exact shape: nothing is padded here.  Raises as
+    ``_resident_buckets`` does."""
+    buckets = _resident_buckets(presence, device, phases)
+    out_dtype = _count_wire_dtype(presence)
+    P, G = presence.t.shape
+
+    def block_counts(rids: np.ndarray, cids: np.ndarray) -> torch.Tensor:
+        rsel, csel = _selector(rids, G, device), _selector(cids, G, device)
+        out = torch.empty(
+            (P, len(rids), len(cids)), dtype=out_dtype, device=device
+        )
+        for idx, md, _ in buckets:
+            m8 = md.view(torch.int8)
+            ma, mb = _take(m8, rsel), _take(m8, csel)
+            for j, p in enumerate(idx):
+                out[int(p)] = int_gram(ma[j], mb[j])
+        return out
+
+    return block_counts
 
 
 def _banded_sn(
@@ -390,3 +510,360 @@ def compute_fast(
     else:
         return compute(presence, pairs, device, phases)
     return _result(pairs, s, n)
+
+
+class _Download:
+    """One count block on its way to the host (see ``_BlockDownloads``)."""
+
+    __slots__ = ("_block", "_buf", "_done", "_free")
+
+    def __init__(self, block, buf=None, done=None, free=None):
+        self._block, self._buf, self._done, self._free = block, buf, done, free
+
+    def wait(self) -> np.ndarray:
+        """The block as a C-contiguous (P, nr, nc) host array, once its copy
+        has landed.  Waiting on the event releases the GIL and starts no
+        CUDA work.  The array is valid until ``release``."""
+        if self._buf is None:
+            return self._block.numpy()
+        self._done.synchronize()
+        shape = self._block.shape
+        self._block = None  # the copy has read it: the device may reuse it
+        return self._buf[: shape.numel()].view(shape).numpy()
+
+    def release(self) -> None:
+        """Hands the host buffer back to the pool; the reader is done."""
+        if self._buf is not None:
+            self._free.put(self._buf)
+            self._buf = None
+
+
+class _BlockDownloads:
+    """Device count blocks to the host without stalling the producer.
+
+    On a card: a pool of page-locked host buffers, one side stream and one
+    event per block in flight.  ``fetch`` enqueues a block's Grams on the
+    current stream and its copy on the side stream, which first waits for
+    the Grams, and returns at once; the ``_Download`` keeps the device
+    block alive until the copy's event has fired, and its buffer returns to
+    the pool only when the reader releases it.  On the CPU ``fetch``
+    computes the block and hands its memory over as it is: no stream, no
+    buffer.
+
+    ``gram_s`` / ``d2h_s`` are the blocks' device seconds, from CUDA event
+    pairs read after the last block (``close``); on the CPU ``gram_s`` is
+    host seconds and ``d2h_s`` stays 0.  ``wait_s``: seconds ``fetch``
+    waited for a free buffer."""
+
+    def __init__(
+        self,
+        device: torch.device,
+        max_numel: int,
+        dtype: torch.dtype,
+        n_buffers: int,
+    ):
+        self.gram_s = self.d2h_s = self.wait_s = 0.0
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._stream = torch.cuda.Stream(device)
+            self._free: queue.Queue = queue.Queue()
+            for _ in range(n_buffers):
+                self._free.put(
+                    torch.empty(max_numel, dtype=dtype, pin_memory=True)
+                )
+            self._timed: list[tuple[torch.cuda.Event, ...]] = []
+
+    def fetch(self, compute_block) -> _Download:
+        """Runs ``compute_block() -> device tensor`` and starts its copy."""
+        if not self._cuda:
+            t0 = time.perf_counter()
+            block = compute_block()
+            self.gram_s += time.perf_counter() - t0
+            return _Download(block)
+        t0 = time.perf_counter()
+        buf = self._free.get()
+        self.wait_s += time.perf_counter() - t0
+        g0, g1, c0, c1 = (
+            torch.cuda.Event(enable_timing=True) for _ in range(4)
+        )
+        main = torch.cuda.current_stream()
+        g0.record(main)
+        block = compute_block()
+        g1.record(main)
+        self._stream.wait_event(g1)
+        with torch.cuda.stream(self._stream):
+            c0.record()
+            buf[: block.numel()].view(block.shape).copy_(
+                block, non_blocking=True
+            )
+            c1.record()
+        self._timed.append((g0, g1, c0, c1))
+        return _Download(block, buf, c1, self._free)
+
+    def close(self) -> None:
+        """Sums the blocks' event pairs, after every copy has landed."""
+        if self._cuda:
+            self._stream.synchronize()
+            for g0, g1, c0, c1 in self._timed:
+                self.gram_s += g0.elapsed_time(g1) / 1e3
+                self.d2h_s += c0.elapsed_time(c1) / 1e3
+            self._timed.clear()
+
+
+def compute_streamed_exact(
+    presence: PresenceData,
+    row_ids: np.ndarray,
+    col_ids: np.ndarray,
+    out_path: str,
+    row_names: tuple[str, ...],
+    col_names: tuple[str, ...],
+    device: torch.device,
+    separator: str = ",",
+    band: int = 512,
+    col_chunk: int = 2048,
+    resume: bool = False,
+    row_denom_ids: np.ndarray | None = None,
+    col_denom_ids: np.ndarray | None = None,
+    phases: dict | None = None,
+) -> None:
+    """Banded exact engine: bit-parity f64 AJI straight to the CSV
+    (parfastaai_tpu.engine.compute_streamed_exact on one device).
+
+    ``compute`` downloads the whole (P, n_pairs) count matrix, which grows
+    with G^2.  This engine keeps its exactness (integer intersections, f64
+    S accumulated in ascending protein order) at any G: per band x
+    col_chunk output block it takes the integer counts from the device
+    (``_bucket_count_engine``), runs the banded f64 finish
+    (``jaccard_finish_block``, the operation order of ``compute``'s finish)
+    and appends the CSV rows of each completed band.  Memory is
+    O(P * band * col_chunk) on the host and on the device beside the
+    resident presence, whatever G is.
+
+    The CSV is byte-identical to ``compute`` + ``write_aji_csv`` in every
+    mode: the same f64 values and formatter; pairs that share no protein
+    print ``nan`` (0/0) and same-genome cells print ``0``.
+
+    ``resume``: complete band-aligned rows already in ``out_path`` are kept
+    and the run restarts at the first missing row (the CSV is the
+    checkpoint).
+
+    Two-stage pipeline: the main thread enqueues each block's Grams and its
+    copy to page-locked host memory (``_BlockDownloads``) and never waits
+    for the device; one worker thread, up to two blocks behind, waits for a
+    block's copy, runs the native f64 finish and, at a band's end, formats
+    and writes the band (both release the GIL).  Device compute, the copy,
+    the host's f64 math and file IO overlap; the order of the rows holds
+    because the queue is FIFO and one worker consumes it.  A band is
+    written only when all its chunks arrived, so an interrupted run leaves
+    whole bands only.
+
+    Symmetric (all-vs-all) runs compute only the blocks on and above the
+    diagonal: counts are symmetric, so each block below it is the transpose
+    of a finished f64 tile that the worker holds in a mirror store and pops
+    at its one use.  That halves the Grams and the copied bytes with
+    identical bytes out.  It engages when rows == cols (ids and
+    denominators), no rows were resumed and the peak mirror footprint fits
+    PARFASTAAI_MIRROR_BYTES (default 4 GiB); blocks are then band x band.
+
+    ``phases`` collects seconds under ``host bucketize`` and ``H2D`` (the
+    presence upload), ``Gram`` and ``D2H`` (device seconds from CUDA event
+    pairs), ``host finish`` and ``CSV write`` (the worker's busy seconds),
+    ``producer wait`` (main thread blocked on a full queue or on a host
+    buffer) and ``worker wait`` (worker blocked on a copy or on an empty
+    queue).  The stages overlap, so they do not sum to the wall.
+    """
+    row_ids = np.asarray(row_ids, dtype=np.int32)
+    col_ids = np.asarray(col_ids, dtype=np.int32)
+    row_denom_ids = (
+        row_ids
+        if row_denom_ids is None
+        else np.asarray(row_denom_ids, dtype=np.int32)
+    )
+    col_denom_ids = (
+        col_ids
+        if col_denom_ids is None
+        else np.asarray(col_denom_ids, dtype=np.int32)
+    )
+    band = max(1, min(band, len(row_ids)))
+    col_chunk = max(1, min(col_chunk, len(col_ids)))
+    block_counts = _bucket_count_engine(presence, device, phases)
+    t = presence.t
+    P = t.shape[0]
+
+    header = separator + separator.join(col_names) + "\n"
+    rows_done = _resume_point(out_path, header, band) if resume else 0
+    # Symmetric reuse (see docstring): square blocks, so that each block
+    # below the diagonal is exactly the transpose of a stored tile.
+    sym_layout = (
+        len(row_ids) == len(col_ids)
+        and np.array_equal(row_ids, col_ids)
+        and np.array_equal(row_denom_ids, col_denom_ids)
+    )
+    if sym_layout and rows_done:
+        print(
+            "NOTE: symmetric mirror disabled on --resume (mirrors need "
+            "every earlier band from this run); the remaining bands compute "
+            "the full square",
+            file=sys.stderr,
+        )
+    sym = sym_layout and rows_done == 0
+    if sym:
+        # The budget is checked before the square col_chunk is adopted, so
+        # a run without the mirror keeps the caller's chunk.
+        n_ch = -(-len(col_ids) // band)
+        # Peak live mirror tiles = max_i (i+1)(n-1-i) ~ n^2/4 f64 tiles.
+        peak = ((n_ch * n_ch) // 4 + 1) * band * band * 8
+        budget = int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+        if peak > budget:
+            sym = False
+            print(
+                "NOTE: symmetric mirror disabled — peak mirror bytes "
+                f"{peak} exceed PARFASTAAI_MIRROR_BYTES={budget}; "
+                "computing the full square",
+                file=sys.stderr,
+            )
+    if sym:
+        col_chunk = band  # square blocks so mirrors transpose exactly
+    n_chunks_per_band = max(1, -(-len(col_ids) // col_chunk))
+
+    # Worker (stage 2).  The queue's depth of 2 bounds the blocks in flight;
+    # the host buffers are one being filled, two queued, one being read.
+    work_q: queue.Queue = queue.Queue(maxsize=2)
+    downloads = _BlockDownloads(
+        device, P * band * col_chunk, _count_wire_dtype(presence),
+        n_buffers=work_q.maxsize + 2,
+    )
+    werr: list[BaseException] = []
+    # Seconds by stage: the worker adds to its three keys, the main thread
+    # to "producer wait" alone.
+    busy = {"host finish": 0.0, "CSV write": 0.0, "producer wait": 0.0,
+            "worker wait": 0.0}
+
+    def _worker(fp) -> None:
+        download = None
+        try:
+            if os.environ.get("PARFASTAAI_TEST_WORKER_FAULT"):
+                # Fault-injection hook (tests only): a failure of the finish
+                # worker must stop the producer and reach the caller.
+                raise RuntimeError("injected finish-worker fault")
+            cur_r0 = -1
+            cur_rids: np.ndarray | None = None
+            rows_aji: np.ndarray | None = None
+            chunks_done = 0
+            mirror: dict[tuple[int, int], np.ndarray] = {}
+
+            def flush() -> None:
+                nonlocal rows_aji
+                if rows_aji is None:
+                    return
+                if chunks_done < n_chunks_per_band:
+                    # The producer stopped mid-band (device error,
+                    # interrupt): the unfilled chunks are np.empty garbage.
+                    # Writing them would bake a complete-looking band into
+                    # the CSV that --resume would keep as a checkpoint.
+                    rows_aji = None
+                    return
+                t0 = time.perf_counter()
+                # Same-genome cells are untouched in the reference => 0.
+                rows_aji[cur_rids[:, None] == col_ids[None, :]] = 0.0
+                for i, row in enumerate(format_matrix(rows_aji, separator)):
+                    fp.write(row_names[cur_r0 + i] + separator + row + "\n")
+                rows_aji = None
+                busy["CSV write"] += time.perf_counter() - t0
+
+            while True:
+                t0 = time.perf_counter()
+                item = work_q.get()
+                busy["worker wait"] += time.perf_counter() - t0
+                if item is None:
+                    flush()
+                    return
+                r0, rids, drids, c0, nc, dcids, kind, data = item
+                if r0 != cur_r0:
+                    flush()
+                    cur_r0, cur_rids = r0, rids
+                    chunks_done = 0
+                    rows_aji = np.empty(
+                        (len(rids), len(col_ids)), dtype=np.float64
+                    )
+                chunks_done += 1
+                if kind == "mirror":
+                    # Transpose of a tile above the diagonal that was
+                    # finished earlier (the FIFO guarantees it is there);
+                    # each tile mirrors once.
+                    t0 = time.perf_counter()
+                    rows_aji[:, c0 : c0 + nc] = mirror.pop(data).T
+                    busy["host finish"] += time.perf_counter() - t0
+                    continue
+                download, store_key = data
+                t0 = time.perf_counter()
+                counts = download.wait()
+                t1 = time.perf_counter()
+                s, n = jaccard_finish_block(counts, t[:, drids], t[:, dcids])
+                del counts
+                download.release()
+                download = None
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    blk = s / n  # 0/0 -> nan (parity)
+                rows_aji[:, c0 : c0 + nc] = blk
+                if store_key is not None:
+                    mirror[store_key] = blk
+                busy["worker wait"] += t1 - t0
+                busy["host finish"] += time.perf_counter() - t1
+        except BaseException as exc:  # handed to the caller after the join
+            werr.append(exc)
+            if download is not None:
+                download.release()
+            # Keep the producer unblocked: empty the queue and hand every
+            # host buffer back until the producer's end mark arrives.
+            while (item := work_q.get()) is not None:
+                if item[6] == "counts":
+                    item[7][0].release()
+
+    def put(item) -> None:
+        t0 = time.perf_counter()
+        work_q.put(item)
+        busy["producer wait"] += time.perf_counter() - t0
+
+    with open(out_path, "a" if rows_done else "w") as fp:
+        worker = threading.Thread(
+            target=_worker, args=(fp,), name="pfaai-exact-finish", daemon=True
+        )
+        try:
+            if not rows_done:
+                fp.write(header)
+            worker.start()
+            for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
+                rids = row_ids[r0 : r0 + band]
+                drids = row_denom_ids[r0 : r0 + band]
+                for ci, c0 in enumerate(range(0, len(col_ids), col_chunk)):
+                    cids = col_ids[c0 : c0 + col_chunk]
+                    dcids = col_denom_ids[c0 : c0 + col_chunk]
+                    if sym and ci < bi:
+                        # Below the diagonal: no device work and no copy;
+                        # the worker mirrors the stored (ci, bi) tile.
+                        data = (ci, bi)
+                        kind = "mirror"
+                    else:
+                        download = downloads.fetch(
+                            lambda: block_counts(rids, cids)
+                        )
+                        data = (download, (bi, ci) if sym and ci > bi else None)
+                        kind = "counts"
+                    put((r0, rids, drids, c0, len(cids), dcids, kind, data))
+                    if werr:
+                        break
+                if werr:
+                    break
+        finally:
+            if worker.is_alive():
+                work_q.put(None)
+                worker.join()
+    downloads.close()
+    busy["producer wait"] += downloads.wait_s
+    _add(phases, "Gram", downloads.gram_s)
+    _add(phases, "D2H", downloads.d2h_s)
+    for key, seconds in busy.items():
+        _add(phases, key, seconds)
+    if werr:
+        raise werr[0]

@@ -1,7 +1,9 @@
 """The port's CLI against the JAX package's CLI, in process on the CPU, on
 small synthetic databases: byte-identical default CSVs in all three modes,
-``--fast`` within 1e-6, the same error codes, exit code 3 for every flag and
-route the port does not run yet, and no jax in a port run."""
+on the dense path and on the banded exact engine (auto-routed under a low
+PARFASTAAI_EXACT_HOST_BYTES, and ``--streamed --exact`` with ``--resume``),
+``--fast`` within 1e-6, the same error codes, exit code 3 for every flag the
+port does not run yet, and no jax in a port run."""
 
 import os
 import sqlite3
@@ -123,13 +125,17 @@ def test_error_codes_match_jax(dbs, tmp_path):
     "flags",
     [
         ["--streamed"],
-        ["--streamed", "--exact"],
+        ["--streamed", "--fast"],
+        ["--streamed", "--resume"],
         ["--exact"],
+        ["--exact", "--resume"],
+        ["--streamed", "--exact", "--precise"],
+        ["--streamed", "--exact", "--staged"],
+        ["--streamed", "--exact", "--mesh", "2"],
         ["--fast", "--staged"],
         ["--staged"],
         ["--mesh", "2"],
         ["--mesh", "0,1"],
-        ["--resume"],
         ["--profile", "trace_dir"],
         ["--approx"],
     ],
@@ -141,18 +147,124 @@ def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
     assert "CONSTRUCT_ERROR" in capsys.readouterr().err
 
 
-def test_banded_exact_auto_route_exits_3(dbs, tmp_path, monkeypatch, capsys):
-    """Where the JAX CLI would route the default path to the banded exact
-    engine, the port stops and says so; --fast still runs."""
-    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+BANDED = {
+    # the default call above the host budget, and the flags that ask for it
+    "auto": ([], {"PARFASTAAI_EXACT_HOST_BYTES": "1"}),
+    "streamed_exact": (["--streamed", "--exact"], {}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(BANDED))
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt", "sep"])
+def test_banded_exact_csv_byte_identical(mode, route, dbs, tmp_path, monkeypatch):
+    """The banded exact engine through the CLI, with bands and chunks that
+    leave ragged edges: the bytes of the JAX CLI on the same route and of
+    the port's dense default call."""
+    flags, env = BANDED[route]
+    extra = [*_mode_args(mode, dbs), *flags, "--band", "7", "--col-chunk", "5"]
+    dense = tmp_path / "dense.csv"
+    assert run([dbs["target"], str(dense), "--quiet", "--device", "cpu",
+                *_mode_args(mode, dbs)]) == 0
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+    assert jax_run([dbs["target"], str(want), "--quiet", *extra]) == 0
+    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu", *extra]) == 0
+    assert got.read_bytes() == want.read_bytes() == dense.read_bytes()
+
+
+def test_banded_exact_auto_route_says_so(dbs, tmp_path, monkeypatch, capfd):
+    """The auto-route prints the JAX CLI's note, the engine's stages and
+    its closing line; the dense call prints none of them."""
     out = tmp_path / "x.csv"
-    assert run([dbs["target"], str(out), "--quiet", "--device", "cpu"]) == 3
-    assert not out.exists()
-    err = capsys.readouterr().err
-    assert "--fast" in err and "PARFASTAAI_EXACT_HOST_BYTES" in err
-    assert run([dbs["target"], str(out), "--quiet", "--device", "cpu",
-                "--fast"]) == 0
-    assert out.exists()
+    assert run([dbs["target"], str(out), "--device", "cpu"]) == 0
+    text = capfd.readouterr().out
+    assert "genome-pair AJI values" in text and "banded exact" not in text
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    assert run([dbs["target"], str(out), "--device", "cpu"]) == 0
+    text = capfd.readouterr().out
+    assert "routing through the banded exact engine" in text
+    assert "PARFASTAAI_EXACT_HOST_BYTES overrides" in text
+    assert "genome-pair AJI values" not in text
+    for stage in ("Gram", "D2H", "host finish", "CSV write", "producer wait",
+                  "worker wait"):
+        assert f"  {stage}" in text
+    assert f"Wrote 48 x 48 AJI matrix to {out} (banded exact) on cpu" in text
+
+
+@pytest.mark.parametrize("mirror_bytes", [None, "1"])
+def test_banded_exact_mirror_on_and_off(mirror_bytes, dbs, tmp_path, monkeypatch):
+    dense, got = tmp_path / "dense.csv", tmp_path / "port.csv"
+    assert run([dbs["target"], str(dense), "--quiet", "--device", "cpu"]) == 0
+    if mirror_bytes:
+        monkeypatch.setenv("PARFASTAAI_MIRROR_BYTES", mirror_bytes)
+    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu",
+                "--streamed", "--exact", "--band", "9"]) == 0
+    assert got.read_bytes() == dense.read_bytes()
+
+
+@pytest.mark.parametrize("route", sorted(BANDED))
+def test_banded_exact_resume(route, dbs, tmp_path, monkeypatch):
+    """--resume from a file cut inside its third band restores the bytes,
+    on both routes into the engine, as in the JAX CLI."""
+    flags, env = BANDED[route]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    args = ["--quiet", *flags, "--band", "10"]
+    full, got, want = (tmp_path / n for n in ("full.csv", "port.csv", "jax.csv"))
+    assert run([dbs["target"], str(full), "--device", "cpu", *args]) == 0
+    whole = full.read_bytes()
+    cut = b"\n".join(whole.split(b"\n")[: 1 + 25]) + b"\nsynthetic_genome_000"
+    got.write_bytes(cut)
+    want.write_bytes(cut)
+    assert run([dbs["target"], str(got), "--device", "cpu", *args, "--resume"]) == 0
+    assert jax_run([dbs["target"], str(want), *args, "--resume"]) == 0
+    assert got.read_bytes() == want.read_bytes() == whole
+
+
+def test_resume_without_the_banded_engine_is_ignored(dbs, tmp_path):
+    """On the dense default path --resume changes nothing, as in the JAX
+    CLI: the file is written anew."""
+    want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+    got.write_bytes(b"stale\n")
+    assert jax_run([dbs["target"], str(want), "--quiet", "--resume"]) == 0
+    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu",
+                "--resume"]) == 0
+    assert got.read_bytes() == want.read_bytes()
+
+
+def test_dump_jac_pins_the_dense_path(dbs, tmp_path, monkeypatch, capfd):
+    """--dump-jac needs the per-pair result: under a budget that would
+    route to the banded engine the run stays dense and writes both files
+    as the JAX CLI does."""
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    files = {}
+    for name, fn, dev in (("jax", jax_run, []), ("port", run, ["--device", "cpu"])):
+        out, jac = tmp_path / f"{name}.csv", tmp_path / f"{name}_jac.csv"
+        assert fn([dbs["target"], str(out), "--dump-jac", str(jac), *dev]) == 0
+        files[name] = (out.read_bytes(), jac.read_bytes())
+    assert files["port"] == files["jax"]
+    text = capfd.readouterr().out
+    assert text.count("genome-pair AJI values") == 2
+    assert "banded exact" not in text
+
+
+def test_banded_route_validates_like_the_dense_one(dbs, tmp_path, monkeypatch):
+    """Unknown query genomes and overlapping databases stop the banded
+    route with the dense route's code, before any CSV."""
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    bad_q = tmp_path / "bad.txt"
+    bad_q.write_text("definitely_not_a_genome\n")
+    overlap = tmp_path / "overlap.db"
+    overlap.write_bytes(open(dbs["target"], "rb").read())
+    for extra in (["-q", str(bad_q)], ["-r", str(overlap)]):
+        want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+        rc_jax = jax_run([dbs["target"], str(want), "--quiet", *extra])
+        rc = run([dbs["target"], str(got), "--quiet", "--device", "cpu", *extra])
+        assert rc == rc_jax == 3, extra
+        assert not got.exists()
 
 
 def test_cuda_without_cuda_exits_nonzero(dbs, tmp_path, monkeypatch):
@@ -162,15 +274,32 @@ def test_cuda_without_cuda_exits_nonzero(dbs, tmp_path, monkeypatch):
     assert not out.exists()
 
 
+@pytest.mark.parametrize("route", sorted(BANDED))
+def test_banded_cuda_without_cuda_exits_nonzero(route, dbs, tmp_path, monkeypatch):
+    """No card: the banded routes stop as the dense one does, with no CSV
+    and no move to the CPU."""
+    flags, env = BANDED[route]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.csv"
+    assert run([dbs["target"], str(out), "--quiet", "--device", "cuda",
+                *flags]) == 3
+    assert not out.exists()
+
+
 def test_port_run_never_loads_jax(dbs, tmp_path):
-    """A fresh process running the port CLI (default and --fast) ends
-    without jax in sys.modules."""
+    """A fresh process running the port CLI (default, --fast, the banded
+    exact engine by its flags and by the auto-route) ends without jax in
+    sys.modules."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "from parfastaai_tpu_torch.cli import run\n"
         "db, out = sys.argv[1], sys.argv[2]\n"
         "rcs = [run([db, out, '--quiet', '--device', 'cpu', *f])"
-        " for f in ([], ['--fast'])]\n"
+        " for f in ([], ['--fast'], ['--streamed', '--exact'])]\n"
+        "os.environ['PARFASTAAI_EXACT_HOST_BYTES'] = '1'\n"
+        "rcs.append(run([db, out, '--quiet', '--device', 'cpu']))\n"
         "print('RCS', rcs, 'JAX', 'jax' in sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -179,4 +308,4 @@ def test_port_run_never_loads_jax(dbs, tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "RCS [0, 0] JAX False" in proc.stdout
+    assert "RCS [0, 0, 0, 0] JAX False" in proc.stdout

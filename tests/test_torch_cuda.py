@@ -314,3 +314,51 @@ def test_cli_on_cuda_matches_cpu(cuda, synth_db, tmp_path, fast):
         for p in (on_cpu, on_cuda)
     )
     np.testing.assert_allclose(b, a, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mirror", ["on", "off"])
+@pytest.mark.parametrize("mode", ["all", "qsub"])
+@pytest.mark.parametrize("band", [16, 3])
+def test_banded_exact_on_cuda_matches_cpu(
+    cuda, synth_db, tmp_path, monkeypatch, mirror, mode, band
+):
+    """The banded exact engine on the card (Grams on the current stream,
+    copies through the page-locked pool on the side stream, many more
+    blocks than buffers at band 3) writes the bytes of the same call on the
+    CPU and of the dense default call, with the symmetric mirror on and
+    off, at 40 genomes: a ragged last band."""
+    from parfastaai_tpu_torch.cli import run
+
+    if mirror == "off":
+        monkeypatch.setenv("PARFASTAAI_MIRROR_BYTES", "1")
+    extra = []
+    if mode == "qsub":
+        qfile = tmp_path / "queries.txt"
+        qfile.write_text("".join(
+            f"synthetic_genome_{i:05d}.fna.gz\n" for i in (30, 2, 17, 39, 8)))
+        extra = ["-q", str(qfile)]
+    flags = ["--quiet", "--streamed", "--exact", "--band", str(band),
+             "--col-chunk", "12", *extra]
+    dense, on_cpu, on_cuda = (
+        tmp_path / n for n in ("dense.csv", "cpu.csv", "cuda.csv"))
+    assert run([synth_db, str(dense), "--device", "cpu", "--quiet", *extra]) == 0
+    assert run([synth_db, str(on_cpu), "--device", "cpu", *flags]) == 0
+    before = (sn_rect.LAUNCHES, *_launches())
+    assert run([synth_db, str(on_cuda), "--device", "cuda", *flags]) == 0
+    assert (sn_rect.LAUNCHES, *_launches()) == before  # a library Gram
+    assert on_cuda.read_bytes() == on_cpu.read_bytes() == dense.read_bytes()
+
+
+@pytest.mark.cuda
+def test_banded_exact_resume_on_cuda(cuda, synth_db, tmp_path):
+    from parfastaai_tpu_torch.cli import run
+
+    flags = ["--quiet", "--device", "cuda", "--streamed", "--exact",
+             "--band", "16"]
+    full, cut = tmp_path / "full.csv", tmp_path / "cut.csv"
+    assert run([synth_db, str(full), *flags]) == 0
+    whole = full.read_bytes()
+    cut.write_bytes(b"\n".join(whole.split(b"\n")[: 1 + 20]) + b"\nsynth")
+    assert run([synth_db, str(cut), *flags, "--resume"]) == 0
+    assert cut.read_bytes() == whole
