@@ -41,7 +41,25 @@ Run from the repository root:
    per genome, seed 0), with every kernel launch counter reset just before
    and read just after.  A band of 64 rows of the result is then checked
    against exact integer counts finished in f64 on the host (numpy).
-3. Runs the exact path on the card.  On a 1024-genome database of the same
+3. Runs the f32 streamed engine on the card through the CLI
+   (``--streamed --device cuda``): at full width on the database of step 2
+   with the default band and chunk, launch counters reset just before and
+   read just after (sn_rect once per 1024 x 4096 block, no other kernel),
+   its first 64 rows held against step 2's exact f64 within the ``--fast``
+   tolerance with the diagonal the text ``0``, and its wall, genome pairs
+   per second and stage split printed.  On a 1024-genome database of the
+   same generator under ``--precise``: the symmetric walk in 256 x 256
+   blocks (10 of 16 computed), the same with PARFASTAAI_MIRROR_BYTES=1
+   (16 of 16, and the NOTE on stderr), one block for the whole square, a
+   ``--resume`` from a file cut inside its second band, a ``--profile``
+   run and the library API's ``engine="streamed"`` must all write the same
+   bytes with the reckoned launch counts, and their first 256 rows must
+   equal, as text, the plain version's on the card (per bucket
+   ``fused_sn_block_plain``, summed in bucket order, ``_mask_aji``, the
+   formatter).  From the Chrome traces of ``--profile`` (one at each size)
+   the device-busy milliseconds (the union of kernel and copy intervals)
+   are printed beside the phase's wall.
+4. Runs the exact path on the card.  On a 1024-genome database of the same
    generator: the default (dense) call, ``--streamed --exact`` (the banded
    exact engine on its symmetric walk) and the same with
    PARFASTAAI_MIRROR_BYTES=1 (the full square) must write the same bytes,
@@ -53,14 +71,14 @@ Run from the repository root:
    output on exact f64 computed on the host (numpy): both accumulate IEEE
    f64 in ascending protein order, so this is equality, not a tolerance.
    Its wall, genome pairs per second and stage split are printed.
-4. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
+5. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
    sn_square_wgmma and no other kernel, and once with each
    ``PARFASTAAI_BENCH_VARIANT`` above, and in kb mode, echoing their JSON
    lines, and checks a band of ``fused_aji`` on the bench's workload
    against exact f64.
-5. Prints the card's name and power limit, one JSON line of kernel results
+6. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, when CUDA is not available,
@@ -151,6 +169,10 @@ RTOL_E2E_AJI = 1e-6
 # The exact path's byte comparisons (dense, banded, banded without the
 # mirror, resumed) run at this many genomes of the E2E generator.
 EXACT_SMALL_G = 1024
+# The streamed engine's byte comparisons at EXACT_SMALL_G: block edge of
+# the symmetric walk, and the rows held against the plain version.
+STREAMED_BLOCK = 256
+STREAMED_PLAIN_ROWS = 256
 
 
 def fail(msg: str) -> None:
@@ -216,18 +238,20 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 @contextlib.contextmanager
-def captured_stdout(lines: list):
+def captured_stdout(lines: list, fd: int = 1):
     """Capture file descriptor 1 (print() and the CLI's phase timers, which
-    hold their own handle on stdout) into ``lines``."""
-    sys.stdout.flush()
-    saved = os.dup(1)
+    hold their own handle on stdout), or ``fd`` 2 for stderr, into
+    ``lines``."""
+    stream = sys.stdout if fd == 1 else sys.stderr
+    stream.flush()
+    saved = os.dup(fd)
     with tempfile.TemporaryFile(mode="w+") as tmp:
-        os.dup2(tmp.fileno(), 1)
+        os.dup2(tmp.fileno(), fd)
         try:
             yield
         finally:
-            sys.stdout.flush()
-            os.dup2(saved, 1)
+            stream.flush()
+            os.dup2(saved, fd)
             os.close(saved)
             tmp.seek(0)
             lines.extend(tmp.read().splitlines())
@@ -741,41 +765,253 @@ def read_launches() -> dict:
             "sn_rect": sn_rect.LAUNCHES}
 
 
+def cli_call(out_dir: str, db: str, name: str, flags=(), env=None):
+    """One CLI run on the card under ``env``: (CSV path, what it printed,
+    what it wrote to stderr, wall s).  Fails unless it exits 0."""
+    from parfastaai_tpu_torch import cli
+
+    out = os.path.join(out_dir, f"{name}.csv")
+    lines: list[str] = []
+    errs: list[str] = []
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        t0 = time.perf_counter()
+        with captured_stdout(lines), captured_stdout(errs, fd=2):
+            rc = cli.run([db, out, "--device", "cuda", *flags])
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        print("\n".join(lines + errs))
+        fail(f"CLI {' '.join(flags) or '(default)'} {env or ''} exited {rc}")
+    return out, "\n".join(lines), "\n".join(errs), wall
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as fp:
+        return fp.read()
+
+
+def device_busy_ms(trace_path: str) -> tuple[float, int, int]:
+    """(device-busy ms, device events, all events) of a Chrome trace of
+    ``--profile``: the union of the intervals of its kernel, memcpy and
+    memset events."""
+    with open(trace_path) as fp:
+        events = json.load(fp)["traceEvents"]
+    spans = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        for e in events
+        if e.get("ph") == "X"
+        and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    )
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy / 1e3, len(spans), len(events)
+
+
+def streamed_phase(dev, want_band: np.ndarray) -> int:
+    """The f32 streamed engine on the card through the CLI: the full-width
+    call, whose first rows are held against ``want_band`` (exact f64), then
+    the byte comparisons, the plain version, --profile and the library API
+    at EXACT_SMALL_G genomes.  Returns the full-width call's sn_rect
+    launches."""
+    import torch
+
+    from parfastaai_tpu_torch import api, engine
+    from parfastaai_tpu_torch.cli import PROFILE_TRACE
+    from parfastaai_tpu_torch.etl.database import SCPDatabase, bucket_bounds
+    from parfastaai_tpu_torch.io.csv_writer import format_matrix
+    from parfastaai_tpu_torch.ops import sn_rect
+
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_streamed_")
+
+    def launches_of(db, name, flags, env=None, *, want=None):
+        """A CLI run with every launch counter set to 0 just before it and
+        read just after: only sn_rect may move, ``want`` times if given."""
+        reset_launches()
+        out, text, err, wall = cli_call(out_dir, db, name, flags, env)
+        ran = read_launches()
+        n = ran.pop("sn_rect")
+        if n == 0 or any(ran.values()) or (want is not None and n != want):
+            fail(f"--streamed {' '.join(flags)} {env or ''}: sn_rect launched "
+                 f"{n} times (reckoned {want}), other kernels {ran}")
+        return out, text, err, wall, n
+
+    def profiled(db, name, flags):
+        """A --profile run: (CSV path, device-busy ms, phase ms)."""
+        trace_dir = os.path.join(out_dir, f"{name}_trace")
+        out, text, _, _ = cli_call(out_dir, db, name,
+                                   [*flags, "--profile", trace_dir])
+        trace = os.path.join(trace_dir, PROFILE_TRACE)
+        if os.listdir(trace_dir) != [PROFILE_TRACE]:
+            fail(f"--profile wrote {os.listdir(trace_dir)} into its directory")
+        busy, n_dev, n_all = device_busy_ms(trace)
+        if n_dev == 0:
+            fail(f"--profile {name}: the trace holds no device event")
+        phase = cli_phases(text)["Streamed AJI + CSV"]
+        print(f"--streamed --profile {name}: trace of "
+              f"{os.path.getsize(trace)} bytes, {n_all} events, {n_dev} on "
+              f"the device; device busy {busy:.3f} ms of the phase's "
+              f"{phase:.1f} ms under the profiler "
+              f"({busy / phase:.2%} busy, {1 - busy / phase:.2%} idle)")
+        return out, busy, phase
+
+    try:
+        # the full width
+        db = synth_db()
+        G, R = E2E["n_genomes"], BAND_ROWS
+        out, text, _, wall, launches = launches_of(db, "full", ["--streamed"])
+        print(text)
+        if f"Wrote {G} x {G} AJI matrix to {out} (streamed) on cuda" not in text:
+            fail("--streamed did not end with the streamed engine's line")
+        with open(out) as fp:
+            names = fp.readline().rstrip("\n").split(",")[1:]
+            rows = [fp.readline().rstrip("\n").split(",") for _ in range(R)]
+            n_lines = 1 + R + sum(1 for _ in fp)
+        if len(names) != G or n_lines != G + 1 or any(
+                len(r) != G + 1 for r in rows):
+            fail(f"--streamed CSV shape: {n_lines} lines, {len(names)} columns")
+        if [r[0] for r in rows] != names[:R]:
+            fail("--streamed CSV: row names differ from the header's")
+        if any(rows[i][1 + i] != "0" for i in range(R)):
+            fail("--streamed CSV: a diagonal cell is not the text 0")
+        got = np.array([[float(v) for v in r[1:]] for r in rows])
+        if not np.all(np.isfinite(got)) or not np.allclose(
+                got, want_band, rtol=RTOL_E2E_AJI, atol=0):
+            fail("--streamed CSV: AJI outside rtol 1e-6 of exact f64")
+        err = np.abs(got - want_band) / np.where(
+            want_band == 0, 1.0, np.abs(want_band))
+        phases = cli_phases(text)
+        pairs = G * (G - 1) // 2
+        print(
+            f"e2e --streamed G={G}: wall {wall:.3f} s, sn_rect launches "
+            f"{launches}, rows 0..{R - 1} within {err.max():.3e} of exact "
+            f"f64 (rtol {RTOL_E2E_AJI}), "
+            f"{pairs / (phases['Streamed AJI + CSV'] / 1e3):.4e} genome "
+            f"pairs/s over Streamed AJI + CSV, {pairs / wall:.4e} over the "
+            "wall; split ms (stages overlap): "
+            + ", ".join(
+                f"{k} {phases.get(k, 0.0):.1f}"
+                for k in ("Presence ETL", "Streamed AJI + CSV",
+                          "host bucketize", "H2D", "gather", "kernel",
+                          "AJI mask", "D2H", "host assembly", "CSV write",
+                          "producer wait", "writer wait")
+            )
+        )
+        full_profiled, _, _ = profiled(db, "full_profiled", ["--streamed"])
+        if read_bytes(full_profiled) != read_bytes(out):
+            fail(f"G={G}: --profile changed the CSV's bytes")
+
+        # the mirror, resume, --profile and the API, for bytes
+        small = synth_db(EXACT_SMALL_G)
+        db_ = SCPDatabase(small)
+        try:
+            presence = db_.load_presence()
+        finally:
+            db_.close()
+        n_buckets = len(bucket_bounds(presence.widths)[1])
+        B, Gs = STREAMED_BLOCK, EXACT_SMALL_G
+        nb = -(-Gs // B)
+        blocks = ["--band", str(B), "--col-chunk", str(B)]
+        flags = ["--streamed", "--precise", *blocks]
+        mirrored, _, err_on, wall_on, n_on = launches_of(
+            small, "mirrored", flags, want=nb * (nb + 1) // 2 * n_buckets)
+        full, _, err_off, wall_off, n_off = launches_of(
+            small, "square", flags, {"PARFASTAAI_MIRROR_BYTES": "1"},
+            want=nb * nb * n_buckets)
+        one, _, _, wall_one, n_one = launches_of(
+            small, "one_block",
+            ["--streamed", "--precise", "--band", "1024", "--col-chunk", "4096"],
+            want=n_buckets)
+        if "mirror disabled" in err_on or not re.search(
+                r"NOTE: symmetric mirror disabled \(assembled-band store \d+ B "
+                r"exceeds PARFASTAAI_MIRROR_BYTES=1\)", err_off):
+            fail("the mirror's NOTE on stderr: with the mirror "
+                 f"{err_on!r}, without it {err_off!r}")
+        want = read_bytes(mirrored)
+        if want.count(b"\n") != Gs + 1:
+            fail(f"G={Gs}: the --streamed CSV has {want.count(b'\n')} lines")
+        # header, one band, half of the second and a torn line
+        lines = want.split(b"\n")
+        cut = 1 + B + B // 2
+        resumed = os.path.join(out_dir, "resumed.csv")
+        with open(resumed, "wb") as fp:
+            fp.write(b"\n".join(lines[:cut]) + b"\n" + lines[cut][:37])
+        _, _, err_res, wall_res, n_res = launches_of(
+            small, "resumed", [*flags, "--resume"],
+            want=(nb - 1) * nb * n_buckets)
+        if "--resume keeps earlier bands" not in err_res:
+            fail(f"--resume on a symmetric run did not say why the mirror is "
+                 f"off: {err_res!r}")
+        prof, _, _ = profiled(small, "profiled", flags)
+        lib = os.path.join(out_dir, "api.csv")
+        api.aji_to_csv(lib, small, engine="streamed", precise=True, band=B,
+                       col_chunk=B, device="cuda")
+        for name, path in (("without the mirror", full), ("in one block", one),
+                           ("resumed", resumed), ("under --profile", prof),
+                           ("through api.aji_to_csv", lib)):
+            if read_bytes(path) != want:
+                fail(f"G={Gs}: the --streamed --precise CSV {name} differs "
+                     "from the symmetric walk's")
+
+        # against the plain version on the card
+        Rp = STREAMED_PLAIN_ROWS
+        s = n = None
+        for _, md, td in engine.to_device_buckets(presence, dev):
+            s_b, n_b = sn_rect.fused_sn_block_plain(
+                md[:, :Rp].contiguous(), md, td[:, :Rp].contiguous(), td)
+            s = s_b if s is None else s + s_b
+            n = n_b if n is None else n + n_b
+        plain = engine._mask_aji(s, n).cpu().numpy()
+        plain[np.arange(Rp), np.arange(Rp)] = 0.0
+        names = lines[0].decode().split(",")[1:]
+        want_rows = [f"{names[i]},{row}" for i, row in enumerate(
+            format_matrix(plain.astype(np.float64), ","))]
+        got_rows = [ln.decode() for ln in lines[1 : 1 + Rp]]
+        differ = [i for i in range(Rp) if got_rows[i] != want_rows[i]]
+        if differ:
+            i = differ[0]
+            cells = [(j, a, b) for j, (a, b) in enumerate(
+                zip(got_rows[i].split(","), want_rows[i].split(","))) if a != b]
+            fail(f"--streamed --precise: {len(differ)} of the first {Rp} rows "
+                 f"differ as text from the plain version on the card; row {i}: "
+                 f"{len(cells)} cells, first (column, CSV, plain) {cells[:3]}")
+        print(
+            f"streamed G={Gs} --precise: {B} x {B} blocks on the symmetric "
+            f"walk ({n_on} launches), the full square ({n_off}), one block "
+            f"({n_one}), a --resume from a file cut inside its second band "
+            f"({n_res}), --profile and api.aji_to_csv write the same "
+            f"{len(want)} bytes over {n_buckets} width bucket(s) (walls "
+            f"{wall_on:.3f}, {wall_off:.3f}, {wall_one:.3f}, {wall_res:.3f} "
+            f"s); rows 0..{Rp - 1} equal the plain version's on the card as "
+            "text"
+        )
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
 def exact_phase(want_band: np.ndarray) -> None:
     """The exact path on the card: byte comparisons of its routes at
     EXACT_SMALL_G genomes, then the CLI's default call at the E2E size,
     whose first rows must equal ``want_band`` as text."""
-    from parfastaai_tpu_torch import cli
     from parfastaai_tpu_torch.io.csv_writer import format_matrix
 
     out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_exact_")
 
     def call(db: str, name: str, flags=(), env=None) -> tuple[str, str, float]:
-        """One CLI run on the card: (CSV path, what it printed, wall s)."""
-        out = os.path.join(out_dir, f"{name}.csv")
-        lines: list[str] = []
-        saved = {k: os.environ.get(k) for k in env or {}}
-        os.environ.update(env or {})
-        try:
-            t0 = time.perf_counter()
-            with captured_stdout(lines):
-                rc = cli.run([db, out, "--device", "cuda", *flags])
-            wall = time.perf_counter() - t0
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    del os.environ[k]
-                else:
-                    os.environ[k] = v
-        if rc != 0:
-            print("\n".join(lines))
-            fail(f"CLI {' '.join(flags) or '(default)'} {env or ''} exited {rc}")
-        return out, "\n".join(lines), wall
+        out, text, _, wall = cli_call(out_dir, db, name, flags, env)
+        return out, text, wall
 
-    def read(path: str) -> bytes:
-        with open(path, "rb") as fp:
-            return fp.read()
-
+    read = read_bytes
     try:
         small = synth_db(EXACT_SMALL_G)
         banded_flags = ["--streamed", "--exact"]
@@ -998,17 +1234,23 @@ def main() -> None:
     kern = kernel_phase(dev)
     square = square_phase(dev)
     e2e = e2e_phase(dev)
+    streamed_launches = streamed_phase(dev, e2e["band"])
     exact_phase(e2e["band"])
     whole = bench_phase(dev)
+    # every entry module of the port is loaded by now, the library API too
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
+    if "parfastaai_tpu_torch.api" not in sys.modules:
+        fail("the run did not load parfastaai_tpu_torch.api")
     if leaked:
         fail(f"the run loaded {leaked[:5]}: the port imports neither jax nor "
              "the JAX package")
 
     print(card_line())
     results = {
+        # launches: the --fast CLI run's; the --streamed CLI run's beside it
         "sn_rect": {"launches": e2e["launches"],
+                    "launches_streamed": streamed_launches,
                     "max_abs_err": kern[("main", "newton")],
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")],

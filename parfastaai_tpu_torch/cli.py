@@ -3,25 +3,33 @@
 ``python -m parfastaai_tpu_torch <db> <out.csv> [flags]`` takes the parser
 and flags of ``parfastaai_tpu.cli`` plus ``--device {cuda,cpu}`` (default
 cuda).  It runs the three modes (all-vs-all, ``-q`` query-subset, ``-r``
-two-database) on the exact default path, on ``--fast`` and on the banded
-exact engine (``--streamed --exact``, with ``--resume``), with the same
+two-database) on the exact default path, on ``--fast``, on the f32
+streamed engine (``--streamed``) and on the banded exact engine
+(``--streamed --exact``), the last two with ``--resume``, with the same
 validation, error codes and phase timers.  Above the host budget of the
 dense exact path (PARFASTAAI_EXACT_HOST_BYTES, default 4 GiB) the default
 call routes itself through the banded exact engine and writes the same
-bytes.  Flags whose engines the port does not run yet (``--streamed``
-without ``--exact``, ``--staged``, ``--mesh``, ``--profile``) exit with
-CONSTRUCT_ERROR (3) and write no CSV.
+bytes.  ``--profile DIR`` writes a Chrome trace of the compute phase (a
+``torch.profiler`` run) into DIR.  Flags whose engines the port does not
+run yet (``--staged``, ``--mesh``) exit with CONSTRUCT_ERROR (3) and write
+no CSV.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
 from . import __version__
 from .device import resolve_device
-from .engine import compute, compute_fast, compute_streamed_exact
+from .engine import (
+    compute,
+    compute_fast,
+    compute_streamed,
+    compute_streamed_exact,
+)
 from .etl.database import QueryTargetDatabase, SCPDatabase
 from .etl.derive import derive_qsub, derive_qt, derive_single
 from .io.csv_writer import write_aji_csv
@@ -37,7 +45,9 @@ from .modes import (
 from .types import ErrorCode, PFAAIError
 from .utils.timing import phase_timer
 
-_NOT_PORTED = ("staged", "mesh", "profile")
+_NOT_PORTED = ("staged", "mesh")
+# The one file ``--profile DIR`` writes into DIR.
+PROFILE_TRACE = "parfastaai_trace.json"
 
 
 def _as_pfaai_error(e: Exception) -> PFAAIError:
@@ -111,12 +121,15 @@ def build_parser() -> argparse.ArgumentParser:
     divide.add_argument(
         "--approx",
         action="store_true",
-        help="With --fast: raw approximate-reciprocal divide in the kernel",
+        help=(
+            "With --fast or --streamed: raw approximate-reciprocal divide "
+            "in the kernel (--streamed: on cuda only)"
+        ),
     )
     divide.add_argument(
         "--precise",
         action="store_true",
-        help="With --fast: IEEE f32 divide in the kernel",
+        help="With --fast or --streamed: IEEE f32 divide in the kernel",
     )
     p.add_argument(
         "--device",
@@ -130,8 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, help_ in (
         (
             "--streamed",
-            "Streaming row-band engine: with --exact the banded exact "
-            "engine (the f32 streamed engine is not in the port yet)",
+            "Streaming row-band engine: f32 AJI blocks from the rectangular "
+            "CUDA kernel straight to the CSV in row bands, in memory that "
+            "does not grow with the square of the genome count; with "
+            "--exact the banded exact engine",
         ),
         (
             "--exact",
@@ -141,8 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
         ("--staged", "Presence-slab staging (not in the port yet)"),
         (
             "--resume",
-            "Banded exact engine: keep the complete band-aligned rows "
-            "already in the output file and continue after them",
+            "With --streamed (and on the auto-routed banded exact engine): "
+            "keep the complete band-aligned rows already in the output "
+            "file and continue after them",
         ),
     ):
         p.add_argument(flag, action="store_true", help=help_)
@@ -161,7 +177,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--profile", default="", metavar="DIR",
-        help="Profiler trace of the compute phase (not in the port yet)",
+        help=(
+            "Write a Chrome trace of the compute phase (torch.profiler: "
+            f"host and, on a card, device activity) to DIR/{PROFILE_TRACE}"
+        ),
     )
     p.add_argument(
         "--dump-jac",
@@ -198,8 +217,7 @@ def _print_args_box(args) -> None:
 
 def _validate(args) -> None:
     """The flag checks of ``parfastaai_tpu.cli.run``, in its order, then the
-    flags the port does not run yet (``--streamed`` runs with ``--exact``
-    only)."""
+    flags the port does not run yet."""
     if args.exact and not args.streamed:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -243,8 +261,6 @@ def _validate(args) -> None:
             "require --fast or --streamed",
         )
     not_run = [name for name in _NOT_PORTED if getattr(args, name)]
-    if args.streamed and not args.exact:
-        not_run.append("streamed")  # the f32 streamed engine
     if not_run:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -352,6 +368,61 @@ def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
         )
 
 
+def _streamed_run(args, presence, pairs, device, verbose: bool) -> None:
+    """The f32 streamed engine's one call (``pairs`` is the StreamAxes)."""
+    phases: dict[str, float] = {}
+    with phase_timer("Streamed AJI + CSV ", enabled=verbose):
+        compute_streamed(
+            presence,
+            pairs.row_db_ids,
+            pairs.col_db_ids,
+            args.path_to_output_file,
+            pairs.query_names,
+            pairs.target_names,
+            device,
+            separator=args.separator,
+            band=args.band,
+            col_chunk=args.col_chunk,
+            resume=args.resume,
+            approx=args.approx,
+            precise=args.precise,
+            row_denom_ids=pairs.row_denom_ids,
+            col_denom_ids=pairs.col_denom_ids,
+            phases=phases,
+        )
+    _print_phases(phases, verbose)
+    if verbose:
+        print(
+            "  (the stages above overlap: they do not sum to the phase's "
+            "wall)"
+        )
+        print(
+            f"Wrote {len(pairs.query_names)} x "
+            f"{len(pairs.target_names)} AJI matrix to "
+            f"{args.path_to_output_file} (streamed) on {device}"
+        )
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir: str, device):
+    """``--profile DIR``: the body under ``torch.profiler`` (host activity
+    and, on a card, device activity), its Chrome trace written to
+    DIR/PROFILE_TRACE when the body ends without an error.  The profiler is
+    closed either way.  Without DIR the body runs as it is."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, PROFILE_TRACE))
+
+
 def run(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     verbose = not args.quiet
@@ -392,18 +463,23 @@ def run(argv: list[str] | None = None) -> int:
                 "banded exact engine (identical CSV bytes; "
                 "PARFASTAAI_EXACT_HOST_BYTES overrides)"
             )
-        if args.streamed or banded_auto:
-            _banded_exact_run(args, presence, pairs, device, verbose)
-            return 0
         phases: dict[str, float] = {}
-        with phase_timer("JAC + AJI          ", enabled=verbose):
-            if args.fast:
-                result = compute_fast(
-                    presence, pairs, device, approx=args.approx,
-                    precise=args.precise, phases=phases,
-                )
-            else:
-                result = compute(presence, pairs, device, phases=phases)
+        # --profile covers the compute phase of whichever route runs.
+        with _profiled(args.profile, device):
+            if args.streamed and not args.exact:
+                _streamed_run(args, presence, pairs, device, verbose)
+                return 0
+            if args.streamed or banded_auto:
+                _banded_exact_run(args, presence, pairs, device, verbose)
+                return 0
+            with phase_timer("JAC + AJI          ", enabled=verbose):
+                if args.fast:
+                    result = compute_fast(
+                        presence, pairs, device, approx=args.approx,
+                        precise=args.precise, phases=phases,
+                    )
+                else:
+                    result = compute(presence, pairs, device, phases=phases)
         _print_phases(phases, verbose)
         with phase_timer("CSV write          ", enabled=verbose):
             write_aji_csv(

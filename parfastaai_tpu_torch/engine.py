@@ -18,12 +18,18 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   stream while a worker thread finishes earlier blocks in f64 and appends
   whole bands to the CSV; the bytes of ``compute`` + ``write_aji_csv`` in
   memory that does not grow with the genome count.
+* ``compute_streamed`` (``--streamed``): the f32 streamed engine.  Masked
+  AJI blocks of band x col_chunk genome pairs from the rectangular kernel
+  (``_bucket_block_engine`` + ``_mask_aji``), copied to page-locked host
+  memory on a side stream while a writer thread assembles earlier bands
+  and appends them to the CSV; memory that does not grow with the square
+  of the genome count.
 
 Every function computes on the device it is given.  ``phases``, where
 accepted, is a dict that collects seconds per sub-phase.  ``compute`` and
 ``compute_fast`` synchronise the device at each phase boundary, which
-their host copies do anyway; the banded exact engine never does, and reads
-its device phases from CUDA events after the last block.
+their host copies do anyway; the two banded CSV engines never do, and read
+their device phases from CUDA events after the last block.
 """
 
 from __future__ import annotations
@@ -54,6 +60,50 @@ def _sync(device: torch.device) -> None:
 def _add(phases: dict | None, key: str, seconds: float) -> None:
     if phases is not None:
         phases[key] = phases.get(key, 0.0) + seconds
+
+
+class _StageClock:
+    """Seconds per named stage of the work one thread enqueues on a device.
+
+    ``sync=True``: each lap synchronises the device and reads the host's
+    clock, and ``phases`` fills as the work goes (``compute_fast``'s
+    split).  ``sync=False``: nothing waits.  On a card each lap records a
+    CUDA event on the current stream and ``close`` sums the event pairs
+    into ``phases`` once the work is done; on the CPU, where each call
+    returns with its work done, a lap reads the host's clock."""
+
+    def __init__(self, device: torch.device, phases: dict | None, sync: bool):
+        self._device, self._phases, self._sync = device, phases, sync
+        self._events = device.type == "cuda" and not sync
+        self._pairs: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+        self._last = None
+
+    def _now(self):
+        if self._events:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        if self._sync:
+            _sync(self._device)
+        return time.perf_counter()
+
+    def start(self) -> None:
+        self._last = self._now()
+
+    def lap(self, key: str) -> None:
+        """Ends the stage ``key`` that began at ``start`` or the last lap."""
+        now = self._now()
+        if self._events:
+            self._pairs.append((key, self._last, now))
+        else:
+            _add(self._phases, key, now - self._last)
+        self._last = now
+
+    def close(self) -> None:
+        """Sums the event pairs; every recorded event must have fired."""
+        for key, begin, end in self._pairs:
+            _add(self._phases, key, begin.elapsed_time(end) / 1e3)
+        self._pairs.clear()
 
 
 def jaccard_finish(
@@ -260,39 +310,53 @@ def _bucket_block_engine(
     precise: bool,
     device: torch.device,
     phases: dict | None = None,
+    clock: _StageClock | None = None,
 ):
     """``block_sn(rids, cids, drids, dcids) -> (s, n)`` device tensors for
     one output block, summed over the width buckets in bucket order.  The
     index arguments are host arrays: genome ids of the rows and columns and
     the T columns of their denominators.  Raises as ``_resident_buckets``
-    does."""
+    does.
+
+    ``clock`` times the block's ``gather`` and ``kernel`` stages.  The
+    default synchronises the device at each stage boundary and fills
+    ``phases`` (``compute_fast``'s split); a caller that pipelines blocks
+    passes its own ``_StageClock(..., sync=False)``, with which ``block_sn``
+    enqueues its work and returns without waiting for the device.  The
+    values are the same either way."""
     buckets = _resident_buckets(presence, device, phases)
     G = presence.m.shape[1]
+    if clock is None:
+        clock = _StageClock(device, phases, sync=True)
 
     def block_sn(rids, cids, drids, dcids):
-        t0 = time.perf_counter()
+        clock.start()
         rsel, csel, drsel, dcsel = (
             _selector(ids, G, device) for ids in (rids, cids, drids, dcids)
         )
-        _add(phases, "gather", time.perf_counter() - t0)
         s = n = None
         for _, md, td in buckets:
-            t0 = time.perf_counter()
             ma, mb = _take(md, rsel), _take(md, csel)
             ta, tb = _take(td, drsel), _take(td, dcsel)
-            _sync(device)
-            t1 = time.perf_counter()
+            clock.lap("gather")
             s_b, n_b = fused_sn_block(
                 ma, mb, ta, tb, approx=approx, precise=precise
             )
             s = s_b if s is None else s + s_b
             n = n_b if n is None else n + n_b
-            _sync(device)
-            _add(phases, "gather", t1 - t0)
-            _add(phases, "kernel", time.perf_counter() - t1)
+            clock.lap("kernel")
         return s, n
 
     return block_sn
+
+
+def _mask_aji(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """One streamed block finished on its device: AJI = S / N in f32 (an
+    IEEE divide on the card and on the CPU alike; N to f32 is exact) with
+    the cells that share no protein (N == 0) set to 0, as the reference
+    leaves them in the CSV.  One f32 array per block crosses to the host
+    (parfastaai_tpu.engine._mask_aji)."""
+    return torch.where(n == 0, s.new_zeros(()), s / n.to(torch.float32))
 
 
 def _bucket_count_engine(
@@ -513,7 +577,7 @@ def compute_fast(
 
 
 class _Download:
-    """One count block on its way to the host (see ``_BlockDownloads``)."""
+    """One device block on its way to the host (see ``_BlockDownloads``)."""
 
     __slots__ = ("_block", "_buf", "_done", "_free")
 
@@ -521,7 +585,7 @@ class _Download:
         self._block, self._buf, self._done, self._free = block, buf, done, free
 
     def wait(self) -> np.ndarray:
-        """The block as a C-contiguous (P, nr, nc) host array, once its copy
+        """The block as a C-contiguous host array of its shape, once its copy
         has landed.  Waiting on the event releases the GIL and starts no
         CUDA work.  The array is valid until ``release``."""
         if self._buf is None:
@@ -539,21 +603,22 @@ class _Download:
 
 
 class _BlockDownloads:
-    """Device count blocks to the host without stalling the producer.
+    """Device blocks (the exact engine's integer counts, the streamed
+    engine's f32 AJI) to the host without stalling the producer.
 
     On a card: a pool of page-locked host buffers, one side stream and one
-    event per block in flight.  ``fetch`` enqueues a block's Grams on the
+    event per block in flight.  ``fetch`` enqueues a block's work on the
     current stream and its copy on the side stream, which first waits for
-    the Grams, and returns at once; the ``_Download`` keeps the device
+    that work, and returns at once; the ``_Download`` keeps the device
     block alive until the copy's event has fired, and its buffer returns to
     the pool only when the reader releases it.  On the CPU ``fetch``
     computes the block and hands its memory over as it is: no stream, no
     buffer.
 
-    ``gram_s`` / ``d2h_s`` are the blocks' device seconds, from CUDA event
-    pairs read after the last block (``close``); on the CPU ``gram_s`` is
-    host seconds and ``d2h_s`` stays 0.  ``wait_s``: seconds ``fetch``
-    waited for a free buffer."""
+    ``compute_s`` / ``d2h_s`` are the blocks' device seconds, from CUDA
+    event pairs read after the last block (``close``); on the CPU
+    ``compute_s`` is host seconds and ``d2h_s`` stays 0.  ``wait_s``:
+    seconds ``fetch`` waited for a free buffer."""
 
     def __init__(
         self,
@@ -562,7 +627,7 @@ class _BlockDownloads:
         dtype: torch.dtype,
         n_buffers: int,
     ):
-        self.gram_s = self.d2h_s = self.wait_s = 0.0
+        self.compute_s = self.d2h_s = self.wait_s = 0.0
         self._cuda = device.type == "cuda"
         if self._cuda:
             self._stream = torch.cuda.Stream(device)
@@ -578,7 +643,7 @@ class _BlockDownloads:
         if not self._cuda:
             t0 = time.perf_counter()
             block = compute_block()
-            self.gram_s += time.perf_counter() - t0
+            self.compute_s += time.perf_counter() - t0
             return _Download(block)
         t0 = time.perf_counter()
         buf = self._free.get()
@@ -605,7 +670,7 @@ class _BlockDownloads:
         if self._cuda:
             self._stream.synchronize()
             for g0, g1, c0, c1 in self._timed:
-                self.gram_s += g0.elapsed_time(g1) / 1e3
+                self.compute_s += g0.elapsed_time(g1) / 1e3
                 self.d2h_s += c0.elapsed_time(c1) / 1e3
             self._timed.clear()
 
@@ -861,7 +926,281 @@ def compute_streamed_exact(
                 worker.join()
     downloads.close()
     busy["producer wait"] += downloads.wait_s
-    _add(phases, "Gram", downloads.gram_s)
+    _add(phases, "Gram", downloads.compute_s)
+    _add(phases, "D2H", downloads.d2h_s)
+    for key, seconds in busy.items():
+        _add(phases, key, seconds)
+    if werr:
+        raise werr[0]
+
+
+# Bytes of the f64 slab that the streamed engine's writer formats at a time:
+# half of the 32 MiB above which glibc maps every allocation afresh.
+_FORMAT_SLAB_BYTES = 16 << 20
+
+
+def compute_streamed(
+    presence: PresenceData,
+    row_ids: np.ndarray,
+    col_ids: np.ndarray,
+    out_path: str,
+    row_names: tuple[str, ...],
+    col_names: tuple[str, ...],
+    device: torch.device,
+    separator: str = ",",
+    band: int = 1024,
+    col_chunk: int = 4096,
+    resume: bool = False,
+    approx: bool = False,
+    precise: bool = False,
+    row_denom_ids: np.ndarray | None = None,
+    col_denom_ids: np.ndarray | None = None,
+    phases: dict | None = None,
+) -> None:
+    """The f32 streamed engine: AJI straight to the CSV in row bands
+    (parfastaai_tpu.engine.compute_streamed on one device).
+
+    The output is walked in band x col_chunk blocks.  Each block is one
+    pass of the rectangular kernel per width bucket
+    (``_bucket_block_engine``), summed in bucket order, finished on the
+    device by ``_mask_aji`` and copied to the host as one f32 array.  Host
+    memory is O(band x G) beside the presence tensor (plus the mirror
+    store below) and the CSV grows in row order: a header of column names,
+    one row per row genome, same-genome cells and cells that share no
+    protein ``0``.  f32 on the device (~1e-7 relative, like
+    ``compute_fast``).
+
+    ``row_denom_ids`` / ``col_denom_ids``: T columns of the denominators
+    per row / column (default: the id columns), so that the two-database
+    T swap is honoured.  ``resume``: complete band-aligned rows already in
+    ``out_path`` are kept and the run restarts at the first missing row.
+    ``approx`` / ``precise`` select the kernel's divide.  ``precise`` is
+    honoured on every device (the plain version divides in IEEE f32);
+    ``approx`` exists only in the CUDA kernel, so on another device it
+    raises PFAAIError(CONSTRUCT_ERROR) before anything is uploaded.
+
+    Blocks have their exact shape.  The reference pads short bands and
+    chunks with genome 0 to keep one compiled shape and slices the padding
+    off; the kernel here masks ragged edges, and a cell's value does not
+    depend on the block it is computed in (per cell: ascending proteins
+    within a bucket, buckets summed in bucket order), so the bytes do not
+    depend on ``band`` or ``col_chunk``.
+
+    Two-stage pipeline.  The main thread enqueues each block's gather,
+    kernel, bucket sum and mask on the current stream and its copy to
+    page-locked host memory on a side stream (``_BlockDownloads``), and
+    never waits for the device.  One writer thread, up to two blocks
+    behind, waits for a block's copy, assembles the band in an array of
+    its own, and at the band's end formats and writes it (in slabs of rows
+    of ``_FORMAT_SLAB_BYTES`` as f64).  Device work,
+    copies, assembly and file IO overlap; the rows keep their order
+    because the queue is FIFO and one thread consumes it.  A band is
+    written only once the producer has marked its end, so an interrupted
+    run leaves whole bands only.
+
+    Symmetric (all-vs-all) runs skip the column chunks wholly below the
+    diagonal (``c0 + col_chunk <= r0``) and fill that region from the
+    transposes of the assembled bands written before (the same f32 value
+    per cell: counts and the denominator sums are symmetric).  Device work
+    and copied bytes approach half, at the cost of keeping every assembled
+    band (rows x cols x 4 bytes) on the host; it engages when rows == cols
+    (ids and denominators), no rows were resumed and that store fits
+    PARFASTAAI_MIRROR_BYTES (default 4 GiB), and says so on stderr when a
+    symmetric run goes without it.
+
+    ``phases`` collects seconds under ``host bucketize`` and ``H2D`` (the
+    presence upload), ``gather``, ``kernel``, ``AJI mask`` and ``D2H``
+    (device seconds from CUDA event pairs, read after the last block),
+    ``host assembly`` and ``CSV write`` (the writer's busy seconds),
+    ``producer wait`` (main thread blocked on a full queue or on a host
+    buffer) and ``writer wait`` (writer blocked on a copy or on an empty
+    queue).  The stages overlap, so they do not sum to the wall.
+
+    Not here, each with the part of the reference it stands for: the host
+    numpy block for small problems (``_take_host``: relay dispatch model,
+    not ported), ``staged`` with the snake order of the column walk (the
+    staged slab engine: until it lands, presence above the device budget
+    raises CONSTRUCT_ERROR through ``_resident_buckets``), and ``mesh``
+    with every multi-process branch (the multi-GPU engine).
+    """
+    if approx and device.type != "cuda":
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            "--approx requires the CUDA streamed kernel, but the device is "
+            f"{device.type!r}, not cuda",
+        )
+    row_ids = np.asarray(row_ids, dtype=np.int32)
+    col_ids = np.asarray(col_ids, dtype=np.int32)
+    row_denom_ids = (
+        row_ids
+        if row_denom_ids is None
+        else np.asarray(row_denom_ids, dtype=np.int32)
+    )
+    col_denom_ids = (
+        col_ids
+        if col_denom_ids is None
+        else np.asarray(col_denom_ids, dtype=np.int32)
+    )
+    # Clamped to >= 1: an empty axis gives a header-only CSV.
+    band = max(1, min(band, len(row_ids)))
+    col_chunk = max(1, min(col_chunk, len(col_ids)))
+    clock = _StageClock(device, phases, sync=False)
+    block_sn = _bucket_block_engine(
+        presence, approx, precise, device, phases, clock
+    )
+
+    def block_aji(rids, cids, drids, dcids) -> torch.Tensor:
+        aji = _mask_aji(*block_sn(rids, cids, drids, dcids))
+        clock.lap("AJI mask")
+        return aji
+
+    header = separator + separator.join(col_names) + "\n"
+    rows_done = _resume_point(out_path, header, band) if resume else 0
+    sym_layout = (
+        len(row_ids) == len(col_ids)
+        and np.array_equal(row_ids, col_ids)
+        and np.array_equal(row_denom_ids, col_denom_ids)
+    )
+    store_bytes = len(row_ids) * len(col_ids) * 4
+    budget = int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+    sym = sym_layout and rows_done == 0 and store_bytes <= budget
+    if sym_layout and not sym:
+        why = (
+            "--resume keeps earlier bands this run never produced"
+            if rows_done
+            else f"assembled-band store {store_bytes} B exceeds "
+            f"PARFASTAAI_MIRROR_BYTES={budget}"
+        )
+        print(
+            f"NOTE: symmetric mirror disabled ({why}); computing the full "
+            "square",
+            file=sys.stderr,
+        )
+
+    # Writer (stage 2).  The queue's depth of 2 bounds the blocks in flight;
+    # the host buffers are one being filled, two queued, one being read.
+    work_q: queue.Queue = queue.Queue(maxsize=2)
+    downloads = _BlockDownloads(
+        device, band * col_chunk, torch.float32, n_buffers=work_q.maxsize + 2
+    )
+    werr: list[BaseException] = []
+    # The writer converts and formats a band in slabs of rows whose f64 copy
+    # stays at _FORMAT_SLAB_BYTES: an array the allocator hands out again
+    # and again, where a whole 1024 x 4096 band (33.5 MB as f64) is mapped
+    # and page-faulted anew for every band.
+    slab_rows = max(1, _FORMAT_SLAB_BYTES // (8 * max(1, len(col_ids))))
+    # Seconds by stage: the writer adds to its three keys, the main thread
+    # to "producer wait" alone.
+    busy = {"host assembly": 0.0, "CSV write": 0.0, "producer wait": 0.0,
+            "writer wait": 0.0}
+
+    def _writer(fp) -> None:
+        download = None
+        try:
+            if os.environ.get("PARFASTAAI_TEST_WORKER_FAULT"):
+                # Fault-injection hook (tests only): a failure of the writer
+                # must stop the producer and reach the caller.
+                raise RuntimeError("injected csv-writer fault")
+            rows_aji: np.ndarray | None = None
+            # Assembled bands by first row, kept for the mirror: each its
+            # own array, never a view of a pooled host buffer.
+            band_store: dict[int, np.ndarray] = {}
+            while True:
+                t0 = time.perf_counter()
+                item = work_q.get()
+                busy["writer wait"] += time.perf_counter() - t0
+                if item is None:
+                    return  # a band without its end mark is not written
+                r0, rids, chunk = item
+                if rows_aji is None:
+                    rows_aji = np.empty(
+                        (len(rids), len(col_ids)), dtype=np.float32
+                    )
+                if chunk is not None:
+                    c0, nc, download = chunk
+                    t0 = time.perf_counter()
+                    block = download.wait()
+                    t1 = time.perf_counter()
+                    rows_aji[:, c0 : c0 + nc] = block
+                    del block
+                    download.release()
+                    download = None
+                    busy["writer wait"] += t1 - t0
+                    busy["host assembly"] += time.perf_counter() - t1
+                    continue
+                # The band's end: every computed chunk is in place.
+                t0 = time.perf_counter()
+                if sym:
+                    # The skipped region [0, fill_end): transposed slices of
+                    # the earlier bands (all complete: only the last band
+                    # can be short, and nothing mirrors from it).
+                    fill_end = (r0 // col_chunk) * col_chunk
+                    for bs in range(0, fill_end, band):
+                        width = min(band, fill_end - bs)
+                        rows_aji[:, bs : bs + width] = band_store[bs][
+                            :width, r0 : r0 + len(rids)
+                        ].T
+                # Same-genome cells are untouched in the reference => 0.
+                rows_aji[rids[:, None] == col_ids[None, :]] = 0.0
+                if sym:
+                    band_store[r0] = rows_aji
+                t1 = time.perf_counter()
+                for i0 in range(0, len(rids), slab_rows):
+                    slab = rows_aji[i0 : i0 + slab_rows].astype(np.float64)
+                    for i, row in enumerate(format_matrix(slab, separator)):
+                        fp.write(
+                            row_names[r0 + i0 + i] + separator + row + "\n"
+                        )
+                rows_aji = None
+                busy["host assembly"] += t1 - t0
+                busy["CSV write"] += time.perf_counter() - t1
+        except BaseException as exc:  # handed to the caller after the join
+            werr.append(exc)
+            if download is not None:
+                download.release()
+            # Keep the producer unblocked: empty the queue and hand every
+            # host buffer back until the producer's end mark arrives.
+            while (item := work_q.get()) is not None:
+                if item[2] is not None:
+                    item[2][2].release()
+
+    def put(item) -> None:
+        t0 = time.perf_counter()
+        work_q.put(item)
+        busy["producer wait"] += time.perf_counter() - t0
+
+    with open(out_path, "a" if rows_done else "w") as fp:
+        writer = threading.Thread(
+            target=_writer, args=(fp,), name="pfaai-csv-writer", daemon=True
+        )
+        try:
+            if not rows_done:
+                fp.write(header)
+            writer.start()
+            for r0 in range(rows_done, len(row_ids), band):
+                rids = row_ids[r0 : r0 + band]
+                drids = row_denom_ids[r0 : r0 + band]
+                for c0 in range(0, len(col_ids), col_chunk):
+                    if sym and c0 + col_chunk <= r0:
+                        continue  # below the diagonal: the writer mirrors it
+                    cids = col_ids[c0 : c0 + col_chunk]
+                    dcids = col_denom_ids[c0 : c0 + col_chunk]
+                    download = downloads.fetch(
+                        lambda: block_aji(rids, cids, drids, dcids)
+                    )
+                    put((r0, rids, (c0, len(cids), download)))
+                    if werr:
+                        break
+                if werr:
+                    break
+                put((r0, rids, None))  # the band's end mark
+        finally:
+            if writer.is_alive():
+                work_q.put(None)
+                writer.join()
+    downloads.close()
+    clock.close()
+    busy["producer wait"] += downloads.wait_s
     _add(phases, "D2H", downloads.d2h_s)
     for key, seconds in busy.items():
         _add(phases, key, seconds)

@@ -1,0 +1,253 @@
+"""The port's library API (``parfastaai_tpu_torch.api``) against the JAX
+package's (``parfastaai_tpu.api``) on the CPU, on small synthetic
+databases: ``aji`` with the exact engine bit-equal (matrix, pairs, CSV
+bytes) and with the fast engine within 1e-6, ``aji_to_csv`` with the
+banded exact engine byte-equal and with the f32 streamed engine to its
+stated tolerance (the same header and row names as bytes, the text ``0``
+in the same cells, values within rtol 1e-6), the same error codes, and
+CONSTRUCT_ERROR for the engines this package does not run yet."""
+
+import os
+import sqlite3
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import parfastaai_tpu.api as jax_api
+import parfastaai_tpu_torch.api as api
+from parfastaai_tpu.tools.synth_db import generate
+from parfastaai_tpu.types import PFAAIError as JaxPFAAIError
+from parfastaai_tpu_torch.types import ErrorCode, PFAAIError
+
+QUERIES = [f"synthetic_genome_{i:05d}.fna.gz" for i in (30, 2, 17)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def dbs(tmp_path_factory):
+    """A 40-genome target DB and a 24-genome query DB with disjoint genome
+    names (6 proteins, pool 300, ~100 tetramers per genome)."""
+    d = tmp_path_factory.mktemp("torch_api")
+    target, query = str(d / "target.db"), str(d / "query.db")
+    generate(target, n_genomes=40, n_proteins=6, pool_size=300,
+             tetras_per_genome=100, seed=1)
+    generate(query, n_genomes=24, n_proteins=6, pool_size=300,
+             tetras_per_genome=100, seed=2)
+    with sqlite3.connect(query) as conn:
+        conn.execute("UPDATE genome_metadata SET genome_name = 'q_' || genome_name")
+    return {"target": target, "query": query}
+
+
+def _mode_kw(mode, dbs) -> dict:
+    if mode == "qt":
+        return {"query_db": dbs["query"]}
+    if mode == "qt_noswap":
+        return {"query_db": dbs["query"], "compat_qt_t_swap": False}
+    if mode == "qsub":
+        return {"query_subset": QUERIES}
+    return {}
+
+
+MODES = ["all", "qsub", "qt", "qt_noswap"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_aji_exact_bit_equal(mode, dbs, tmp_path):
+    kw = _mode_kw(mode, dbs)
+    want = jax_api.aji(dbs["target"], **kw)
+    got = api.aji(dbs["target"], device="cpu", **kw)
+    assert got.row_names == want.row_names and got.col_names == want.col_names
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+    for field in ("genome_a", "genome_b", "s", "n", "aji"):
+        np.testing.assert_array_equal(
+            getattr(got.pairs, field), getattr(want.pairs, field))
+    got.to_csv(str(tmp_path / "port.csv"), ";")
+    want.to_csv(str(tmp_path / "jax.csv"), ";")
+    assert (tmp_path / "port.csv").read_bytes() == (
+        tmp_path / "jax.csv").read_bytes()
+
+
+@pytest.mark.parametrize("divide", [{}, {"precise": True}, {"approx": True}],
+                         ids=["newton", "precise", "approx"])
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt"])
+def test_aji_fast_within_tolerance(mode, divide, dbs):
+    kw = {**_mode_kw(mode, dbs), **divide}
+    want = jax_api.aji(dbs["target"], engine="fast", **kw)
+    got = api.aji(dbs["target"], engine="fast", device="cpu", **kw)
+    np.testing.assert_array_equal(got.pairs.n, want.pairs.n)
+    np.testing.assert_allclose(got.pairs.s, want.pairs.s, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.matrix, want.matrix, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("engine", ["exact", "fast"])
+def test_aji_to_csv_writes_to_csv_of_aji(engine, dbs, tmp_path):
+    got, want = tmp_path / "direct.csv", tmp_path / "result.csv"
+    api.aji_to_csv(str(got), dbs["target"], engine=engine, device="cpu",
+                   separator=";")
+    api.aji(dbs["target"], engine=engine, device="cpu").to_csv(str(want), ";")
+    assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_streamed_exact_bytes_equal(mode, dbs, tmp_path, monkeypatch):
+    """The banded exact engine through both APIs (the JAX side on its device
+    count path) and ``engine="exact"``: the same bytes."""
+    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    kw = dict(_mode_kw(mode, dbs), band=7, col_chunk=5)
+    got, want, exact = (tmp_path / n for n in ("port.csv", "jax.csv", "exact.csv"))
+    api.aji_to_csv(str(got), dbs["target"], engine="streamed-exact",
+                   device="cpu", **kw)
+    jax_api.aji_to_csv(str(want), dbs["target"], engine="streamed-exact", **kw)
+    api.aji_to_csv(str(exact), dbs["target"], device="cpu", **_mode_kw(mode, dbs))
+    assert got.read_bytes() == want.read_bytes() == exact.read_bytes()
+
+
+def _table(csv: bytes, sep=","):
+    lines = csv.decode().split("\n")
+    rows = [ln.split(sep) for ln in lines[1:-1]]
+    return (lines[0], [r[0] for r in rows],
+            np.array([r[1:] for r in rows], dtype=object))
+
+
+@pytest.mark.parametrize("jax_leg", ["host", "device"])
+@pytest.mark.parametrize("mode", MODES)
+def test_streamed_matches_jax(mode, jax_leg, dbs, tmp_path, monkeypatch):
+    if jax_leg == "device":
+        monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    kw = dict(_mode_kw(mode, dbs), band=7, col_chunk=5, separator=";")
+    got, want = tmp_path / "port.csv", tmp_path / "jax.csv"
+    api.aji_to_csv(str(got), dbs["target"], engine="streamed", device="cpu", **kw)
+    jax_api.aji_to_csv(str(want), dbs["target"], engine="streamed", **kw)
+    g_head, g_names, g = _table(got.read_bytes(), ";")
+    w_head, w_names, w = _table(want.read_bytes(), ";")
+    assert g_head == w_head and g_names == w_names and g.shape == w.shape
+    np.testing.assert_array_equal(g == "0", w == "0")
+    np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64),
+                               rtol=1e-6, atol=0)
+
+
+def test_streamed_resume_and_block_shape(dbs, tmp_path):
+    """``resume`` continues a cut file, and band / col_chunk reach the
+    engine uncapped (the bytes do not depend on them)."""
+    full, part = tmp_path / "full.csv", tmp_path / "part.csv"
+    api.aji_to_csv(str(full), dbs["target"], engine="streamed", device="cpu")
+    whole = full.read_bytes()
+    part.write_bytes(b"\n".join(whole.split(b"\n")[: 1 + 14]) + b"\nsynth")
+    api.aji_to_csv(str(part), dbs["target"], engine="streamed", device="cpu",
+                   band=6, col_chunk=9, resume=True)
+    assert part.read_bytes() == whole
+
+
+def _code(module, exc_type, fn, *args, **kw) -> int:
+    with pytest.raises(exc_type) as e:
+        getattr(module, fn)(*args, **kw)
+    return int(e.value.code)
+
+
+ERRORS = {
+    "both_query_kinds": ("aji", lambda d: dict(query_db=d["query"],
+                                               query_subset=QUERIES)),
+    "unknown_engine": ("aji", lambda d: dict(engine="bogus")),
+    "streamed_engine_in_aji": ("aji", lambda d: dict(engine="streamed")),
+    "unknown_query": ("aji", lambda d: dict(query_subset=["no_such_genome"])),
+    "streamed_exact_precise": (
+        "aji_to_csv", lambda d: dict(engine="streamed-exact", precise=True)),
+    "streamed_exact_approx": (
+        "aji_to_csv", lambda d: dict(engine="streamed-exact", approx=True)),
+    "streamed_approx_off_the_device": (
+        "aji_to_csv", lambda d: dict(engine="streamed", approx=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ERRORS))
+def test_error_codes_match_jax(case, dbs, tmp_path):
+    fn, make_kw = ERRORS[case]
+    kw = make_kw(dbs)
+    out = tmp_path / "x.csv"
+    args = (str(out), dbs["target"]) if fn == "aji_to_csv" else (dbs["target"],)
+    want = _code(jax_api, JaxPFAAIError, fn, *args, **kw)
+    got = _code(api, PFAAIError, fn, *args, device="cpu", **kw)
+    assert got == want == int(ErrorCode.CONSTRUCT_ERROR)
+    assert not out.exists()
+
+
+def test_missing_database_code_matches_jax(tmp_path):
+    missing = str(tmp_path / "nope.db")
+    with pytest.raises(Exception) as want:
+        jax_api.aji(missing)
+    with pytest.raises(Exception) as got:
+        api.aji(missing, device="cpu")
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert getattr(got.value, "code", None) == getattr(want.value, "code", None)
+
+
+UNPORTED = {
+    "sharded": ("aji", dict(engine="sharded")),
+    "mesh": ("aji", dict(engine="fast", mesh=(2, 1))),
+    "staged": ("aji", dict(engine="fast", staged=True)),
+    "to_csv_sharded": ("aji_to_csv", dict(engine="sharded")),
+    "streamed_mesh": ("aji_to_csv", dict(engine="streamed", mesh=(2, 1))),
+    "streamed_staged": ("aji_to_csv", dict(engine="streamed", staged=True)),
+    "streamed_exact_mesh": (
+        "aji_to_csv", dict(engine="streamed-exact", mesh=(2, 1))),
+    "streamed_exact_staged": (
+        "aji_to_csv", dict(engine="streamed-exact", staged=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_engines_raise_construct_error(case, dbs, tmp_path):
+    fn, kw = UNPORTED[case]
+    out = tmp_path / "x.csv"
+    args = (str(out), dbs["target"]) if fn == "aji_to_csv" else (dbs["target"],)
+    with pytest.raises(PFAAIError) as e:
+        getattr(api, fn)(*args, device="cpu", **kw)
+    assert e.value.code == ErrorCode.CONSTRUCT_ERROR
+    assert "does not run this yet" in str(e.value)
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("staged", [None, False])
+def test_staged_none_and_false_are_accepted(staged, dbs, tmp_path):
+    out = tmp_path / "x.csv"
+    api.aji_to_csv(str(out), dbs["target"], engine="streamed", device="cpu",
+                   staged=staged)
+    assert out.read_bytes().count(b"\n") == 41
+    assert api.aji(dbs["target"], engine="fast", device="cpu",
+                   staged=staged).matrix.shape == (40, 40)
+
+
+def test_device_is_named_never_guessed(dbs, tmp_path, monkeypatch):
+    """The default device is cuda; without CUDA a call raises and writes
+    nothing, and an unknown device name raises too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.csv"
+    for kw in ({}, {"device": "cuda"}, {"device": "tpu"}):
+        for engine in ("exact", "streamed", "streamed-exact"):
+            with pytest.raises(PFAAIError) as e:
+                api.aji_to_csv(str(out), dbs["target"], engine=engine, **kw)
+            assert e.value.code == ErrorCode.CONSTRUCT_ERROR
+    assert not out.exists()
+
+
+def test_package_does_not_import_the_api():
+    """As in the JAX package, ``import parfastaai_tpu_torch`` leaves the
+    API module to its users."""
+    code = ("import sys, parfastaai_tpu_torch; "
+            "print('parfastaai_tpu_torch.api' in sys.modules)")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

@@ -2,9 +2,12 @@
 small synthetic databases: byte-identical default CSVs in all three modes,
 on the dense path and on the banded exact engine (auto-routed under a low
 PARFASTAAI_EXACT_HOST_BYTES, and ``--streamed --exact`` with ``--resume``),
-``--fast`` within 1e-6, the same error codes, exit code 3 for every flag the
-port does not run yet, and no jax in a port run."""
+``--fast`` within 1e-6, ``--streamed`` (the f32 streamed engine) to its
+stated tolerance, ``--profile`` on every route, the same error codes, exit
+code 3 for every flag the port does not run yet, and no jax in a port
+run."""
 
+import json
 import os
 import sqlite3
 import subprocess
@@ -124,9 +127,9 @@ def test_error_codes_match_jax(dbs, tmp_path):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--streamed"],
-        ["--streamed", "--fast"],
-        ["--streamed", "--resume"],
+        ["--streamed", "--staged"],
+        ["--streamed", "--mesh", "2"],
+        ["--streamed", "--fast", "--staged"],
         ["--exact"],
         ["--exact", "--resume"],
         ["--streamed", "--exact", "--precise"],
@@ -136,8 +139,9 @@ def test_error_codes_match_jax(dbs, tmp_path):
         ["--staged"],
         ["--mesh", "2"],
         ["--mesh", "0,1"],
-        ["--profile", "trace_dir"],
+        ["--profile", "trace_dir", "--mesh", "2"],
         ["--approx"],
+        ["--streamed", "--approx"],  # the kernel's divide: on cuda only
     ],
 )
 def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
@@ -147,11 +151,146 @@ def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
     assert "CONSTRUCT_ERROR" in capsys.readouterr().err
 
 
+def assert_streamed_close(got: bytes, want: bytes, sep=",") -> None:
+    """The f32 streamed engine's stated tolerance between two CSVs: the
+    same header and row names as bytes, a cell is the text ``0`` in one
+    exactly where it is in the other, values within rtol 1e-6."""
+    g, w = (text.decode().split("\n") for text in (got, want))
+    assert g[0] == w[0] and len(g) == len(w) and g[-1] == w[-1] == ""
+    g, w = ([ln.split(sep) for ln in x[1:-1]] for x in (g, w))
+    assert [r[0] for r in g] == [r[0] for r in w]
+    g, w = (np.array([r[1:] for r in x], dtype=object) for x in (g, w))
+    assert g.shape == w.shape
+    np.testing.assert_array_equal(g == "0", w == "0")
+    np.testing.assert_allclose(
+        g.astype(np.float64), w.astype(np.float64), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("jax_leg", ["host", "device"])
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt", "qt_noswap", "sep"])
+def test_streamed_csv_matches_jax(mode, jax_leg, dbs, tmp_path, monkeypatch):
+    """``--streamed`` against the JAX CLI's, on its default CPU leg (host
+    block) and on its device leg, with ragged bands and chunks."""
+    if jax_leg == "device":
+        monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    extra = (["-r", dbs["query"], "--no-compat-qt-t-swap"]
+             if mode == "qt_noswap" else _mode_args(mode, dbs))
+    extra = [*extra, "--streamed", "--band", "7", "--col-chunk", "5"]
+    want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+    assert jax_run([dbs["target"], str(want), "--quiet", *extra]) == 0
+    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu", *extra]) == 0
+    assert_streamed_close(got.read_bytes(), want.read_bytes(),
+                          ";" if mode == "sep" else ",")
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--fast"],  # the streamed branch comes first, as in the JAX CLI
+        ["--precise"],  # the plain version divides in IEEE f32 already
+        ["--band", "7", "--col-chunk", "5"],
+        ["--band", "1", "--col-chunk", "1"],
+    ],
+    ids=["fast", "precise", "band7x5", "band1x1"],
+)
+def test_streamed_variants_write_the_same_bytes(flags, dbs, tmp_path):
+    want, got = tmp_path / "plain.csv", tmp_path / "port.csv"
+    base = [dbs["target"], "--quiet", "--device", "cpu", "--streamed"]
+    assert run([base[0], str(want), *base[1:]]) == 0
+    assert run([base[0], str(got), *base[1:], *flags]) == 0
+    assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt"])
+def test_streamed_resume(mode, dbs, tmp_path):
+    """--streamed --resume from a file cut inside its second band restores
+    the bytes (the JAX CLI: to the stated tolerance)."""
+    args = ["--quiet", "--streamed", "--band", "2", *_mode_args(mode, dbs)]
+    full, got, want = (tmp_path / n for n in ("full.csv", "port.csv", "jax.csv"))
+    assert run([dbs["target"], str(full), "--device", "cpu", *args]) == 0
+    whole = full.read_bytes()
+    cut = b"\n".join(whole.split(b"\n")[: 1 + 2]) + b"\nsynthetic_genome_000"
+    got.write_bytes(cut)
+    want.write_bytes(cut)
+    assert run([dbs["target"], str(got), "--device", "cpu", *args, "--resume"]) == 0
+    assert jax_run([dbs["target"], str(want), *args, "--resume"]) == 0
+    assert got.read_bytes() == whole
+    assert_streamed_close(want.read_bytes(), whole)
+
+
+def test_streamed_says_so(dbs, tmp_path, capfd):
+    """The engine's stages and the JAX CLI's closing line plus the device;
+    a symmetric run under PARFASTAAI_MIRROR_BYTES=1 says so on stderr."""
+    out = tmp_path / "x.csv"
+    assert run([dbs["target"], str(out), "--device", "cpu", "--streamed"]) == 0
+    text = capfd.readouterr().out
+    for stage in ("gather", "kernel", "AJI mask", "D2H", "host assembly",
+                  "CSV write", "producer wait", "writer wait"):
+        assert f"  {stage}" in text
+    assert f"Wrote 48 x 48 AJI matrix to {out} (streamed) on cpu" in text
+    assert "genome-pair AJI values" not in text and "banded exact" not in text
+
+
+def test_streamed_approx_exits_3_in_both_clis(dbs, tmp_path, capsys):
+    """The raw reciprocal exists only in the device kernels: on the CPU
+    both CLIs stop with CONSTRUCT_ERROR and write no CSV."""
+    want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+    flags = ["--quiet", "--streamed", "--approx"]
+    assert jax_run([dbs["target"], str(want), *flags]) == 3
+    assert run([dbs["target"], str(got), "--device", "cpu", *flags]) == 3
+    assert not want.exists() and not got.exists()
+    assert capsys.readouterr().err.count("CONSTRUCT_ERROR") == 2
+
+
+PROFILED = {
+    "dense": ([], {}),
+    "fast": (["--fast"], {}),
+    "banded": (["--streamed", "--exact"], {}),
+    "banded_auto": ([], {"PARFASTAAI_EXACT_HOST_BYTES": "1"}),
+    "streamed": (["--streamed"], {}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(PROFILED))
+def test_profile_writes_a_trace_and_the_same_csv(route, dbs, tmp_path, monkeypatch):
+    """--profile DIR on every route: DIR is created, holds one Chrome trace
+    that parses as JSON with events in it, and the CSV's bytes are those of
+    the run without the flag."""
+    from parfastaai_tpu_torch.cli import PROFILE_TRACE
+
+    flags, env = PROFILED[route]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    plain, got = tmp_path / "plain.csv", tmp_path / "profiled.csv"
+    trace_dir = tmp_path / "traces" / route
+    base = ["--quiet", "--device", "cpu", *flags]
+    assert run([dbs["target"], str(plain), *base]) == 0
+    assert run([dbs["target"], str(got), *base, "--profile", str(trace_dir)]) == 0
+    assert got.read_bytes() == plain.read_bytes()
+    assert [p.name for p in trace_dir.iterdir()] == [PROFILE_TRACE]
+    trace = json.loads((trace_dir / PROFILE_TRACE).read_text())
+    assert len(trace["traceEvents"]) > 0
+
+
+def test_profile_of_a_failing_run_closes_the_profiler(dbs, tmp_path, monkeypatch):
+    """A run that fails under --profile exits with its own code, and the
+    next profiled run works: the profiler was closed."""
+    monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "1")
+    out = tmp_path / "x.csv"
+    args = [dbs["target"], str(out), "--quiet", "--device", "cpu", "--streamed"]
+    assert run([*args, "--profile", str(tmp_path / "t1")]) == 3
+    monkeypatch.delenv("PARFASTAAI_HBM_BYTES")
+    assert run([*args, "--profile", str(tmp_path / "t2")]) == 0
+    assert (tmp_path / "t2").is_dir() and out.exists()
+
+
 BANDED = {
     # the default call above the host budget, and the flags that ask for it
     "auto": ([], {"PARFASTAAI_EXACT_HOST_BYTES": "1"}),
     "streamed_exact": (["--streamed", "--exact"], {}),
 }
+# every route into an engine that writes the CSV in bands
+BANDED_AND_STREAMED = {**BANDED, "streamed": (["--streamed"], {})}
 
 
 @pytest.mark.parametrize("route", sorted(BANDED))
@@ -274,11 +413,11 @@ def test_cuda_without_cuda_exits_nonzero(dbs, tmp_path, monkeypatch):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("route", sorted(BANDED))
+@pytest.mark.parametrize("route", sorted(BANDED_AND_STREAMED))
 def test_banded_cuda_without_cuda_exits_nonzero(route, dbs, tmp_path, monkeypatch):
     """No card: the banded routes stop as the dense one does, with no CSV
     and no move to the CPU."""
-    flags, env = BANDED[route]
+    flags, env = BANDED_AND_STREAMED[route]
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -290,14 +429,15 @@ def test_banded_cuda_without_cuda_exits_nonzero(route, dbs, tmp_path, monkeypatc
 
 def test_port_run_never_loads_jax(dbs, tmp_path):
     """A fresh process running the port CLI (default, --fast, the banded
-    exact engine by its flags and by the auto-route) ends without jax in
-    sys.modules."""
+    exact engine by its flags and by the auto-route, the streamed engine
+    under --profile) ends without jax in sys.modules."""
     code = (
         "import os, sys\n"
         "from parfastaai_tpu_torch.cli import run\n"
         "db, out = sys.argv[1], sys.argv[2]\n"
         "rcs = [run([db, out, '--quiet', '--device', 'cpu', *f])"
-        " for f in ([], ['--fast'], ['--streamed', '--exact'])]\n"
+        " for f in ([], ['--fast'], ['--streamed', '--exact'],"
+        " ['--streamed', '--profile', out + '.trace'])]\n"
         "os.environ['PARFASTAAI_EXACT_HOST_BYTES'] = '1'\n"
         "rcs.append(run([db, out, '--quiet', '--device', 'cpu']))\n"
         "print('RCS', rcs, 'JAX', 'jax' in sys.modules)\n"
@@ -308,4 +448,4 @@ def test_port_run_never_loads_jax(dbs, tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "RCS [0, 0, 0, 0] JAX False" in proc.stdout
+    assert "RCS [0, 0, 0, 0, 0] JAX False" in proc.stdout

@@ -362,3 +362,230 @@ def test_banded_exact_resume_on_cuda(cuda, synth_db, tmp_path):
     cut.write_bytes(b"\n".join(whole.split(b"\n")[: 1 + 20]) + b"\nsynth")
     assert run([synth_db, str(cut), *flags, "--resume"]) == 0
     assert cut.read_bytes() == whole
+
+
+def _bucketed_presence(G=150, seed=5):
+    """(meta, presence) of ``G`` genomes whose 5 proteins fall into two
+    width buckets; one genome lacks a protein, one has no tetramer."""
+    from parfastaai_tpu_torch.etl.database import PresenceData
+    from parfastaai_tpu_torch.types import DBMetaData
+
+    rng = np.random.default_rng(seed)
+    widths = np.array([300, 20, 280, 10, 290], np.int32)
+    m = np.zeros((5, G, 384), np.uint8)
+    for p, w in enumerate(widths):
+        m[p, :, :w] = rng.random((G, w)) < 0.4
+    m[3, 4] = 0
+    m[:, 9] = 0
+    meta = DBMetaData(protein_set=tuple(f"P{p}" for p in range(5)),
+                      genome_set=tuple(f"g{i}" for i in range(G)))
+    presence = PresenceData(
+        meta=meta, m=m, t=m.sum(2).astype(np.int32), widths=widths,
+        tetramer_ids=[np.arange(w, dtype=np.int32) for w in widths])
+    return meta, presence
+
+
+def _run_streamed(presence, names, rows, cols, out, device, **kw) -> bytes:
+    from parfastaai_tpu_torch import engine
+
+    engine.compute_streamed(
+        presence, rows, cols, str(out), tuple(names[i] for i in rows),
+        tuple(names[i] for i in cols), device, **kw)
+    return out.read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mirror", ["on", "off"])
+@pytest.mark.parametrize("shape", ["square", "rect"])
+@pytest.mark.parametrize("band,col_chunk", [(64, 48), (7, 150), (1024, 4096)])
+def test_streamed_on_cuda_equals_cpu_under_precise(
+    cuda, tmp_path, monkeypatch, mirror, shape, band, col_chunk
+):
+    """``compute_streamed`` on the card writes the bytes of its CPU run
+    under ``precise`` (the kernel is then bit-equal to its plain version
+    and ``_mask_aji`` divides in IEEE f32 on both), with two width buckets,
+    ragged bands and chunks, many more blocks than host buffers at band 7,
+    the mirror on and off; it launches the kernel once per block and
+    bucket."""
+    from parfastaai_tpu_torch import engine
+
+    if mirror == "off":
+        monkeypatch.setenv("PARFASTAAI_MIRROR_BYTES", "1")
+    meta, presence = _bucketed_presence()
+    n_buckets = len(engine.to_device_buckets(presence, torch.device("cpu")))
+    assert n_buckets == 2
+    cols = np.arange(150, dtype=np.int32)
+    rows = cols if shape == "square" else np.array([31, 0, 7, 149, 12, 5, 9])
+    kw = dict(band=band, col_chunk=col_chunk, precise=True)
+    want = _run_streamed(presence, meta.genome_set, rows, cols,
+                         tmp_path / "cpu.csv", torch.device("cpu"), **kw)
+    before = sn_rect.LAUNCHES
+    phases = {}
+    got = _run_streamed(presence, meta.genome_set, rows, cols,
+                        tmp_path / "cuda.csv", cuda, phases=phases, **kw)
+    assert got == want
+    b, c = min(band, len(rows)), min(col_chunk, 150)
+    sym = shape == "square" and mirror == "on"
+    blocks = sum(1 for r0 in range(0, len(rows), b)
+                 for c0 in range(0, 150, c) if not (sym and c0 + c <= r0))
+    assert sn_rect.LAUNCHES - before == blocks * n_buckets
+    assert phases["kernel"] > 0 and phases["D2H"] > 0 and phases["gather"] >= 0
+
+
+@pytest.mark.cuda
+def test_streamed_main_thread_never_waits_for_the_card(cuda, tmp_path, monkeypatch):
+    """Between the first and the last block the main thread calls nothing
+    that waits for the device: no ``torch.cuda.synchronize``, no stream or
+    event ``synchronize``, no ``.cpu()``, ``.item()``, ``.numpy()`` or
+    ``.tolist()``.  (The writer thread waits on each copy's event.)"""
+    import threading
+
+    from parfastaai_tpu_torch import engine
+
+    meta, presence = _bucketed_presence()
+    engine.to_device_buckets(presence, cuda)  # resident before the walk
+    log = []
+
+    def spy(owner, name, label=None):
+        real = getattr(owner, name)
+
+        def wrapped(*a, **k):
+            if threading.current_thread() is threading.main_thread():
+                log.append(label or name)
+            return real(*a, **k)
+
+        monkeypatch.setattr(owner, name, wrapped)
+
+    spy(torch.cuda, "synchronize")
+    spy(torch.cuda.Stream, "synchronize", "stream.synchronize")
+    spy(torch.cuda.Event, "synchronize", "event.synchronize")
+    for name in ("cpu", "item", "numpy", "tolist"):
+        spy(torch.Tensor, name)
+    spy(engine, "fused_sn_block", "block")
+    ids = np.arange(150, dtype=np.int32)
+    _run_streamed(presence, meta.genome_set, ids, ids, tmp_path / "x.csv",
+                  cuda, band=16, col_chunk=32)
+    first = log.index("block")
+    last = len(log) - 1 - log[::-1].index("block")
+    assert log.count("block") > 40
+    assert set(log[first:last + 1]) == {"block"}
+    # after the last block: the pool's close waits for the side stream
+    assert "stream.synchronize" in log[last:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["hook", "formatter"])
+def test_streamed_writer_fault_returns_every_pinned_buffer(
+    cuda, tmp_path, monkeypatch, fault
+):
+    """A writer that fails (at its start, or in the formatter at the second
+    band) reaches the caller, the producer does not hang on the pool, and
+    every page-locked buffer is back in it."""
+    import threading
+
+    from parfastaai_tpu_torch import engine
+
+    pools = []
+
+    class Pool(engine._BlockDownloads):
+        def __init__(self, *a, n_buffers, **k):
+            super().__init__(*a, n_buffers=n_buffers, **k)
+            pools.append((self, n_buffers))
+
+    monkeypatch.setattr(engine, "_BlockDownloads", Pool)
+    if fault == "hook":
+        monkeypatch.setenv("PARFASTAAI_TEST_WORKER_FAULT", "1")
+        match = "injected csv-writer fault"
+    else:
+        calls = []
+        real = engine.format_matrix
+
+        def boom(mat, sep):
+            calls.append(1)
+            if len(calls) >= 2:
+                raise OSError("disk full (simulated)")
+            return real(mat, sep)
+
+        monkeypatch.setattr(engine, "format_matrix", boom)
+        match = "disk full"
+    meta, presence = _bucketed_presence()
+    ids = np.arange(150, dtype=np.int32)
+    with pytest.raises((RuntimeError, OSError), match=match):
+        _run_streamed(presence, meta.genome_set, ids, ids, tmp_path / "x.csv",
+                      cuda, band=8, col_chunk=40)
+    (pool, n_buffers), = pools
+    assert pool._free.qsize() == n_buffers == 4
+    assert all(buf.is_pinned() for buf in list(pool._free.queue))
+    assert not [t for t in threading.enumerate() if t.name.startswith("pfaai-")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "flags", [[], ["--precise"], ["--approx"], ["--fast"]],
+    ids=["newton", "precise", "approx", "fast"])
+def test_streamed_cli_on_cuda_matches_cpu(cuda, synth_db, tmp_path, flags):
+    """``--streamed`` on the card against the CPU run (IEEE divide): the
+    text ``0`` in the same cells; bytes equal under --precise, within 1e-6
+    under the Newton divide and 1e-3 under --approx (which only the card
+    runs); one kernel launch per block."""
+    from parfastaai_tpu_torch.cli import run
+
+    base = ["--quiet", "--streamed", "--band", "16", "--col-chunk", "12"]
+    on_cpu, on_cuda = tmp_path / "cpu.csv", tmp_path / "cuda.csv"
+    assert run([synth_db, str(on_cpu), "--device", "cpu", *base]) == 0
+    before = sn_rect.LAUNCHES
+    assert run([synth_db, str(on_cuda), "--device", "cuda", *base, *flags]) == 0
+    # 40 genomes: bands at 0, 16, 32; chunks of 12 not wholly below them
+    assert sn_rect.LAUNCHES - before == 4 + 3 + 2
+    if flags == ["--precise"]:
+        assert on_cuda.read_bytes() == on_cpu.read_bytes()
+        return
+    a, b = (
+        np.array([ln.split(",")[1:] for ln in p.read_text().splitlines()[1:]],
+                 dtype=object)
+        for p in (on_cpu, on_cuda)
+    )
+    np.testing.assert_array_equal(a == "0", b == "0")
+    np.testing.assert_allclose(b.astype(float), a.astype(float),
+                               rtol=1e-3 if flags == ["--approx"] else 1e-6,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_streamed_resume_and_api_on_cuda(cuda, synth_db, tmp_path):
+    """On the card: --resume restores a cut file, and the library API's
+    ``engine="streamed"`` writes the CLI's bytes."""
+    import parfastaai_tpu_torch.api as api
+    from parfastaai_tpu_torch.cli import run
+
+    flags = ["--quiet", "--device", "cuda", "--streamed", "--band", "16",
+             "--col-chunk", "12"]
+    full, cut, lib = (tmp_path / n for n in ("full.csv", "cut.csv", "api.csv"))
+    assert run([synth_db, str(full), *flags]) == 0
+    whole = full.read_bytes()
+    cut.write_bytes(b"\n".join(whole.split(b"\n")[: 1 + 20]) + b"\nsynth")
+    assert run([synth_db, str(cut), *flags, "--resume"]) == 0
+    assert cut.read_bytes() == whole
+    api.aji_to_csv(str(lib), synth_db, engine="streamed", band=16,
+                   col_chunk=12, device="cuda")
+    assert lib.read_bytes() == whole
+
+
+@pytest.mark.cuda
+def test_profile_on_cuda_records_device_events(cuda, synth_db, tmp_path):
+    """--profile on the card: the trace holds kernel events, among them
+    the rectangular kernel's, and the CSV's bytes do not change."""
+    import json
+
+    from parfastaai_tpu_torch.cli import PROFILE_TRACE, run
+
+    base = [synth_db, "--quiet", "--device", "cuda", "--streamed"]
+    plain, got = tmp_path / "plain.csv", tmp_path / "profiled.csv"
+    assert run([base[0], str(plain), *base[1:]]) == 0
+    assert run([base[0], str(got), *base[1:], "--profile",
+                str(tmp_path / "trace")]) == 0
+    assert got.read_bytes() == plain.read_bytes()
+    events = json.loads((tmp_path / "trace" / PROFILE_TRACE).read_text())[
+        "traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("sn_rect" in e["name"] for e in kernels)
