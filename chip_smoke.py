@@ -6,10 +6,12 @@ Run from the repository root:
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (nvcc) and the host library (g++) from the
-   sources in this checkout, checks in the kernels' SASS (cuobjdump) that
-   the tensor-core kernels run on the tensor cores (sn_rect and
-   sn_square_wgmma: IGMMA, the warpgroup product, and asynchronous copies,
-   no __dp4a), and checks each
+   sources in this checkout; fails where ptxas reports a spill in a wgmma
+   kernel, serializes its wgmma or injects a wait into a two-count-set
+   body; checks in the kernels' SASS (cuobjdump) that every tensor-core
+   instantiation that the sources build runs on the tensor cores (sn_rect
+   and sn_square_wgmma, each update: IGMMA, the warpgroup product, and
+   asynchronous copies, no __dp4a; sn_square_mma: HMMA), and checks each
    kernel against its plain PyTorch version on the card, in every divide
    mode:
    * sn_rect at the --fast path's block shape, at ragged shapes (one with
@@ -22,14 +24,17 @@ Run from the repository root:
      through ``fused_aji``'s default plan, one and two proteins per step,
      the full square and the K-blocked plans, with S and N bit-symmetric
      and a K sweep that splits its time into a slope per presence column
-     and an intercept; sn_square (``__dp4a`` in 64 x 64 tiles) through the
-     other walks, packings and updates; both also at ragged, one-tile and
-     one-slice shapes and at a K wider than the TPU package's single-block
-     limit;
-   * the two-proteins-per-step variants ``pipe``, ``mxu_outer`` and
-     ``f32gram`` (sn_square_mma, the counts on the tensor cores) at the
-     benchmark's shape, a ragged G and an odd P, each also bit-equal to
-     the kernel whose values it keeps (``lean`` or ``fused``).
+     and an intercept (``lean`` in every divide mode, ``pipe`` and
+     ``mxu_outer`` under Newton); sn_square (``__dp4a`` in 64 x 64 tiles)
+     through the other walks, packings and the ``fused`` and ``counts``
+     updates; both also at ragged, one-tile and one-slice shapes and at a
+     K wider than the TPU package's single-block limit;
+   * the two-proteins-per-step variants ``pipe`` and ``mxu_outer``
+     (sn_square_wgmma's two-count-set bodies, one launch each) and
+     ``f32gram`` (sn_square_mma, f16 counts on the tensor cores) at the
+     benchmark's shape, a ragged G, an odd P, one kernel slice per protein
+     and one protein, each also bit-equal to the kernel whose values it
+     keeps (``lean`` or ``fused``).
    Kernel and plain times are taken with CUDA events at the main shapes,
    and each kernel's bound (the larger of its bytes over the card's
    memory rate and the MACs its function needs over the int8 tensor-core
@@ -74,8 +79,10 @@ Run from the repository root:
 5. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
-   sn_square_wgmma and no other kernel, and once with each
-   ``PARFASTAAI_BENCH_VARIANT`` above, and in kb mode, echoing their JSON
+   sn_square_wgmma and no other kernel, and once with ``fused`` and each
+   ``PARFASTAAI_BENCH_VARIANT`` above (``pipe`` and ``mxu_outer`` must
+   launch sn_square_wgmma alone, once per ``fused_aji`` call: 81 times),
+   and in kb mode, echoing their JSON
    lines, and checks a band of ``fused_aji`` on the bench's workload
    against exact f64.
 6. Prints the card's name and power limit, one JSON line of kernel results
@@ -138,9 +145,16 @@ SQUARE_DENSITY = 400 / 1280
 SQUARE_SMALL = [("ragged", 3, 300, 256), ("wide_k", 2, 256, 34816),
                 ("one_tile", 3, 77, 256), ("one_slice", 9, 129, 128)]
 # The 2p variants, each with the update whose values it keeps, checked at
-# the bench shape and at these (a ragged G, an odd P).
+# the bench shape and at these (a ragged G, an odd P, one kernel slice per
+# protein, one protein).
 VARIANTS = {"pipe": "lean", "mxu_outer": "fused", "f32gram": "lean"}
-VARIANT_SMALL = [("ragged", 3, 300, 256), ("odd_p", 5, 700, 1280)]
+VARIANT_SMALL = [("ragged", 3, 300, 256), ("odd_p", 5, 700, 1280),
+                 ("one_slice", 9, 129, 128), ("p1", 1, 300, 256)]
+# The variants on sn_square_wgmma's two-count-set bodies.
+WGMMA_VARIANTS = ("pipe", "mxu_outer")
+# fused_aji calls of one kernel-mode bench run at its default knobs: one
+# warm-up, then 5 timed runs of 16 calls (bench.kernel_bench).
+BENCH_CALLS = 1 + 5 * 16
 # The K-blocked plans timed at bench.py's kb shape (P=16, 1024, K=51200).
 SQUARE_KB = (16, 1024, 51200)
 # The bench runs with its default knobs, in kernel mode and in kb mode.
@@ -149,8 +163,8 @@ PALLAS = "parfastaai_tpu/ops/pallas_intersect.py"
 # def lines of the TPU kernels each CUDA kernel replaces
 REPLACES = {
     "sn_rect": (1112, 697),
-    "sn_square": (402, 219, 253, 339, 802, 744, 593, 636, 867, 949, 1035),
-    "sn_square_wgmma": (402, 219, 315, 802, 744, 593, 636),
+    "sn_square": (402, 219, 339, 802, 744, 593, 636, 867, 949, 1035),
+    "sn_square_wgmma": (402, 219, 253, 315, 339, 802, 744, 593, 636),
     "sn_square_mma": (315, 82),
 }
 # Device-memory rate (bytes/s) by a substring of
@@ -424,7 +438,12 @@ def variant_checks(label, m, t_raw, tc) -> dict:
     for variant, like in VARIANTS.items():
         s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc, update=variant)
         for mode, kw in MODES:
+            before = sn_square.WGMMA_LAUNCHES
             _, s, n = sn_square.fused_aji(m, t_raw, variant=variant, **kw)
+            if (variant in WGMMA_VARIANTS
+                    and sn_square.WGMMA_LAUNCHES != before + 1):
+                fail(f"{label}: variant={variant} did not launch "
+                     "sn_square_wgmma once")
             err = check(f"sn_square {label} variant={variant}", s, n, s_ref,
                         n_ref, mode)
             if mode == "newton":
@@ -460,7 +479,9 @@ def square_phase(dev) -> dict:
     s_f, n_f = sn_square.fused_sn_square_plain(m, tc, update="fused")
     for mode, kw in MODES:
         _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", **kw)
-        check(f"sn_square {label} variant=fused", s, n, s_f, n_f, mode)
+        err = check(f"sn_square {label} variant=fused", s, n, s_f, n_f, mode)
+        if mode == "newton":
+            fused_err = err
     s_c, n_c = sn_square.fused_sn_square_plain(m, tc, update="counts")
     _, s, n = sn_square.fused_aji(m, t_raw, variant="counts")
     check(f"sn_square {label} variant=counts", s, n, s_c, n_c, "precise")
@@ -519,17 +540,22 @@ def square_phase(dev) -> dict:
     del m, mp, t_raw, tc, s_ref, n_ref
     torch.cuda.empty_cache()
 
-    # K sweep of the wgmma kernel at the bench shape's P and G
+    # K sweep of the wgmma kernel at the bench shape's P and G: lean in
+    # every divide mode, the two-count-set bodies under Newton
     sweep = {}
     for Ks in K_SWEEP:
         m, _, tc = random_square(gen, dev, P, G, Ks, SQUARE_DENSITY)
         sweep[Ks] = {mode: cuda_ms(lambda: sq(m, tc, **kw), 5)
                      for mode, kw in MODES}
+        for v in WGMMA_VARIANTS:
+            sweep[Ks][v] = cuda_ms(
+                lambda: sq(m, tc, pairs_per_step=2, update=v), 5)
         del m, tc
         torch.cuda.empty_cache()
-    for mode, _ in MODES:
-        print_sweep(f"sn_square_wgmma K sweep P={P} G={G} triu {mode}",
-                    [sweep[Ks][mode] for Ks in K_SWEEP])
+    for key in (*(mode for mode, _ in MODES), *WGMMA_VARIANTS):
+        what = f"lean {key}" if key in dict(MODES) else f"{key} newton"
+        print_sweep(f"sn_square_wgmma K sweep P={P} G={G} triu {what}",
+                    [sweep[Ks][key] for Ks in K_SWEEP])
 
     for label, P, G, K in SQUARE_SMALL:
         m, t_raw, tc = random_square(gen, dev, P, G, K, 0.33)
@@ -567,14 +593,17 @@ def square_phase(dev) -> dict:
           f"of the symmetric square; the tiles execute {wgmma_macs:.4e} MACs "
           f"(128 x 128) and {plan64['mxu_macs']:.4e} MACs (64 x 64)")
     return {
+        # the default plan (lean), and each two-count-set body beside it
         "sn_square_wgmma": {
             "max_abs_err": errs["newton"],
             "ms": times["wgmma triu, 2 proteins/step (fused_aji default)"],
-            "plain_ms": times["plain"], **b},
+            "plain_ms": times["plain"], **b,
+            "variants": {v: {"max_abs_err": variant_errs[v],
+                             "ms": times[v], "plain_ms": times[f"{v} plain"],
+                             **b} for v in WGMMA_VARIANTS}},
         # a route that still runs on the __dp4a kernel
-        "sn_square": {"max_abs_err": variant_errs["pipe"],
-                      "ms": times["pipe"], "plain_ms": times["pipe plain"],
-                      **b},
+        "sn_square": {"max_abs_err": fused_err, "ms": times["fused"],
+                      "plain_ms": times["fused plain"], **b},
         "sn_square_mma": {"max_abs_err": variant_errs["f32gram"],
                           "ms": times["f32gram"],
                           "plain_ms": times["f32gram plain"], **b},
@@ -627,12 +656,21 @@ def bench_phase(dev) -> dict:
 
     launches = {"sn_square_wgmma": run({}, "sn_square_wgmma", "")[
         "sn_square_wgmma"]}
-    for variant in VARIANTS:
-        name = "sn_square_mma" if variant == "f32gram" else "sn_square"
+    variant_launches = {}
+    for variant in ("fused", *VARIANTS):
+        name = ("sn_square_mma" if variant == "f32gram"
+                else "sn_square_wgmma" if variant in WGMMA_VARIANTS
+                else "sn_square")
         ran = run({"PARFASTAAI_BENCH_VARIANT": variant}, name,
                   f" variant={variant}")[name]
-        # sn_square is reported on its 'pipe' route, as square_phase times it
-        if variant != "mxu_outer":
+        if variant in WGMMA_VARIANTS:
+            if ran != BENCH_CALLS:
+                fail(f"the bench variant={variant} launched sn_square_wgmma "
+                     f"{ran} times, not {BENCH_CALLS}")
+            variant_launches[variant] = ran
+        else:
+            # sn_square is reported on its 'fused' route, as square_phase
+            # times it
             launches[name] = ran
     t0 = time.perf_counter()
     sn_rect.LAUNCHES = 0
@@ -656,7 +694,7 @@ def bench_phase(dev) -> dict:
     err = np.nanmax(np.abs(got - want) / np.abs(want))
     print(f"bench workload band: rows 0..{R - 1} x {m.shape[1]} columns, N "
           f"exact, AJI max rel err {err:.3e} (rtol {RTOL_E2E_AJI}) ok")
-    return launches
+    return launches, variant_launches
 
 
 def synth_db(n_genomes: int | None = None) -> str:
@@ -1147,10 +1185,11 @@ def host_library_phase() -> None:
 def sass_phase() -> None:
     """From the toolkit's cuobjdump on the built library: integer warpgroup
     products (IGMMA) and asynchronous copies (LDGSTS) and no __dp4a (IDP)
-    in every sn_rect and sn_square_wgmma kernel; HMMA in the f32gram kernel
-    (sn_square_mma) and in sn_square's mxu_outer instantiations, and no IDP
-    in the f32gram kernel."""
-    from parfastaai_tpu_torch.ops import _build
+    in every sn_rect and sn_square_wgmma kernel (every divide mode and, for
+    the square, every update: lean, pipe, pair); HMMA and no IDP in the
+    f32gram kernel (sn_square_mma).  Fails unless every instantiation that
+    the sources build was found and passed."""
+    from parfastaai_tpu_torch.ops import _build, sn_square
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([tool, "-sass", _build.build()],
@@ -1164,14 +1203,17 @@ def sass_phase() -> None:
             funcs[name] = []
         elif name is not None:
             funcs[name].append(line)
-    checked = 0
+    checked, found = 0, set()
     for name, body in funcs.items():
         sass = "\n".join(body)
         hmma = len(re.findall(r"\bHMMA\b", sass))
         idp = len(re.findall(r"\bIDP\b", sass))
-        args = re.search(r"sn_square_kernelI((?:L[ib]\d+E)+)E", name)
         wgmma = next((k for k in ("sn_rect", "sn_square_wgmma")
                       if f"{k}_kernel" in name), None)
+        targs = re.search(r"_kernelI((?:Li\d+E)+)E", name)
+        if targs and (wgmma or "sn_square_mma_kernel" in name):
+            found.add((wgmma or "sn_square_mma",
+                       *re.findall(r"Li(\d+)E", targs.group(1))))
         if wgmma:
             igmma = len(re.findall(r"\bIGMMA\b", sass))
             ldgsts = len(re.findall(r"\bLDGSTS\b", sass))
@@ -1183,22 +1225,24 @@ def sass_phase() -> None:
                 fail(f"SASS of {name}: {igmma} IGMMA, {ldgsts} LDGSTS and "
                      f"{idp} IDP instructions")
             continue
-        if "sn_square_mma_kernel" in name:
-            label = "f32gram (sn_square_mma)"
-            ok = hmma > 0 and idp == 0
-        elif args and re.findall(r"L[ib](\d+)E", args.group(1))[3] == "4":
-            label = "sn_square mxu_outer"
-            ok = hmma > 0
-        else:
+        if "sn_square_mma_kernel" not in name:
             continue
+        ok = hmma > 0 and idp == 0
         checked += 1
-        print(f"SASS {label} {name}: {hmma} HMMA, {idp} IDP "
+        print(f"SASS f32gram (sn_square_mma) {name}: {hmma} HMMA, {idp} IDP "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"SASS of {name}: {hmma} HMMA and {idp} IDP instructions")
-    # 3 divide modes x (sn_rect, sn_square_wgmma, f32gram, mxu_outer)
-    if checked != 12:
-        fail(f"SASS: found {checked} of the 12 tensor-core kernels")
+    # what the sources build: sn_rect and sn_square_mma per divide mode,
+    # sn_square_wgmma per divide mode and update
+    modes = [str(i) for i in range(len(MODES))]
+    updates = sorted({str(v) for v in sn_square._WGMMA_UPDATES.values()})
+    built = {("sn_rect", m) for m in modes} | {
+        ("sn_square_mma", m) for m in modes} | {
+        ("sn_square_wgmma", m, u) for m in modes for u in updates}
+    if found != built or checked != len(built):
+        fail(f"SASS: checked {checked} tensor-core kernels, found "
+             f"{sorted(found)}, the sources build {sorted(built)}")
 
 
 def main() -> None:
@@ -1228,6 +1272,18 @@ def main() -> None:
             if (("sn_rect" in entry_name or "sn_square_wgmma" in entry_name)
                     and re.search(r"[1-9]\d* bytes spill", line)):
                 fail(f"ptxas spills registers in {entry_name}")
+        # ptxas serializes every wgmma of a kernel whose accumulators are
+        # read while products may be in flight (C7514)
+        if "wgmma.mma_async instructions are serialized" in line:
+            fail(f"ptxas: {line.strip()}")
+        # and a wait it injects into a two-count-set body (sn_square_wgmma
+        # update 1 or 2) makes kPipe's epilogue wait for its own slice's
+        # products
+        injected = re.search(r"warpgroup\.wait is injected.*function '(\w+)'",
+                             line)
+        if injected and re.search(r"sn_square_wgmma_kernelILi\dELi[12]E",
+                                  injected.group(1)):
+            fail(f"ptxas: {line.strip()}")
 
     host_library_phase()
     sass_phase()
@@ -1236,7 +1292,7 @@ def main() -> None:
     e2e = e2e_phase(dev)
     streamed_launches = streamed_phase(dev, e2e["band"])
     exact_phase(e2e["band"])
-    whole = bench_phase(dev)
+    whole, whole_variants = bench_phase(dev)
     # every entry module of the port is loaded by now, the library API too
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
@@ -1255,11 +1311,14 @@ def main() -> None:
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")],
                     **kern[("main", "bound")]},
-        # sn_square: its 'pipe' route throughout (the bench run with that
-        # variant, its error and its times)
+        # sn_square: its 'fused' route throughout (the bench run with that
+        # variant, its error and its times); sn_square_wgmma: the default
+        # plan's, with 'pipe' and 'mxu_outer' (their bench runs) beside it
         **{name: {"launches": whole[name], **square[name]}
            for name in ("sn_square", "sn_square_mma", "sn_square_wgmma")},
     }
+    for v, entry in results["sn_square_wgmma"]["variants"].items():
+        entry["launches"] = whole_variants[v]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

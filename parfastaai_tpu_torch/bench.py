@@ -10,8 +10,9 @@ mfu, device_kind).
 Kernel mode times ``ops.sn_square.fused_aji`` (the default plan: the
 upper-triangle tiles of 128 x 128 with the mirror written, on the int8
 ``wgmma`` kernel csrc/sn_square_wgmma.cu, whose protein loop has no
-steps; a variant other than lean / base runs its own 64 x 64 kernel with
-two proteins per step) on bench.py's workload: P=80 proteins, G=4096
+steps; ``pipe`` and ``mxu_outer`` run the same kernel's two-count-set
+bodies, the other variants a 64 x 64 kernel with two proteins per step) on
+bench.py's workload: P=80 proteins, G=4096
 genomes, a compacted presence width of 1280 with each genome holding ~400
 tetramers per protein, drawn from ``np.random.default_rng(0)`` exactly as
 bench.py draws it.  ``value`` is genome pairs (G(G-1)/2) per second.  kb

@@ -9,17 +9,16 @@
 //     N  += min(cnt, 1)                       (int32)
 //
 // and differ only in which output tiles they walk and how.  The tile-list
-// walks of unpacked presence with the `lean` / `base` update (the default
-// plans of the whole-matrix path) run csrc/sn_square_wgmma.cu, on the int8
-// tensor cores; this kernel keeps the other updates, nibble-packed input and
+// walks of unpacked presence with the `lean` / `base`, `pipe` and
+// `mxu_outer` updates run csrc/sn_square_wgmma.cu, on the int8 tensor cores;
+// this kernel keeps the `fused` and `counts` updates, nibble-packed input and
 // the diagonal and band walks, and its `lean` instantiations serve those
 // walks:
 //   `_pallas_sn_sym_2p`      triu tiles, two proteins per step (kPP = 2),
 //                            with the `lean`/`base` (`_sym_kernel_2p_lean`),
-//                            `pipe` (`_sym_kernel_2p_pipe`), `fused` and
-//                            `mxu_outer` (`_sym_kernel_2p_fused`) and
-//                            `counts` updates (kUpdate); its `f32gram` body
-//                            is csrc/sn_square_mma.cu;
+//                            `fused` (`_sym_kernel_2p_fused`) and `counts`
+//                            updates (kUpdate); its `f32gram` body is
+//                            csrc/sn_square_mma.cu;
 //   `_pallas_sn_sym`         triu tiles, one protein per step, optionally
 //                            nibble-packed input (kPacked);
 //   `_pallas_sn`             every tile of the square;
@@ -51,20 +50,6 @@
 //     so the output is bit-identical to kPP = 1.  `fused` adds the pair's
 //     terms first (s += j0 + j1), `counts` only converts and adds the counts
 //     (the machinery ceiling without the transform; N stays 0).
-//   * `pipe` transforms step p's counts after step p + 1's count loop (the
-//     last step's after the protein loop), in ascending protein order, so it
-//     is bit-identical to `lean`.  The TPU carried the counts in VMEM across
-//     grid steps; here each thread owns its cells, so the carry is a second
-//     register tile, cnt_prev.
-//   * `mxu_outer` is `fused` with each protein's 64 x 64 outer sum
-//     ta[i] + tb[j] built on the tensor cores (mma.sync m16n8k8 TF32) into
-//     shared memory, one protein at a time, and read back in the thread's
-//     4 x 4 layout.  TF32 keeps 11 significant bits and T reaches 160000, so T
-//     is split into hi (its top 11 bits) + lo (the rest, at most 11 bits for
-//     an integer T < 2^22) and the product is rank 4:
-//     [ta_hi, ta_lo, 1, 1] . [1, 1, tb_hi, tb_lo].  Every product is exact
-//     and every partial sum an integer < 2^24, so the tile equals ta + tb
-//     and the result is bit-identical to `fused`.
 //   * kPacked: each input byte holds two presence columns as nibbles (column
 //     2j low, 2j+1 high); two __dp4a over the masked nibbles count exactly.
 //   * The Jaccard transform uses explicit round-to-nearest intrinsics, so
@@ -78,8 +63,9 @@
 // feed it: on an H100 80GB HBM3 at 700 W the packed input, with half the
 // loads and more integer work, ran 13% faster than the unpacked one.  The
 // triu walk halves the work of the full square.  The counts on the tensor
-// cores are csrc/sn_square_wgmma.cu (int8 wgmma, for the default plans) and
-// csrc/sn_square_mma.cu (f16 mma.sync, the `f32gram` update).
+// cores are csrc/sn_square_wgmma.cu (int8 wgmma: the default plans, `pipe`
+// and `mxu_outer`) and csrc/sn_square_mma.cu (f16 mma.sync, the `f32gram`
+// update).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,11 +88,6 @@ constexpr int kWalkBand = 2;  // (r, r + q)
 constexpr int kLean = 0;
 constexpr int kCounts = 1;
 constexpr int kFused = 2;
-constexpr int kPipe = 3;
-constexpr int kMxuOuter = 4;
-// Row stride (floats) of mxu_outer's shared outer-sum tile: 8 floats of
-// padding keep the fragment stores free of bank conflicts.
-constexpr int kOuterLd = kTile + 8;
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
@@ -114,23 +95,18 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return r;
 }
 
-// One Jaccard term of count c and outer sum ta + tb.  mode: 0 =
-// Newton-refined reciprocal, 1 = raw approximate reciprocal, 2 = IEEE
-// divide (the plain version's op order).
+// One Jaccard term of count c.  mode: 0 = Newton-refined reciprocal, 1 =
+// raw approximate reciprocal, 2 = IEEE divide (the plain version's op
+// order).
 template <int kMode>
-__device__ __forceinline__ float jaccard_outer(int c, float outer) {
+__device__ __forceinline__ float jaccard(int c, float ta, float tb) {
   const float cf = __int2float_rn(c);
-  const float d = __fsub_rn(outer, cf);  // >= 1; cnt == 0 gives j == 0
+  const float d = __fsub_rn(__fadd_rn(ta, tb), cf);  // >= 1; cnt == 0 gives 0
   if (kMode == 2) return __fdiv_rn(cf, d);
   if (kMode == 1) return __fmul_rn(cf, rcp_approx(d));
   float r = rcp_approx(d);
   r = __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(d, r)));
   return __fmul_rn(cf, r);
-}
-
-template <int kMode>
-__device__ __forceinline__ float jaccard(int c, float ta, float tb) {
-  return jaccard_outer<kMode>(c, __fadd_rn(ta, tb));
 }
 
 // T of the step's proteins at the thread's rows and columns; 1 where the
@@ -181,95 +157,6 @@ __device__ __forceinline__ void lean_update(const int (&cnt)[kPP][kReg][kReg],
   }
 }
 
-// Top 11 significant bits of x (TF32's precision); x - tf32_hi(x) is exact.
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
-}
-
-// One protein's 64 x 64 outer sum ta[r] + tb[c] on the tensor cores into
-// outer (row stride kOuterLd), T from t + base (1 past G or when !live).
-// Warp w computes rows 16 (w / 2) .. +15 and columns 32 (w % 2) .. +31 as
-// four m16n8k8 TF32 products of A = [ta_hi, ta_lo, 1, 1, 0, 0, 0, 0] per
-// row and B = [1, 1, tb_hi, tb_lo, 0, 0, 0, 0] per column.
-__device__ __forceinline__ void outer_tile_mma(float* outer,
-                                               const float* __restrict__ t,
-                                               size_t base, bool live,
-                                               int row0, int col0, int G) {
-  const int warp = threadIdx.x / 32;
-  const int g = threadIdx.x % 32 / 4;  // mma group: fragment row / column
-  const int tig = threadIdx.x % 4;     // thread in group: the k index
-  const int wr = warp / 2 * 16;
-  const int wc = warp % 2 * 32;
-  // A fragment: a0 = (row g, k tig), a1 = (row g + 8, k tig), a2 and a3
-  // (k tig + 4) are zero.
-  uint32_t a[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + wr + g + 8 * h;
-    const float ta = live && r < G ? t[base + r] : 1.0f;
-    const float hi = tf32_hi(ta);
-    a[h] = __float_as_uint(tig == 0 ? hi
-                           : tig == 1 ? __fsub_rn(ta, hi)
-                                      : 1.0f);
-  }
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    // B fragment: b0 = (k tig, column g), b1 (k tig + 4) is zero.
-    const int c = col0 + wc + 8 * f + g;
-    const float tb = live && c < G ? t[base + c] : 1.0f;
-    const float hi = tf32_hi(tb);
-    const uint32_t b0 = __float_as_uint(tig < 2 ? 1.0f
-                                        : tig == 2 ? hi
-                                                   : __fsub_rn(tb, hi));
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(0u));
-    // D fragment: d0, d1 = (row g, columns 2 tig, 2 tig + 1); d2, d3 the
-    // same columns of row g + 8.
-    float* o = outer + (wr + g) * kOuterLd + wc + 8 * f + 2 * tig;
-    *reinterpret_cast<float2*>(o) = make_float2(d[0], d[1]);
-    *reinterpret_cast<float2*>(o + 8 * kOuterLd) = make_float2(d[2], d[3]);
-  }
-}
-
-// The `mxu_outer` epilogue of the step starting at protein p0: `fused`'s
-// pairing with each protein's outer sum from outer_tile_mma.
-template <int kMode>
-__device__ __forceinline__ void mxu_outer_update(
-    const int (&cnt)[2][kReg][kReg], float (&s)[kReg][kReg],
-    int (&n)[kReg][kReg], float* outer, const float* __restrict__ t, int p0,
-    int P, int G, int row0, int col0) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float j0[kReg][kReg];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    __syncthreads();  // every thread has read the previous tile
-    outer_tile_mma(outer, t, (size_t)(p0 + k) * G, p0 + k < P, row0, col0,
-                   G);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kReg; ++i) {
-      const float4 o4 = *reinterpret_cast<const float4*>(
-          &outer[(ty * kReg + i) * kOuterLd + tx * kReg]);
-      const float ov[kReg] = {o4.x, o4.y, o4.z, o4.w};
-#pragma unroll
-      for (int j = 0; j < kReg; ++j) {
-        const float jv = jaccard_outer<kMode>(cnt[k][i][j], ov[j]);
-        if (k == 0) {
-          j0[i][j] = jv;
-        } else {
-          s[i][j] = __fadd_rn(s[i][j], __fadd_rn(j0[i][j], jv));
-          n[i][j] += min(cnt[0][i][j], 1) + min(cnt[1][i][j], 1);
-        }
-      }
-    }
-  }
-}
-
 template <int kMode, int kPP, bool kPacked, int kUpdate>
 __global__ void __launch_bounds__(kThreads)
 sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
@@ -280,9 +167,6 @@ sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
   // r of the step's k-th protein.
   __shared__ __align__(16) uint32_t a_s[kPP][kSliceWords][kTile];
   __shared__ __align__(16) uint32_t b_s[kPP][kSliceWords][kTile];
-  // mxu_outer's outer-sum tile of one protein.
-  __shared__ __align__(16)
-      float outer_s[kUpdate == kMxuOuter ? kTile * kOuterLd : 4];
 
   const int q = blockIdx.x;
   int rt, ct;
@@ -321,8 +205,6 @@ sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
 
   float s[kReg][kReg];
   int n[kReg][kReg];
-  // pipe: the previous step's counts, transformed after this step's.
-  [[maybe_unused]] int cnt_prev[kUpdate == kPipe ? kPP : 1][kReg][kReg];
 #pragma unroll
   for (int i = 0; i < kReg; ++i) {
 #pragma unroll
@@ -420,20 +302,6 @@ sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
     // ascending protein order.
     if constexpr (kUpdate == kLean) {
       lean_update<kMode, kPP>(cnt, s, n, t, p0, P, G, row0, col0);
-    } else if constexpr (kUpdate == kPipe) {
-      if (p0 > 0)
-        lean_update<kMode, kPP>(cnt_prev, s, n, t, p0 - kPP, P, G, row0,
-                                col0);
-#pragma unroll
-      for (int k = 0; k < kPP; ++k) {
-#pragma unroll
-        for (int i = 0; i < kReg; ++i) {
-#pragma unroll
-          for (int j = 0; j < kReg; ++j) cnt_prev[k][i][j] = cnt[k][i][j];
-        }
-      }
-    } else if constexpr (kUpdate == kMxuOuter) {
-      mxu_outer_update<kMode>(cnt, s, n, outer_s, t, p0, P, G, row0, col0);
     } else if constexpr (kUpdate == kCounts) {
 #pragma unroll
       for (int i = 0; i < kReg; ++i) {
@@ -458,12 +326,6 @@ sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
         }
       }
     }
-  }
-  // pipe: the last step's counts.
-  if constexpr (kUpdate == kPipe) {
-    if (P > 0)
-      lean_update<kMode, kPP>(cnt_prev, s, n, t, (P - 1) / kPP * kPP, P, G,
-                              row0, col0);
   }
 
 #pragma unroll
@@ -511,9 +373,8 @@ extern "C" {
 // tiles is the int32 (n_blocks, 2) tile list of walk 0 (unused otherwise).
 // The launch writes s (G, G) f32 and n (G, G) int32 at every cell of the
 // tiles it walks and, where it mirrors, of their transposes.
-// pp is 1 or 2; packed needs pp == 1; update (0 lean, 1 counts, 2 fused,
-// 3 pipe, 4 mxu_outer) other than lean needs pp == 2, and counts ignores
-// mode.
+// pp is 1 or 2; packed needs pp == 1; update (0 lean, 1 counts, 2 fused)
+// other than lean needs pp == 2, and counts ignores mode.
 int sn_square_launch(const void* m, const void* t, const void* tiles,
                      void* s, void* n, int P, int G, int K, int n_blocks,
                      int walk, int walk_arg, int mirror, int mode, int pp,
@@ -541,12 +402,6 @@ int sn_square_launch(const void* m, const void* t, const void* tiles,
   } else if (pp == 2 && !packed && update == kFused) {
     launch<2, false, kFused>(mode, grid, st, mp, tp, tl, so, no, P, G, K,
                              walk, walk_arg, mirror);
-  } else if (pp == 2 && !packed && update == kPipe) {
-    launch<2, false, kPipe>(mode, grid, st, mp, tp, tl, so, no, P, G, K, walk,
-                            walk_arg, mirror);
-  } else if (pp == 2 && !packed && update == kMxuOuter) {
-    launch<2, false, kMxuOuter>(mode, grid, st, mp, tp, tl, so, no, P, G, K,
-                                walk, walk_arg, mirror);
   } else if (pp == 2 && !packed && update == kCounts) {
     // counts never divides: one instantiation serves every mode
     launch<2, false, kCounts>(0, grid, st, mp, tp, tl, so, no, P, G, K, walk,

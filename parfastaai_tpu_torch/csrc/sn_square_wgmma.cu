@@ -1,19 +1,20 @@
 // Square all-vs-all fused (S, N) on the int8 tensor cores of Hopper (sm_90a).
 //
-// Replaces, for unpacked presence and the `lean` / `base` update, the square
-// TPU kernels of parfastaai_tpu/ops/pallas_intersect.py: `_pallas_sn_sym_2p`
-// (bodies `_sym_kernel_2p_lean`, `_sym_kernel_2p`), `_pallas_sn_sym`,
-// `_pallas_sn` and their K-blocked twins `_pallas_sn_sym_kb` and
-// `_pallas_sn_kb`.  For one presence tensor M (P, G, K) against itself it
-// computes, per protein p in ascending order,
+// Replaces, for unpacked presence, the square TPU kernels of
+// parfastaai_tpu/ops/pallas_intersect.py: `_pallas_sn_sym_2p` with its
+// `lean` / `base` (`_sym_kernel_2p_lean`, `_sym_kernel_2p`), `pipe`
+// (`_sym_kernel_2p_pipe`) and `mxu_outer` (`_sym_kernel_2p_fused` with
+// mxu_outer=True) bodies, `_pallas_sn_sym`, `_pallas_sn` and their K-blocked
+// twins `_pallas_sn_sym_kb` and `_pallas_sn_kb`.  For one presence tensor M
+// (P, G, K) against itself it computes, per protein p in ascending order,
 //
 //     cnt = M_p . M_p^T                       (0/1 bytes, int32 counts)
 //     S  += cnt / (t_p[i] + t_p[j] - cnt)     (f32, T pre-clamped >= 1)
 //     N  += min(cnt, 1)                       (int32)
 //
 // over the 128 x 128 output tiles of a list, and writes S and N once.  The
-// other updates, nibble-packed input and the diagonal and band walks stay on
-// the __dp4a body of csrc/sn_square.cu.
+// `fused` and `counts` updates, nibble-packed input and the diagonal and band
+// walks stay on the __dp4a body of csrc/sn_square.cu.
 //
 // Design: the block body that csrc/sn_rect.cu runs (sn_wgmma_tile of
 // csrc/sn_wgmma.cuh) with both operands taken from M.
@@ -41,22 +42,36 @@
 //   * The Jaccard transform is an epilogue on the accumulator registers, in
 //     round-to-nearest intrinsics: mode 2 (precise) is bit-identical to the
 //     IEEE f32 plain version.
+//   * The update (kUpdate, csrc/sn_wgmma.cuh) says when it runs.  `lean`
+//     (kLean) transforms each protein in place after its last products; the
+//     protein loop runs inside the block over one flat ring, so two proteins
+//     per step is the same launch.  `pipe` (kPipe) keeps a second count set
+//     and transforms protein p under protein p + 1's products: the TPU
+//     carried the counts through a 2 MB VMEM scratch each step and lost 21%;
+//     here the carry is registers and wgmma is asynchronous.  Each cell adds
+//     its terms in ascending protein order, so `pipe` is bit-equal to `lean`.
+//     `mxu_outer` (kPair) counts two proteins into the two sets and adds
+//     j0 + j1 in one epilogue, bit-equal to csrc/sn_square.cu's `fused`.  Its
+//     TPU body built the outer sums ta[i] + tb[j] on the MXU to spare VPU
+//     broadcasts, and measured 1.7x slower even there
+//     (pallas_intersect.py's _pallas_sn_sym_2p notes); here ta + tb is the
+//     one __fadd_rn a cell that the Jaccard term already issues, and a
+//     tensor-core outer sum (the TF32 rank-4 product this kernel's
+//     predecessor used) would need a third 64-register set.  The two-set
+//     updates hold N in 16-bit halves, so they take P < kMaxPackedP (the
+//     header's "Registers" note says why).
 //   * The mirror is written in the last epilogue: with `mirror`, an
 //     off-diagonal tile (r, c) also stores its transpose at (c, r).  Counts
 //     are symmetric and ta + tb commutes, so that is bit-equal to computing
 //     (c, r).  A quad of lanes writes 32 consecutive bytes of a row directly;
 //     the eight lanes of equal tig write 32 consecutive bytes of a mirrored
 //     row: whole sectors both ways.
-//   * Two proteins per step, the TPU kernel's answer to the cost of a grid
-//     step, have no counterpart: the protein loop runs inside the block over
-//     one flat ring, and a thread cannot hold two proteins' counts beside S
-//     and N.  `lean` with two proteins per step is bit-identical to one, so
-//     both are this launch.
 //   * No atomics and no split over K or P across blocks: S sums in the plain
 //     version's order and the result is deterministic.
 //
-// What bounds it on the H100: see PERF.md (chip_smoke.py's K sweep); as for
-// sn_rect.cu, the feed from L2 and the epilogue, not the tensor cores.
+// What bounds it on the H100: see PERF.md (chip_smoke.py's K sweep,
+// tools/sn_square_ablation.py); as for sn_rect.cu, the feed from L2 and the
+// epilogue, not the tensor cores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,7 +109,7 @@ struct SquareSrc {
   }
 };
 
-template <int kMode>
+template <int kMode, int kUpdate>
 __global__ void __launch_bounds__(kThreads, 1)
 sn_square_wgmma_kernel(const uint8_t* __restrict__ m,
                        const float* __restrict__ t,
@@ -107,7 +122,8 @@ sn_square_wgmma_kernel(const uint8_t* __restrict__ m,
   const int col0 = ct * kTile;
   float s[4 * kNT];
   int n[4 * kNT];
-  sn_wgmma_tile<kMode>(SquareSrc{m, t, G, K, row0, col0}, P, K, s, n);
+  sn_wgmma_tile<kMode, kUpdate>(SquareSrc{m, t, G, K, row0, col0}, P, K, s,
+                                n);
 
   const int tid = threadIdx.x;
   const int r0 = row0 + tid / 128 * 64 + tid % 128 / 32 * 16 + tid % 32 / 4;
@@ -133,17 +149,38 @@ sn_square_wgmma_kernel(const uint8_t* __restrict__ m,
 
 // ---- host launch ---------------------------------------------------------
 
-template <int kMode>
+template <int kMode, int kUpdate>
 cudaError_t launch(const uint8_t* m, const float* t, const int32_t* tiles,
                    float* so, int32_t* no, int P, int G, int K, int n_blocks,
                    int mirror, cudaStream_t st) {
   static bool allowed[64] = {};
-  const cudaError_t err = allow_ring(sn_square_wgmma_kernel<kMode>, allowed);
+  const cudaError_t err = allow_ring(sn_square_wgmma_kernel<kMode, kUpdate>,
+                                     allowed, smem_bytes(kUpdate));
   if (err != cudaSuccess) return err;
-  sn_square_wgmma_kernel<kMode>
-      <<<(unsigned)n_blocks, kThreads, kSmemBytes, st>>>(
+  sn_square_wgmma_kernel<kMode, kUpdate>
+      <<<(unsigned)n_blocks, kThreads, smem_bytes(kUpdate), st>>>(
           m, t, tiles, so, no, P, G, K, mirror);
   return cudaGetLastError();
+}
+
+template <int kUpdate>
+cudaError_t launch_update(int mode, const uint8_t* m, const float* t,
+                          const int32_t* tiles, float* so, int32_t* no, int P,
+                          int G, int K, int n_blocks, int mirror,
+                          cudaStream_t st) {
+  switch (mode) {
+    case 0:
+      return launch<0, kUpdate>(m, t, tiles, so, no, P, G, K, n_blocks,
+                                mirror, st);
+    case 1:
+      return launch<1, kUpdate>(m, t, tiles, so, no, P, G, K, n_blocks,
+                                mirror, st);
+    case 2:
+      return launch<2, kUpdate>(m, t, tiles, so, no, P, G, K, n_blocks,
+                                mirror, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -156,12 +193,15 @@ extern "C" {
 // of (row tile, column tile) in units of 128 rows.  The launch writes
 // s (G, G) f32 and n (G, G) int32 at every cell of the tiles it walks and,
 // with mirror, of the transposes of the off-diagonal ones.  mode: 0 Newton,
-// 1 approximate reciprocal, 2 IEEE divide.
+// 1 approximate reciprocal, 2 IEEE divide.  update: 0 lean, 1 pipe, 2 pair
+// (the `mxu_outer` values); 1 and 2 need P < 32768.
 int sn_square_wgmma_launch(const void* m, const void* t, const void* tiles,
                            void* s, void* n, int P, int G, int K,
-                           int n_blocks, int mirror, int mode, void* stream) {
+                           int n_blocks, int mirror, int mode, int update,
+                           void* stream) {
   if (P <= 0 || G <= 0 || K <= 0 || n_blocks <= 0 || K % kSliceBytes ||
-      (long long)P * (K / kSliceBytes) > 0x7fffffffLL)
+      (long long)P * (K / kSliceBytes) > 0x7fffffffLL ||
+      (update != kLean && P >= kMaxPackedP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* mp = static_cast<const uint8_t*>(m);
@@ -169,13 +209,16 @@ int sn_square_wgmma_launch(const void* m, const void* t, const void* tiles,
   const int32_t* tl = static_cast<const int32_t*>(tiles);
   float* so = static_cast<float*>(s);
   int32_t* no = static_cast<int32_t*>(n);
-  switch (mode) {
-    case 0:
-      return (int)launch<0>(mp, tp, tl, so, no, P, G, K, n_blocks, mirror, st);
-    case 1:
-      return (int)launch<1>(mp, tp, tl, so, no, P, G, K, n_blocks, mirror, st);
-    case 2:
-      return (int)launch<2>(mp, tp, tl, so, no, P, G, K, n_blocks, mirror, st);
+  switch (update) {
+    case kLean:
+      return (int)launch_update<kLean>(mode, mp, tp, tl, so, no, P, G, K,
+                                       n_blocks, mirror, st);
+    case kPipe:
+      return (int)launch_update<kPipe>(mode, mp, tp, tl, so, no, P, G, K,
+                                       n_blocks, mirror, st);
+    case kPair:
+      return (int)launch_update<kPair>(mode, mp, tp, tl, so, no, P, G, K,
+                                       n_blocks, mirror, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,9 +2,10 @@
 // the PTX wrappers of the asynchronous copies and of the int8 warpgroup
 // product, the shared-memory matrix descriptor of the staged layout, the
 // Jaccard term, and the body of a block: S and N of one 128 x 128 output
-// tile, from a ring of staged K slices to the accumulator registers.  The
-// kernels differ in where the staged rows come from and in how the tile is
-// stored.  All in an unnamed namespace.
+// tile, from a ring of staged K slices to the accumulator registers, with
+// one of three updates (kLean, kPipe, kPair: when and in what order the
+// counts become S and N).  The kernels differ in where the staged rows come
+// from and in how the tile is stored.  All in an unnamed namespace.
 //
 // The staged layout: a tile is K-major, a slice of 128 bytes of K a row; row
 // r lies at byte 128 r and its 16-byte chunk c at chunk c ^ (r % 8) of that
@@ -17,6 +18,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -151,13 +154,130 @@ constexpr int kTileBytes = kRows * kSliceBytes;
 constexpr int kSmemBytes = kStages * (kTileBytes + kRows * 4) + 1024;
 constexpr int kNT = kTile / 8;    // n8 column groups of the accumulator
 static_assert(kRows == kThreads, "one T value a thread");
+// The two-set updates keep N beside the ring, two 16-bit halves a word.
+constexpr int kNWordBytes = kTile * kTile * 2;
+
+// Updates of the body: how each protein's counts reach S and N.
+//   kLean  one count set: a protein's terms are added in place, after a wait
+//          for its last products (the TPU's `lean` / `base` bodies).
+//   kPipe  two count sets, the proteins alternating between them: protein
+//          p's terms are added under protein p + 1's products, one piece of
+//          the columns between the issue and the wait of each of p + 1's
+//          first kPipePieces slices, the pieces left with its last slice
+//          when it has fewer; the last protein's after the loop
+//          (`_sym_kernel_2p_pipe`).  Each cell still adds its terms in
+//          ascending protein order, so kPipe is bit-equal to kLean.
+//   kPair  two count sets, proteins 2k and 2k + 1, the first one's last
+//          products in flight under the second's; then one epilogue adds
+//          s += j0 + j1 and n += min(c0, 1) + min(c1, 1), the order of the
+//          plain `fused` update (`_sym_kernel_2p_fused`).  An odd last
+//          protein's partner is a zero protein, whose term adds exactly 0,
+//          so it takes kLean's s += j0.
+//
+// Registers.  A thread owns 64 cells of its warpgroup's 64 x 128 piece: 64
+// s32 counts, 64 f32 S and 64 s32 N are 192 of the 255 registers it may
+// have (sn_rect compiles to 248-255).  A second count set would make 256 of
+// state.  The two-set updates hold N as two 16-bit halves a word (N <= P <
+// kMaxPackedP), and keep those 32 words a thread in shared memory beside the
+// ring (kNWordBytes, 32 KB: 202 KB of the 227 KB a block may have), so their
+// register state is 192, as kLean's.  In registers the halves made 224 of
+// state, and ptxas spilled in most of the two-set instantiations.  The
+// words cost one shared load and store per two cells and protein, a
+// thread's own words, 4 bytes apart across a warp (no bank conflict), no
+// barrier.  The other ways out cost more here.  A producer warpgroup that
+// gives up registers with setmaxnreg leaves the two consumer warpgroups 240
+// each at most (65,536 a SM over three warpgroups): with 256 of state it
+// needs the halves as well.  A ping-pong of the two warpgroups (one count set each,
+// one's epilogue under the other's products) needs the ring to hold the
+// slices of the lag between them; the epilogue lasts 3-4 slices of products
+// at K = 1280, and two more stages already pass the 227 KB.
+//
+// Waits.  ptxas lets an instruction read a count set only where every path
+// from the set's last wgmma passes a wgmma.wait_group 0: a wait_group 1
+// after the other set's next products does not satisfy it, and it then
+// serializes every wgmma of the kernel (advisory C7514).  So a protein whose
+// counts are read next ends with wait_group 0, and kPipe's pieces of protein
+// p run after each of p + 1's slices is issued and before its wait_group 1.
+constexpr int kLean = 0;
+constexpr int kPipe = 1;
+constexpr int kPair = 2;
+constexpr int kPipePieces = 4;       // kPipe: kNT / kPipePieces groups a piece
+constexpr int kMaxPackedP = 32768;   // kPipe, kPair: P below this
+static_assert(kNT % kPipePieces == 0, "whole column groups a piece");
+
+// The two-set updates' epilogue: adds the terms of column groups kJ0 ..
+// kJ1 - 1 of count set c (one protein, its T at tp, the ring slot) to s
+// and N; with kPair, those of set c1 (the next protein, T at tp1) too, as
+// s += j0 + j1 and n += min(c0, 1) + min(c1, 1).  N is 16-bit halves in
+// shared memory: element i in half i % 2 of word nw[(i / 2) kThreads].
+// ta_row is the thread's first row in the tile, tig its column pair in a
+// group.
+template <int kMode, int kJ0, int kJ1, bool kPair>
+__device__ __forceinline__ void add_terms(const int (&c)[4 * kNT],
+                                          const int (&c1)[4 * kNT],
+                                          const float* tp, const float* tp1,
+                                          int ta_row, int tig,
+                                          float (&s)[4 * kNT], uint32_t* nw) {
+  const float ta0 = tp[ta_row];
+  const float ta1 = tp[ta_row + 8];
+  float ua0 = 0.0f, ua1 = 0.0f;
+  if constexpr (kPair) {
+    ua0 = tp1[ta_row];
+    ua1 = tp1[ta_row + 8];
+  }
+#pragma unroll
+  for (int j = kJ0; j < kJ1; ++j) {
+    const float2 tbv =
+        *reinterpret_cast<const float2*>(tp + kTile + 8 * j + 2 * tig);
+    float2 ubv = tbv;
+    if constexpr (kPair)
+      ubv = *reinterpret_cast<const float2*>(tp1 + kTile + 8 * j + 2 * tig);
+    int hits[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = c[4 * j + e];
+      float term =
+          jaccard<kMode>(ci, e / 2 ? ta1 : ta0, e % 2 ? tbv.y : tbv.x);
+      hits[e] = min(ci, 1);
+      if constexpr (kPair) {
+        const int ci1 = c1[4 * j + e];
+        term = __fadd_rn(
+            term, jaccard<kMode>(ci1, e / 2 ? ua1 : ua0, e % 2 ? ubv.y : ubv.x));
+        hits[e] += min(ci1, 1);
+      }
+      s[4 * j + e] = __fadd_rn(s[4 * j + e], term);
+    }
+    nw[(2 * j) * kThreads] += hits[0] + (hits[1] << 16);
+    nw[(2 * j + 1) * kThreads] += hits[2] + (hits[3] << 16);
+  }
+}
+
+// kPipe: the pieces kI .. of count set c's epilogue that follow slice ks of
+// the next protein: piece i (column groups i kNT / kPipePieces ..) after
+// slice i, and every piece not yet added after the next protein's last
+// slice (`last`).
+template <int kMode, int kI = 0>
+__device__ __forceinline__ void pipe_pieces(const int (&c)[4 * kNT],
+                                            const float* tp, int ta_row,
+                                            int tig, int ks, bool last,
+                                            float (&s)[4 * kNT],
+                                            uint32_t* nw) {
+  if constexpr (kI < kPipePieces) {
+    constexpr int kW = kNT / kPipePieces;
+    if (ks == kI || (last && ks < kI))
+      add_terms<kMode, kI * kW, (kI + 1) * kW, false>(c, c, tp, tp, ta_row,
+                                                      tig, s, nw);
+    pipe_pieces<kMode, kI + 1>(c, tp, ta_row, tig, ks, last, s, nw);
+  }
+}
 
 // S and N of one 128 x 128 tile over proteins 0 .. P - 1 in ascending order,
 // left in this thread's accumulator layout: element 4 j + e is row
 // 64 wg + 16 warp + g + 8 (e / 2), column 8 j + 2 tig + e % 2 of the tile
 // (wg = tid / 128, warp = tid % 128 / 32, g = lane / 4, tig = lane % 4).
 // Called by all kThreads threads of a block that was launched with
-// kSmemBytes of dynamic shared memory; K is a multiple of kSliceBytes.
+// smem_bytes(kUpdate) of dynamic shared memory; K is a multiple of
+// kSliceBytes, and P < kMaxPackedP for kPipe and kPair.
 //
 // `src` names the global memory behind the staged rows:
 //   src.stage_rows(p, k_off, dst0, lrow): this thread's part of one slice of
@@ -169,7 +289,7 @@ static_assert(kRows == kThreads, "one T value a thread");
 //     with it the kernel's time, by up to a tenth.
 //   src.t_row(p, i, live): the T value of staged row i (A's 128, then B's);
 //     past the edge `live` is false and the address any valid one.
-template <int kMode, class Src>
+template <int kMode, int kUpdate = kLean, class Src>
 __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
                                               float (&s)[4 * kNT],
                                               int (&n)[4 * kNT]) {
@@ -188,7 +308,6 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
   const int g = tid % 32 / 4;
   const int tig = tid % 4;
   const int ks_per_p = K / kSliceBytes;
-  const int total = P * ks_per_p;
 
   // Loader: 16-byte chunk tid % 8 of staged row tid / 8 + 32 i, stored at
   // chunk ^ (row % 8) of its 128-byte row (the 128-byte swizzle).
@@ -215,24 +334,21 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
     }
   };
 
-  int cnt[4 * kNT];
+  // Slices 0 .. kStages - 3 of the flat (protein, slice) sequence in flight.
+  auto fill_ring = [&] {
 #pragma unroll
-  for (int i = 0; i < 4 * kNT; ++i) {
-    cnt[i] = 0;
-    s[i] = 0.0f;
-    n[i] = 0;
-  }
+    for (int st = 0; st < kStages - 2; ++st) {
+      if (lp < P) load_slice(st);
+      cp_async_commit();
+    }
+  };
 
+  // The next slice of the sequence, slice ks of its protein: its products
+  // into count set d (a protein's first overwrites it), one commit group.
   // Slices it .. it + kStages - 3 are loaded or in flight while slice it is
   // multiplied; the stage of slice it - 1 may still be read by wgmma.
-#pragma unroll
-  for (int st = 0; st < kStages - 2; ++st) {
-    if (lp < P) load_slice(st);
-    cp_async_commit();
-  }
-
-  int p = 0, ks = 0, stage = 0;
-  for (int it = 0; it < total; ++it) {
+  int stage = 0;
+  auto mma_slice = [&](int (&d)[4 * kNT], int ks) {
     cp_async_wait<kStages - 3>();
     fence_proxy_async();
     // Past the barrier slice `it` is visible to all, and both warpgroups
@@ -249,50 +365,147 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
     for (int j = 0; j < kSliceBytes / 32; ++j) {
       // 32 bytes further along K inside the swizzled row: + 2 in the
       // descriptor's 16-byte address units.
-      wgmma_m64n128k32(cnt, da + 2 * j, db + 2 * j, (ks | j) != 0);
+      wgmma_m64n128k32(d, da + 2 * j, db + 2 * j, (ks | j) != 0);
     }
     wgmma_commit();
     stage = (stage + 1) % kStages;
+  };
+  // Protein p's T: its ring slot, which the loader refills kStages proteins
+  // later (at least kStages slices on, while it runs kStages - 2 ahead).
+  auto t_of = [&](int p) { return t_s + (p % kStages) * kRows; };
 
-    if (++ks == ks_per_p) {
-      // Epilogue: protein p's Jaccard terms into the resident S/N cells.
-      wgmma_wait<0>();
-      const float* tp = t_s + (p % kStages) * kRows;
-      const float ta0 = tp[64 * wg + 16 * warp + g];
-      const float ta1 = tp[64 * wg + 16 * warp + g + 8];
+  if constexpr (kUpdate == kLean) {
+    int cnt[4 * kNT];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float2 tbv =
-            *reinterpret_cast<const float2*>(tp + kTile + 8 * j + 2 * tig);
+    for (int i = 0; i < 4 * kNT; ++i) {
+      cnt[i] = 0;
+      s[i] = 0.0f;
+      n[i] = 0;
+    }
+    fill_ring();
+    const int total = P * ks_per_p;
+    int p = 0, ks = 0;
+    for (int it = 0; it < total; ++it) {
+      mma_slice(cnt, ks);
+      if (++ks == ks_per_p) {
+        // Epilogue: protein p's Jaccard terms into the resident S/N cells
+        // (written out: through add_terms this update compiles to other
+        // SASS, and sn_rect's --fast block and the default plans run it).
+        wgmma_wait<0>();
+        const float* tp = t_s + (p % kStages) * kRows;
+        const float ta0 = tp[64 * wg + 16 * warp + g];
+        const float ta1 = tp[64 * wg + 16 * warp + g + 8];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = cnt[4 * j + e];
-          s[4 * j + e] = __fadd_rn(
-              s[4 * j + e],
-              jaccard<kMode>(c, e / 2 ? ta1 : ta0, e % 2 ? tbv.y : tbv.x));
-          n[4 * j + e] += min(c, 1);
+        for (int j = 0; j < kNT; ++j) {
+          const float2 tbv =
+              *reinterpret_cast<const float2*>(tp + kTile + 8 * j + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = cnt[4 * j + e];
+            s[4 * j + e] = __fadd_rn(
+                s[4 * j + e],
+                jaccard<kMode>(c, e / 2 ? ta1 : ta0, e % 2 ? tbv.y : tbv.x));
+            n[4 * j + e] += min(c, 1);
+          }
         }
+        ks = 0;
+        ++p;
+      } else {
+        wgmma_wait<1>();
       }
-      ks = 0;
-      ++p;
-    } else {
-      wgmma_wait<1>();
+    }
+  } else {
+    static_assert(kUpdate == kPipe || kUpdate == kPair, "unknown update");
+    const int ta_row = 64 * wg + 16 * warp + g;
+    // Counts of the even and the odd proteins; N's words in shared memory.
+    int ca[4 * kNT], cb[4 * kNT];
+    uint32_t* const nw = reinterpret_cast<uint32_t*>(
+                             smem + kStages * (kTileBytes + kRows * 4)) +
+                         tid;
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      ca[i] = 0;
+      cb[i] = 0;
+      s[i] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * kNT; ++i) nw[i * kThreads] = 0;
+    fill_ring();
+    // Protein p's slices into count set d; with `pieces`, protein p - 1's
+    // epilogue (set prev, retired) in pieces beside them; with `drain`, the
+    // last slice's wait retires every product (wait_group 0), so that the
+    // protein's counts may be read.  Both flags are std::bool_constant.
+    auto protein = [&](int (&d)[4 * kNT], const int (&prev)[4 * kNT], int p,
+                       auto pieces, auto drain) {
+      for (int ks = 0; ks + 1 < ks_per_p; ++ks) {
+        mma_slice(d, ks);
+        if constexpr (decltype(pieces)::value)
+          pipe_pieces<kMode>(prev, t_of(p - 1), ta_row, tig, ks, false, s,
+                             nw);
+        wgmma_wait<1>();
+      }
+      mma_slice(d, ks_per_p - 1);
+      if constexpr (decltype(pieces)::value)
+        pipe_pieces<kMode>(prev, t_of(p - 1), ta_row, tig, ks_per_p - 1, true,
+                           s, nw);
+      if constexpr (decltype(drain)::value)
+        wgmma_wait<0>();
+      else
+        wgmma_wait<1>();
+    };
+    constexpr std::bool_constant<kUpdate == kPipe> kPieces{}, kDrainFirst{};
+    constexpr std::false_type kNo{};
+    constexpr std::true_type kYes{};
+    // Protein 0, which has no predecessor, then pairs (p, p + 1), p odd.
+    // kPipe drains every protein; kPair only the second of a pair, leaving
+    // the first one's last products in flight under the second's.  The loop
+    // starts with a protein that takes pieces on every pass: when its first
+    // pass skipped them, ptxas made its pieces wait for its own products
+    // (C7517).
+    protein(ca, cb, 0, kNo, kDrainFirst);
+    for (int p = 1; p < P; p += 2) {
+      protein(cb, ca, p, kPieces, kYes);
+      if constexpr (kUpdate == kPair)
+        add_terms<kMode, 0, kNT, true>(ca, cb, t_of(p - 1), t_of(p), ta_row,
+                                       tig, s, nw);
+      if (p + 1 == P) break;
+      protein(ca, cb, p + 1, kPieces, kDrainFirst);
+    }
+    wgmma_wait<0>();
+    // The last protein's terms: kPipe's always, kPair's for an odd P.
+    if (P % 2)
+      add_terms<kMode, 0, kNT, false>(ca, ca, t_of(P - 1), t_of(P - 1),
+                                      ta_row, tig, s, nw);
+    else if constexpr (kUpdate == kPipe)
+      add_terms<kMode, 0, kNT, false>(cb, cb, t_of(P - 1), t_of(P - 1),
+                                      ta_row, tig, s, nw);
+#pragma unroll
+    for (int i = 0; i < 2 * kNT; ++i) {
+      const uint32_t w = nw[i * kThreads];
+      n[2 * i] = (int)(w & 0xFFFFu);
+      n[2 * i + 1] = (int)(w >> 16);
     }
   }
   cp_async_wait<0>();
 }
 
-// Allows kernel's kSmemBytes of dynamic shared memory: above 48 KB it must be
+// Dynamic shared memory of a block of the update: the ring, and for the
+// two-set updates N's words.
+constexpr int smem_bytes(int update) {
+  return kSmemBytes + (update == kLean ? 0 : kNWordBytes);
+}
+
+// Allows kernel `bytes` of dynamic shared memory: above 48 KB it must be
 // allowed once per kernel and device, or the launch is refused.  `allowed`
 // is the kernel's own record of the devices done (64 entries).
 template <class Kernel>
-cudaError_t allow_ring(Kernel kernel, bool* allowed) {
+cudaError_t allow_ring(Kernel kernel, bool* allowed, int bytes = kSmemBytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64 || !allowed[dev]) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < 64) allowed[dev] = true;
   }

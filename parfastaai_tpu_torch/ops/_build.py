@@ -135,7 +135,7 @@ def load() -> ctypes.CDLL:
             ]
             lib.sn_square_mma_launch.restype = ci
             lib.sn_square_wgmma_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
             ]
             lib.sn_square_wgmma_launch.restype = ci
             for fn in (lib.sn_rect_error_string, lib.sn_square_error_string,

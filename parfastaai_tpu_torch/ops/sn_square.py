@@ -15,16 +15,16 @@ its dispatch plan ``fused_aji_plan`` and the square TPU kernels behind them:
 with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are
 three hand-written CUDA kernels.  The tile-list walks of unpacked presence
 with the ``lean`` / ``base`` update (``fused_aji``'s default plan, one or
-two proteins per step, the full square and the K-blocked plans) run
-csrc/sn_square_wgmma.cu: int8 counts on the tensor cores in 128 x 128
-tiles.  Nibble-packed input, the other two-proteins-per-step updates and
-the diagonal and band walks run csrc/sn_square.cu, one ``__dp4a`` kernel in
-64 x 64 tiles that differs only in the tiles it walks, the proteins it
-takes per step, the packing and the update; the ``f32gram`` update, whose
-counts come out of the tensor cores as f32, is csrc/sn_square_mma.cu.  CUDA
-tensors go to those kernels, CPU tensors to ``fused_sn_square_plain``, and
-any other device raises; there is no fallback from a kernel to the plain
-version.
+two proteins per step, the full square and the K-blocked plans) and with
+the ``pipe`` and ``mxu_outer`` updates run csrc/sn_square_wgmma.cu: int8
+counts on the tensor cores in 128 x 128 tiles.  Nibble-packed input, the
+``fused`` and ``counts`` updates and the diagonal and band walks run
+csrc/sn_square.cu, one ``__dp4a`` kernel in 64 x 64 tiles that differs only
+in the tiles it walks, the proteins it takes per step, the packing and the
+update; the ``f32gram`` update, whose counts come out of the tensor cores
+as f32, is csrc/sn_square_mma.cu.  CUDA tensors go to those kernels, CPU
+tensors to ``fused_sn_square_plain``, and any other device raises; there is
+no fallback from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -63,25 +63,28 @@ WGMMA_K_SLICE = 128
 WGMMA_THREADS = 256
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 # Updates of the two-proteins-per-step body (the 2p variants of the TPU
-# kernel), as csrc/sn_square.cu's kUpdate codes.  'lean' and 'base' run
-# identical code in the JAX package.  'f32gram' runs csrc/sn_square_mma.cu
-# and has no code there.
-_UPDATES = {"lean": 0, "base": 0, "counts": 1, "fused": 2, "pipe": 3,
-            "mxu_outer": 4, "f32gram": -1}
+# kernel).  'lean' and 'base' run identical code in the JAX package.  On the
+# wgmma kernel, csrc/sn_wgmma.cuh's update codes (kLean, kPipe, kPair: the
+# pair body gives the 'mxu_outer' values); on csrc/sn_square.cu, its kUpdate
+# codes; 'f32gram' runs csrc/sn_square_mma.cu, which takes no code.
+_WGMMA_UPDATES = {"lean": 0, "base": 0, "pipe": 1, "mxu_outer": 2}
+_DP4A_UPDATES = {"lean": 0, "base": 0, "counts": 1, "fused": 2}
+_VARIANTS = sorted({*_WGMMA_UPDATES, *_DP4A_UPDATES, "f32gram"})
+# The wgmma kernel's 'pipe' and 'mxu_outer' hold N in 16-bit halves: P stays
+# below this (csrc/sn_wgmma.cuh's kMaxPackedP).
+WGMMA_MAX_PACKED_P = 32768
 _WALK_LIST, _WALK_DIAG, _WALK_BAND = 0, 1, 2
 
 
 def _check_variant(variant: str) -> None:
-    if variant not in _UPDATES:
-        raise ValueError(
-            f"unknown variant {variant!r}; one of {sorted(_UPDATES)}"
-        )
+    if variant not in _VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {_VARIANTS}")
 
 
 def _on_wgmma(packed: bool, update: str) -> bool:
     """True where a tile-list walk runs csrc/sn_square_wgmma.cu: unpacked
-    presence with the 'lean' / 'base' update."""
-    return not packed and _UPDATES[update] == 0
+    presence with the 'lean' / 'base', 'pipe' or 'mxu_outer' update."""
+    return not packed and update in _WGMMA_UPDATES
 
 
 def stored_cells(
@@ -126,15 +129,15 @@ def fused_aji_plan(
     loop has no fast-memory cap, so K-blocking has nothing to do on the
     card.  The other keys describe what the CUDA kernel really executes.
     ``tile`` is the route's tile: 128 rows on the wgmma kernel (unpacked
-    presence; in mode '2p' only with ``variant`` 'lean' / 'base', the one
-    mode in which ``variant`` selects anything), 64 on the others.  ``gp``
-    is G rounded up to it (rows past G are masked but their products are
-    computed), ``nt`` and ``n_tiles`` the tiles walked (triu over-coverage
-    included), ``pp`` the proteins multiplied (P; rounded up to the two per
-    step where a 64-row kernel takes two), ``kp`` the presence columns
-    contracted (K padded to the kernel's slice, 128 or 64 bytes; packed
-    rows hold two columns a byte, so the kernel reads kp / 2 bytes a row)
-    and ``mxu_macs`` = n_tiles * tile^2 * pp * kp.
+    presence; in mode '2p', the one mode in which ``variant`` selects
+    anything, with ``variant`` 'lean' / 'base', 'pipe' or 'mxu_outer'), 64
+    on the others.  ``gp`` is G rounded up to it (rows past G are masked but
+    their products are computed), ``nt`` and ``n_tiles`` the tiles walked
+    (triu over-coverage included), ``pp`` the proteins multiplied (P;
+    rounded up to the two per step where a 64-row kernel takes two), ``kp``
+    the presence columns contracted (K padded to the kernel's slice, 128 or
+    64 bytes; packed rows hold two columns a byte, so the kernel reads kp /
+    2 bytes a row) and ``mxu_macs`` = n_tiles * tile^2 * pp * kp.
 
     The JAX ``auto_tile`` model (v5e rates and VMEM budget) has no
     counterpart: ``tile`` other than None or the route's own raises
@@ -216,7 +219,8 @@ def fused_sn_square_plain(
     slab in full f32 (exact: counts < 2^24), then the 'lean' transform.
     'fused' adds each pair of proteins' terms first (``s += j0 + j1``);
     'mxu_outer' does the same with ``ta + tb`` built as the rank-2 product
-    ``[ta, 1] @ [1, tb]`` in full f32 (exact: integer ta + tb < 2^24);
+    ``[ta, 1] @ [1, tb]`` in full f32 (exact: integer ta + tb < 2^24), as
+    its TPU body does (the kernel adds ta + tb, which is the same value);
     'counts' adds the pair's f32 counts and leaves N at 0, as the kernel's
     two-proteins-per-step variants do.  An odd last protein forms a pair
     with a zero protein, which adds exactly 0.  The result is
@@ -326,7 +330,7 @@ def _launch(
                     None if tiles is None else tiles.data_ptr(),
                     s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
                     walk_arg, int(mirror), mode, pp, int(packed),
-                    _UPDATES[update], stream,
+                    _DP4A_UPDATES[update], stream,
                 )
             if rc != 0:
                 err = getattr(lib, f"{name}_error_string")(rc).decode()
@@ -341,14 +345,21 @@ def _launch(
 
 
 def _launch_wgmma(
-    m: torch.Tensor, t: torch.Tensor, *, symmetric: bool, approx: bool,
-    precise: bool,
+    m: torch.Tensor, t: torch.Tensor, *, symmetric: bool, update: str,
+    approx: bool, precise: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run csrc/sn_square_wgmma.cu once over the upper-triangle tiles (with
-    the mirror) or every tile of the square, on m's CUDA device."""
+    the mirror) or every tile of the square, on m's CUDA device, with the
+    update of ``update``."""
     global WGMMA_LAUNCHES
     dev = m.device
     P, G, K = m.shape
+    code = _WGMMA_UPDATES[update]
+    if code and P >= WGMMA_MAX_PACKED_P:
+        raise ValueError(
+            f"update {update!r} on the wgmma kernel takes P < "
+            f"{WGMMA_MAX_PACKED_P} (N in 16-bit halves), not {P}"
+        )
     if K % WGMMA_K_SLICE:
         m = F.pad(m, (0, WGMMA_K_SLICE - K % WGMMA_K_SLICE))
         K = m.shape[2]
@@ -366,7 +377,7 @@ def _launch_wgmma(
         rc = lib.sn_square_wgmma_launch(
             m.data_ptr(), t.data_ptr(), tiles.data_ptr(), s.data_ptr(),
             n.data_ptr(), P, G, K, tiles.shape[0], int(symmetric),
-            _MODES[(approx, precise)], stream,
+            _MODES[(approx, precise)], code, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -410,17 +421,18 @@ def fused_sn_square(
     off-diagonal tile's mirror (``symmetric``, the TPU's ``_pallas_sn_sym``
     / ``_pallas_sn_sym_2p`` / ``_pallas_sn_sym_kb``) or every tile
     (``_pallas_sn`` / ``_pallas_sn_kb``).  Unpacked presence with the
-    'lean' / 'base' update runs the wgmma kernel (csrc/sn_square_wgmma.cu,
-    128 x 128 tiles), whose protein loop has no steps: ``pairs_per_step``
-    1 and 2 are the same launch there, bit-identical by construction.  The
-    rest runs csrc/sn_square.cu in 64 x 64 tiles, taking ``pairs_per_step``
-    proteins (1 or 2) per step.  ``update`` other than 'lean' / 'base'
-    selects a 2p variant and needs two proteins per step: 'pipe' carries
-    each step's counts into the next step's epilogue, 'mxu_outer' builds
-    ``ta + tb`` on the tensor cores (TF32, exact by a hi/lo split of T),
-    'f32gram' takes the counts as f32 from the tensor cores
-    (csrc/sn_square_mma.cu), 'fused' and 'counts' as in
-    ``fused_sn_square_plain``.  ``packed`` needs one protein per step.
+    'lean' / 'base', 'pipe' or 'mxu_outer' update runs the wgmma kernel
+    (csrc/sn_square_wgmma.cu, 128 x 128 tiles), whose protein loop has no
+    steps: ``pairs_per_step`` 1 and 2 are the same 'lean' launch there,
+    bit-identical by construction.  The rest runs csrc/sn_square.cu in
+    64 x 64 tiles, taking ``pairs_per_step`` proteins (1 or 2) per step.
+    ``update`` other than 'lean' / 'base' selects a 2p variant and needs two
+    proteins per step: 'pipe' adds each protein's terms under the next
+    protein's products (bit-equal to 'lean'), 'mxu_outer' counts two
+    proteins and adds ``j0 + j1`` in one epilogue (bit-equal to 'fused';
+    both take P < WGMMA_MAX_PACKED_P), 'f32gram' takes the counts as f32
+    from the tensor cores (csrc/sn_square_mma.cu), 'fused' and 'counts' as
+    in ``fused_sn_square_plain``.  ``packed`` needs one protein per step.
     ``approx`` selects the raw approximate reciprocal, ``precise`` the IEEE
     divide (bit-identical to the plain version), neither the
     Newton-refined reciprocal.  CPU tensors go to
@@ -428,15 +440,15 @@ def fused_sn_square(
     _check_variant(update)
     if pairs_per_step not in (1, 2):
         raise ValueError(f"pairs_per_step is 1 or 2, not {pairs_per_step}")
-    if _UPDATES[update] and pairs_per_step != 2:
+    if update not in ("lean", "base") and pairs_per_step != 2:
         raise ValueError(f"update {update!r} needs pairs_per_step=2")
     if packed and pairs_per_step != 1:
         raise ValueError("packed input needs pairs_per_step=1")
     if not _route(m, t, approx, precise, "fused_sn_square"):
         return fused_sn_square_plain(m, t, packed=packed, update=update)
     if _on_wgmma(packed, update):
-        return _launch_wgmma(m, t, symmetric=symmetric, approx=approx,
-                             precise=precise)
+        return _launch_wgmma(m, t, symmetric=symmetric, update=update,
+                             approx=approx, precise=precise)
     nt = -(-m.shape[1] // TILE)
     tiles = _tile_list(nt, symmetric, m.device)
     return _launch(

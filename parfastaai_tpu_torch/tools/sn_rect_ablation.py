@@ -40,13 +40,15 @@ CUTS = [
         ("    if (lp < P) load_slice((stage + kStages - 2) % kStages);",
          "    if (lp < 0) load_slice((stage + kStages - 2) % kStages);")]),
     ("nomma", [
-        ("      wgmma_m64n128k32(cnt, da + 2 * j, db + 2 * j, (ks | j) != 0);",
+        ("      wgmma_m64n128k32(d, da + 2 * j, db + 2 * j, (ks | j) != 0);",
          "      (void)da, (void)db;")]),
+    # every update's epilogue: kLean's column groups, and add_terms' (the
+    # two-count-set updates)
     ("noepi", [
-        ("      const float ta1 = tp[64 * wg + 16 * warp + g + 8];\n"
-         "#pragma unroll\n      for (int j = 0; j < kNT; ++j) {",
-         "      const float ta1 = tp[64 * wg + 16 * warp + g + 8];\n"
-         "#pragma unroll\n      for (int j = 0; j < 0; ++j) {")]),
+        ("        for (int j = 0; j < kNT; ++j) {",
+         "        for (int j = 0; j < 0; ++j) {"),
+        ("  for (int j = kJ0; j < kJ1; ++j) {",
+         "  for (int j = kJ0; j < kJ0; ++j) {")]),
 ]
 
 

@@ -3,7 +3,7 @@ csrc/sn_square_wgmma.cu with one part of its block body cut.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
-    python -m parfastaai_tpu_torch.tools.sn_square_ablation
+    python -m parfastaai_tpu_torch.tools.sn_square_ablation [--update U ...]
 
 The square counterpart of ``tools.sn_rect_ablation``, with its cuts of the
 block body that the two kernels share (csrc/sn_wgmma.cuh): the kernel as it
@@ -11,7 +11,11 @@ is, without the global loads after the ring's first fill (``noload``: the
 products and the epilogue alone), without the wgmma products (``nomma``:
 the feed from L2 and the epilogue on zero counts alone), and without the
 epilogue's transform (``noepi``).  The cut copies compute nothing useful;
-only their times mean something.  Each is timed with CUDA events over the
+only their times mean something.  ``--update`` names the body's updates to
+time, each of ``lean`` (the default plans), ``pipe`` and ``mxu_outer`` (the
+two-count-set bodies; default: ``lean``); the cuts apply to every update,
+so ``noepi`` against ``full`` of ``pipe`` is the epilogue that its
+schedule leaves exposed.  Each is timed with CUDA events over the
 upper-triangle tiles at the whole-matrix bench's shape (P=80, G=4096) at
 K = 1280 and 2560 and at the K-blocked shape (P=16, G=1024, K=51200), and
 the feed-only time is also given as bytes per second out of L2 (every
@@ -21,6 +25,7 @@ first.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import tempfile
@@ -31,9 +36,16 @@ from ..ops import sn_rect, sn_square
 from .sn_rect_ablation import build_variants, cuda_ms
 
 SHAPES = [(80, 4096, 1280), (80, 4096, 2560), (16, 1024, 51200)]
+# csrc/sn_square_wgmma.cu's C entry: m, t, tiles, s, n; P, G, K, n_blocks,
+# mirror, mode, update; the stream
+N_POINTERS, N_INTS = 5, 7
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--update", nargs="+", default=["lean"],
+                    choices=sorted(sn_square._WGMMA_UPDATES))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU with CUDA")
     dev = torch.device("cuda")
@@ -45,7 +57,7 @@ def main() -> None:
     tile = sn_square.WGMMA_TILE
     with tempfile.TemporaryDirectory(prefix="sn_square_ablation_") as tmp:
         libs = build_variants(tmp, "sn_square_wgmma.cu",
-                              "sn_square_wgmma_launch", 5, 6)
+                              "sn_square_wgmma_launch", N_POINTERS, N_INTS)
         for P, G, K in SHAPES:
             m = (torch.rand((P, G, K), generator=gen, device=dev) < 0.3125).to(
                 torch.uint8)
@@ -54,26 +66,30 @@ def main() -> None:
             s = torch.empty((G, G), dtype=torch.float32, device=dev)
             n = torch.empty((G, G), dtype=torch.int32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
-
-            def launch(lib):
-                rc = lib.sn_square_wgmma_launch(
-                    m.data_ptr(), t.data_ptr(), tiles.data_ptr(),
-                    s.data_ptr(), n.data_ptr(), P, G, K, tiles.shape[0], 1,
-                    0, stream)
-                if rc != 0:
-                    raise SystemExit(f"launch failed: cudaError {rc}")
-
-            ms = {name: cuda_ms(lambda lib=lib: launch(lib))
-                  for name, lib in libs.items()}
             n_tiles = tiles.shape[0]
             staged = n_tiles * 2 * tile * K * P
             macs = n_tiles * tile * tile * K * P
-            print(
-                f"sn_square_wgmma P={P} G={G} K={K} ({n_tiles} triu tiles): "
-                + ", ".join(f"{name} {v:.3f} ms" for name, v in ms.items())
-                + f"; feed alone {staged / ms['nomma'] / 1e9:.3f} TB/s out of "
-                f"L2, products alone {macs / ms['noload'] / 1e9:.3f} TMAC/s"
-            )
+            for update in args.update:
+                code = sn_square._WGMMA_UPDATES[update]
+
+                def launch(lib):
+                    rc = lib.sn_square_wgmma_launch(
+                        m.data_ptr(), t.data_ptr(), tiles.data_ptr(),
+                        s.data_ptr(), n.data_ptr(), P, G, K, n_tiles, 1, 0,
+                        code, stream)
+                    if rc != 0:
+                        raise SystemExit(f"launch failed: cudaError {rc}")
+
+                ms = {name: cuda_ms(lambda lib=lib: launch(lib))
+                      for name, lib in libs.items()}
+                print(
+                    f"sn_square_wgmma {update} P={P} G={G} K={K} ({n_tiles} "
+                    "triu tiles): "
+                    + ", ".join(f"{name} {v:.3f} ms" for name, v in ms.items())
+                    + f"; feed alone {staged / ms['nomma'] / 1e9:.3f} TB/s out "
+                    f"of L2, products alone {macs / ms['noload'] / 1e9:.3f} "
+                    "TMAC/s", flush=True,
+                )
             del m
     sys.stdout.flush()
 

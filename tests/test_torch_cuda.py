@@ -189,30 +189,68 @@ def test_sn_square_counts_variant(cuda):
     assert not n.any()
 
 
+# The 2p variants' shapes: the bench shape, a ragged G, an odd P, one slice
+# a protein, K past the TPU's single-block limit, one protein.
+_VARIANT_SHAPES = [(80, 4096, 1280), (3, 300, 256), (4, 130, 128),
+                   (5, 700, 1280), (9, 129, 128), (2, 256, 34816),
+                   (1, 300, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,G,K", [(3, 300, 256), (4, 130, 128)])
+@pytest.mark.parametrize("P,G,K", _VARIANT_SHAPES,
+                         ids=[f"{P}-{G}-{K}" for P, G, K in _VARIANT_SHAPES])
 @pytest.mark.parametrize(
     "variant,like",
     [("pipe", "lean"), ("f32gram", "lean"), ("mxu_outer", "fused")],
 )
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_square_2p_variant(cuda, P, G, K, variant, like, mode):
-    """'pipe', 'f32gram' (csrc/sn_square_mma.cu) and 'mxu_outer' against
-    their plain versions, and bit-equal to the kernel whose values they
-    keep ('lean', on csrc/sn_square_wgmma.cu, or 'fused') in every divide
-    mode."""
+    """'pipe' and 'mxu_outer' (csrc/sn_square_wgmma.cu's two-count-set
+    bodies) and 'f32gram' (csrc/sn_square_mma.cu) against their plain
+    versions, and bit-equal to the kernel whose values they keep ('lean',
+    on csrc/sn_square_wgmma.cu, or 'fused', on csrc/sn_square.cu) in every
+    divide mode; one launch of the variant's kernel and of no other."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
     mma = variant == "f32gram"
+    wgmma = variant in ("pipe", "mxu_outer")
     before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant,
                                      **_DIVIDE[mode])
-    assert _launches() == (before[0] + (not mma), before[1] + mma, before[2])
+    assert _launches() == (before[0] + (not mma and not wgmma),
+                           before[1] + mma, before[2] + wgmma)
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
     ws, wn = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=like,
                                        **_DIVIDE[mode])
     torch.cuda.synchronize()
     assert torch.equal(s, ws) and torch.equal(n, wn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pipe", "mxu_outer"])
+def test_fused_aji_two_set_variants_launch_the_wgmma_kernel(cuda, variant):
+    """fused_aji(variant='pipe' | 'mxu_outer') plans 128-row tiles and
+    launches sn_square_wgmma once and no other kernel."""
+    m, t = _square(cuda, 5, 300, 256, seed=11)
+    assert sn_square.fused_aji_plan(5, 300, 256, variant=variant)["tile"] == 128
+    before = _launches()
+    _, s, n = sn_square.fused_aji(m, t, variant=variant, precise=True)
+    assert _launches() == (before[0], before[1], before[2] + 1)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
+    _assert_matches_plain(s, n, s_ref, n_ref, "precise")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pipe", "mxu_outer"])
+def test_two_set_variants_reject_packed_n_overflow(cuda, variant):
+    """N in 16-bit halves: P >= 32768 raises before any launch."""
+    P = sn_square.WGMMA_MAX_PACKED_P
+    m = torch.zeros((P, 1, 128), dtype=torch.uint8, device=cuda)
+    t = torch.ones((P, 1), dtype=torch.float32, device=cuda)
+    before = _launches()
+    with pytest.raises(ValueError, match="P < 32768"):
+        sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant)
+    assert _launches() == before
 
 
 @pytest.mark.cuda

@@ -137,8 +137,11 @@ def test_plan_rejects_other_tiles():
         sn_square.fused_aji_plan(3, 100, 64, tile=64)
     assert sn_square.fused_aji_plan(3, 100, 64, tile=64,
                                     packed=True)["tile"] == 64
-    assert sn_square.fused_aji_plan(3, 100, 64, tile=64,
-                                    variant="pipe")["tile"] == 64
+    for variant in ("pipe", "mxu_outer"):
+        assert sn_square.fused_aji_plan(3, 100, 64, tile=128,
+                                        variant=variant)["tile"] == 128
+        with pytest.raises(ValueError, match="tile on this route is 128"):
+            sn_square.fused_aji_plan(3, 100, 64, tile=64, variant=variant)
     for kw in ({"packed": True}, {"variant": "fused"}):
         with pytest.raises(ValueError, match="tile on this route is 64"):
             sn_square.fused_aji_plan(3, 100, 64, tile=128, **kw)
@@ -181,7 +184,15 @@ def test_plan_rejects_other_tiles():
         *((5, 4096, 1280, {"variant": v},
            dict(mode="2p", tile=64, nt=64, n_tiles=2080, pp=6, kp=1280,
                 mxu_macs=2080 * 64 * 64 * 6 * 1280))
-          for v in ("counts", "fused", "pipe", "mxu_outer", "f32gram")),
+          for v in ("counts", "fused", "f32gram")),
+        # 'pipe' and 'mxu_outer' run the wgmma kernel's two-count-set
+        # bodies: 528 triu tiles of 128 at the bench shape, 8.858e11 MACs
+        *((p, 4096, 1280, {"variant": v},
+           dict(mode="2p", tile=128, gp=4096, nt=32, n_tiles=528, pp=p,
+                kp=1280, mxu_macs=528 * 128 * 128 * p * 1280))
+          for v in ("pipe", "mxu_outer") for p in (5, 80)),
+        (3, 300, 200, {"variant": "mxu_outer"},
+         dict(tile=128, nt=3, n_tiles=6, kp=256, pp=3)),
     ],
 )
 def test_plan_describes_the_route(p, g, k, kw, want):
@@ -190,6 +201,84 @@ def test_plan_describes_the_route(p, g, k, kw, want):
     and two proteins per step on the others."""
     plan = sn_square.fused_aji_plan(p, g, k, **kw)
     assert {key: plan[key] for key in want} == want
+
+
+@pytest.mark.parametrize(
+    "update,packed,want",
+    [("lean", False, True), ("base", False, True), ("pipe", False, True),
+     ("mxu_outer", False, True), ("fused", False, False),
+     ("counts", False, False), ("f32gram", False, False),
+     ("lean", True, False)],
+)
+def test_on_wgmma_routes(update, packed, want):
+    """Unpacked presence with 'lean' / 'base', 'pipe' and 'mxu_outer' runs
+    csrc/sn_square_wgmma.cu; 'fused', 'counts', 'f32gram' and packed input
+    run the other two kernels."""
+    assert sn_square._on_wgmma(packed, update) is want
+
+
+def test_wgmma_update_codes_match_the_kernel_sources():
+    """The wrapper's update codes are the header's kLean / kPipe / kPair
+    (the pair body gives the 'mxu_outer' values) and csrc/sn_square.cu's
+    kUpdate codes; the packed-N bound is the header's kMaxPackedP."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+    hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
+    dp4a = open(os.path.join(csrc, "sn_square.cu")).read()
+    codes = {"lean": "kLean", "pipe": "kPipe", "mxu_outer": "kPair"}
+    for name, const in codes.items():
+        want = sn_square._WGMMA_UPDATES[name]
+        assert f"constexpr int {const} = {want};" in hdr
+    assert sn_square._WGMMA_UPDATES["base"] == sn_square._WGMMA_UPDATES["lean"]
+    assert set(sn_square._WGMMA_UPDATES) == {"lean", "base", "pipe",
+                                             "mxu_outer"}
+    for name, const in (("lean", "kLean"), ("counts", "kCounts"),
+                        ("fused", "kFused")):
+        want = sn_square._DP4A_UPDATES[name]
+        assert f"constexpr int {const} = {want};" in dp4a
+    assert (f"constexpr int kMaxPackedP = {sn_square.WGMMA_MAX_PACKED_P};"
+            in hdr)
+    assert sn_square._VARIANTS == sorted(
+        {*sn_square._WGMMA_UPDATES, *sn_square._DP4A_UPDATES, "f32gram"})
+
+
+def test_one_ring_two_count_sets_and_no_dp4a_pipe():
+    """One block body: one ring (its refill, its four wgmma a slice and the
+    wait for its slices each written once), one count set for 'lean' and
+    two for the two-set updates; csrc/sn_square.cu keeps nothing of its old
+    'pipe' and 'mxu_outer' bodies."""
+    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
+    hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
+    # the PTX wrapper's definition and its one call
+    assert hdr.count("wgmma_m64n128k32(") == 2
+    for once in ("cp_async_wait<kStages - 3>();",
+                 "load_slice((stage + kStages - 2) % kStages);",
+                 "    int cnt[4 * kNT];",
+                 "    int ca[4 * kNT], cb[4 * kNT];",
+                 "auto mma_slice = ",
+                 "auto fill_ring = "):
+        assert hdr.count(once) == 1, once
+    square = open(os.path.join(csrc, "sn_square_wgmma.cu")).read()
+    assert square.count("sn_wgmma_tile<kMode, kUpdate>(") == 1
+    assert "smem_bytes(kUpdate)" in square
+    dp4a = open(os.path.join(csrc, "sn_square.cu")).read()
+    for gone in ("kPipe", "kMxuOuter", "cnt_prev", "mxu_outer_update",
+                 "tf32_hi", "outer_tile_mma", "mma.sync.aligned", "kOuterLd"):
+        assert gone not in dp4a, gone
+
+
+def test_wgmma_two_set_updates_limit_p():
+    """'pipe' and 'mxu_outer' hold N in 16-bit halves: the wgmma wrapper
+    raises before any launch for P >= WGMMA_MAX_PACKED_P; 'lean' takes
+    any P."""
+    P = sn_square.WGMMA_MAX_PACKED_P
+    m = torch.zeros((P, 1, 128), dtype=torch.uint8)
+    t = torch.ones((P, 1), dtype=torch.float32)
+    before = sn_square.WGMMA_LAUNCHES
+    for update in ("pipe", "mxu_outer"):
+        with pytest.raises(ValueError, match="P < 32768"):
+            sn_square._launch_wgmma(m, t, symmetric=True, update=update,
+                                    approx=False, precise=False)
+    assert sn_square.WGMMA_LAUNCHES == before
 
 
 @pytest.mark.parametrize("nt", [1, 2, 3, 32])
@@ -267,10 +356,11 @@ def test_wgmma_constants_match_the_kernel_source():
     assert (sn_square.WGMMA_TILE, sn_square.WGMMA_THREADS,
             sn_square.WGMMA_K_SLICE) == (sn_rect.TILE, sn_rect.THREADS,
                                          sn_rect.K_SLICE)
-    for source in ("sn_square_wgmma.cu", "sn_rect.cu"):
+    for source, call in (("sn_square_wgmma.cu", "<kMode, kUpdate>("),
+                         ("sn_rect.cu", "<kMode>(")):
         src = open(os.path.join(csrc, source)).read()
         assert '#include "sn_wgmma.cuh"' in src
-        assert src.count("sn_wgmma_tile<kMode>(") == 1
+        assert src.count("sn_wgmma_tile" + call) == 1
         # one body: no second copy of the ring or of its constants
         assert "wgmma_m64n128k32(" not in src and "constexpr" not in src
     names = {os.path.basename(path) for path in _build._SRCS + _build._HDRS}
@@ -406,12 +496,14 @@ def test_plain_variant_is_bit_equal(variant, like, P):
 @pytest.mark.parametrize("variant", _VARIANTS_2P)
 def test_2p_variant_on_cpu_launches_nothing(variant):
     m, t = _square_inputs(P=3, G=40)
-    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES)
+    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
+              sn_square.WGMMA_LAUNCHES)
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant)
     want = sn_square.fused_sn_square_plain(m, t, update=variant)
     assert torch.equal(s, want[0]) and torch.equal(n, want[1])
     sn_square.fused_aji(m, t, variant=variant)
-    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES) == before
+    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
+            sn_square.WGMMA_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("variant", _VARIANTS_2P)
@@ -495,6 +587,23 @@ def test_wrappers_reject_bad_operands():
             fn(m.to("meta"), t.to("meta"))
 
 
+def _build_argtypes(entry: str) -> list:
+    """The argtypes that _build.load gives ``entry``, read from its source
+    (load itself needs the built library)."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(_build.load))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign)
+                and isinstance(node.targets[0], ast.Attribute)
+                and node.targets[0].attr == "argtypes"
+                and isinstance(node.targets[0].value, ast.Attribute)
+                and node.targets[0].value.attr == entry):
+            return node.value.elts
+    raise AssertionError(f"no argtypes for {entry}")
+
+
 @pytest.mark.parametrize("tool,source", [
     ("sn_rect_ablation", "sn_rect.cu"),
     ("sn_square_ablation", "sn_square_wgmma.cu"),
@@ -509,6 +618,13 @@ def test_ablation_cuts_match_the_sources(tool, source):
 
     mod = importlib.import_module(f"parfastaai_tpu_torch.tools.{tool}")
     assert mod.build_variants is sn_rect_ablation.build_variants
+    if tool == "sn_square_ablation":
+        # it binds the C entry with its 5 pointers and 7 ints (the update
+        # last), as _build does, and times each update of the body
+        args = len(_build_argtypes("sn_square_wgmma_launch"))
+        assert (mod.N_POINTERS, mod.N_INTS) == (5, 7) and args == 5 + 7 + 1
+        with pytest.raises(SystemExit):
+            mod.main(["--update", "fused"])
     cuts = sn_rect_ablation.CUTS
     csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
     hdr = open(os.path.join(csrc, sn_rect_ablation.HEADER)).read()
@@ -516,6 +632,59 @@ def test_ablation_cuts_match_the_sources(tool, source):
         os.path.join(csrc, source)).read()
     assert source in open(mod.__file__).read()
     assert [name for name, _ in cuts] == ["full", "noload", "nomma", "noepi"]
+    # noepi cuts both epilogues: kLean's and the two-set updates'
+    assert len(dict(cuts)["noepi"]) == 2
     for name, replacements in cuts:
         for old, new in replacements:
             assert hdr.count(old) == 1 and new != old, name
+
+
+def test_wgmma_ab_reads_ptxas_and_sass():
+    """tools/wgmma_ab keys each wgmma instantiation by kernel and template
+    arguments (missing ones 0, so that a square kernel from before the
+    update argument meets this one's lean), reads ptxas's registers and
+    spills, and counts the SASS opcodes (predicated or not) of each; other
+    kernels are skipped."""
+    import collections
+
+    from parfastaai_tpu_torch.tools import wgmma_ab
+
+    log = "\n".join([
+        "ptxas info    : (C7517) warpgroup.wait is injected in function 'x'",
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__sn_square"
+        "_wgmma_cu_b05e665222sn_square_wgmma_kernelILi0ELi1EEEvPKhPKf' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN51_GLOBAL__N__x",
+        "    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 253 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__sn_square"
+        "_cu_96f008e916sn_square_kernelILi0ELi2ELb0ELi0EEEvPKh' for 'sm_90a'",
+        "ptxas info    : Used 99 registers, used 1 barriers, 8192 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__sn_rect_cu"
+        "_3cd395cf14sn_rect_kernelILi2EEEvPKhS2_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 248 registers, used 1 barriers",
+    ])
+    assert wgmma_ab.ptxas_report(log) == {
+        ("sn_square_wgmma", 0, 1): (253, 8, 4),
+        ("sn_rect", 2, 0): (248, 0, 0)}
+    assert wgmma_ab.kernel_key("_ZN51_sn_square_wgmma_kernelILi2EEEvPKh") == (
+        "sn_square_wgmma", 2, 0)
+    sass = "\n".join([
+        "\t\tFunction : _ZN43_GLOBAL__N__sn_rect_cu_3cd395cf14sn_rect_kernel"
+        "ILi2EEEvPKhS2_",
+        "        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, "
+        "c[0x0][0x28] ;          /* 0x00000a00ff017624 */",
+        "                                                                    "
+        "                    /* 0x000fe400078e00ff */",
+        "        /*0010*/              @!P0 BRA 0x70 ;",
+        "        /*0020*/                   IGMMA.64x128x32.S8.S8 R24, "
+        "gdesc[UR4], RZ, !UPT ;",
+        "        /*0030*/                   IGMMA.64x128x32.S8.S8 R24, "
+        "gdesc[UR8], R24 ;",
+        "\t\tFunction : _ZN45_GLOBAL__N__sn_square_cu_sn_square_kernelILi0ELi"
+        "2ELb0ELi0EEEv",
+        "        /*0000*/                   IDP.4A.U8.U8 R1, R2, R3, R1 ;",
+    ])
+    assert wgmma_ab.sass_mix(sass) == {("sn_rect", 2, 0): collections.Counter(
+        {"IMAD.MOV.U32": 1, "BRA": 1, "IGMMA.64x128x32.S8.S8": 2})}
