@@ -24,17 +24,23 @@ Run from the repository root:
      through ``fused_aji``'s default plan, one and two proteins per step,
      the full square and the K-blocked plans, with S and N bit-symmetric
      and a K sweep that splits its time into a slope per presence column
-     and an intercept (``lean`` in every divide mode, ``pipe`` and
-     ``mxu_outer`` under Newton); sn_square (``__dp4a`` in 64 x 64 tiles)
-     through the other walks, packings and the ``fused`` and ``counts``
-     updates; both also at ragged, one-tile and one-slice shapes and at a
-     K wider than the TPU package's single-block limit;
-   * the two-proteins-per-step variants ``pipe`` and ``mxu_outer``
-     (sn_square_wgmma's two-count-set bodies, one launch each) and
-     ``f32gram`` (sn_square_mma, f16 counts on the tensor cores) at the
-     benchmark's shape, a ragged G, an odd P, one kernel slice per protein
-     and one protein, each also bit-equal to the kernel whose values it
-     keeps (``lean`` or ``fused``).
+     and an intercept (``lean`` in every divide mode, ``pipe``,
+     ``mxu_outer``, ``fused`` and ``counts`` under Newton); sn_square
+     (``__dp4a`` in 64 x 64 tiles) through packed presence and the diagonal
+     and band walks; both also at ragged, one-tile and one-slice shapes and
+     at a K wider than the TPU package's single-block limit;
+   * the two-proteins-per-step variants ``pipe``, ``fused`` /
+     ``mxu_outer`` (sn_square_wgmma's two-count-set bodies, one launch
+     each), ``counts`` (its one-count-set pair loop, bit-equal to its plain
+     version in every divide mode) and ``f32gram`` (sn_square_mma, f16
+     counts on the tensor cores) at the benchmark's shape, a ragged G, an
+     odd P, one kernel slice per protein and one protein, each also
+     bit-equal to the kernel whose values it keeps (``lean``, ``fused`` or
+     ``mxu_outer``);
+   * ``counts`` at the benchmark's shape against its library call: one
+     ``torch._int_mm`` of the proteins' slabs side by side, (G, P K) by its
+     transpose, whose f32 cast must equal the kernel's S bit for bit; the
+     call and its relayout copy are timed apart.
    Kernel and plain times are taken with CUDA events at the main shapes,
    and each kernel's bound (the larger of its bytes over the card's
    memory rate and the MACs its function needs over the int8 tensor-core
@@ -79,12 +85,14 @@ Run from the repository root:
 5. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
-   sn_square_wgmma and no other kernel, and once with ``fused`` and each
-   ``PARFASTAAI_BENCH_VARIANT`` above (``pipe`` and ``mxu_outer`` must
-   launch sn_square_wgmma alone, once per ``fused_aji`` call: 81 times),
-   and in kb mode, echoing their JSON
-   lines, and checks a band of ``fused_aji`` on the bench's workload
-   against exact f64.
+   sn_square_wgmma and no other kernel, and once with each
+   ``PARFASTAAI_BENCH_VARIANT`` above (all but ``f32gram`` must launch
+   sn_square_wgmma alone, once per ``fused_aji`` call: 81 times), and in
+   kb mode, echoing their JSON lines; checks a band of ``fused_aji`` on the
+   bench's workload against exact f64; and calls ``fused_aji`` with
+   ``packed=True`` on the same workload (launch counters reset just before
+   and read just after: sn_square once, no other kernel), against the
+   default plan's result.
 6. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -144,14 +152,17 @@ SQUARE_DENSITY = 400 / 1280
 # at one kernel slice per protein.
 SQUARE_SMALL = [("ragged", 3, 300, 256), ("wide_k", 2, 256, 34816),
                 ("one_tile", 3, 77, 256), ("one_slice", 9, 129, 128)]
-# The 2p variants, each with the update whose values it keeps, checked at
-# the bench shape and at these (a ragged G, an odd P, one kernel slice per
-# protein, one protein).
-VARIANTS = {"pipe": "lean", "mxu_outer": "fused", "f32gram": "lean"}
+# The 2p variants, each with the update whose values it keeps (None:
+# ``counts``, whose S is the sum of the counts: no divide, so bit-equal to
+# its plain version in every mode), checked at the bench shape and at these
+# (a ragged G, an odd P, one kernel slice per protein, one protein).
+VARIANTS = {"pipe": "lean", "mxu_outer": "fused", "fused": "mxu_outer",
+            "counts": None, "f32gram": "lean"}
 VARIANT_SMALL = [("ragged", 3, 300, 256), ("odd_p", 5, 700, 1280),
                  ("one_slice", 9, 129, 128), ("p1", 1, 300, 256)]
-# The variants on sn_square_wgmma's two-count-set bodies.
-WGMMA_VARIANTS = ("pipe", "mxu_outer")
+# The variants on sn_square_wgmma's bodies other than the default: two
+# count sets (pipe; fused and mxu_outer, one launch) and one a pair (counts).
+WGMMA_VARIANTS = ("pipe", "mxu_outer", "fused", "counts")
 # fused_aji calls of one kernel-mode bench run at its default knobs: one
 # warm-up, then 5 timed runs of 16 calls (bench.kernel_bench).
 BENCH_CALLS = 1 + 5 * 16
@@ -163,7 +174,8 @@ PALLAS = "parfastaai_tpu/ops/pallas_intersect.py"
 # def lines of the TPU kernels each CUDA kernel replaces
 REPLACES = {
     "sn_rect": (1112, 697),
-    "sn_square": (402, 219, 339, 802, 744, 593, 636, 867, 949, 1035),
+    # packed presence (_pallas_sn_sym, _pallas_sn) and the walks
+    "sn_square": (802, 744, 867, 949, 1035),
     "sn_square_wgmma": (402, 219, 253, 315, 339, 802, 744, 593, 636),
     "sn_square_mma": (315, 82),
 }
@@ -233,6 +245,24 @@ def square_bound(P, G, K, symmetric: bool = True) -> dict:
     symmetric, K unpadded), not those a kernel's tiles execute."""
     macs = P * K * (G * (G + 1) // 2 if symmetric else G * G)
     return bound(macs, P * G * (K + 4) + G * G * 8)
+
+
+def median_ms(fn, runs: int = 5) -> float:
+    """Median milliseconds of ``runs`` calls of ``fn`` on the card, each
+    between its own pair of CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -438,16 +468,19 @@ def variant_checks(label, m, t_raw, tc) -> dict:
     for variant, like in VARIANTS.items():
         s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc, update=variant)
         for mode, kw in MODES:
-            before = sn_square.WGMMA_LAUNCHES
+            before = read_launches()
             _, s, n = sn_square.fused_aji(m, t_raw, variant=variant, **kw)
-            if (variant in WGMMA_VARIANTS
-                    and sn_square.WGMMA_LAUNCHES != before + 1):
-                fail(f"{label}: variant={variant} did not launch "
-                     "sn_square_wgmma once")
+            ran = {k: v - before[k] for k, v in read_launches().items()}
+            if variant in WGMMA_VARIANTS and ran != {
+                    **dict.fromkeys(ran, 0), "sn_square_wgmma": 1}:
+                fail(f"{label}: variant={variant} should launch "
+                     f"sn_square_wgmma once and nothing else: {ran}")
             err = check(f"sn_square {label} variant={variant}", s, n, s_ref,
-                        n_ref, mode)
+                        n_ref, mode if like else "precise")
             if mode == "newton":
                 errs[variant] = err
+            if like is None:
+                continue
             ws, wn = sn_square.fused_sn_square(
                 m, tc, pairs_per_step=2, update=like, **kw)
             torch.cuda.synchronize()
@@ -476,35 +509,28 @@ def square_phase(dev) -> dict:
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, tc)
     errs = square_checks(label, m, t_raw, tc, s_ref, n_ref,
                          [mode for mode, _ in MODES])
-    s_f, n_f = sn_square.fused_sn_square_plain(m, tc, update="fused")
-    for mode, kw in MODES:
-        _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", **kw)
-        err = check(f"sn_square {label} variant=fused", s, n, s_f, n_f, mode)
-        if mode == "newton":
-            fused_err = err
-    s_c, n_c = sn_square.fused_sn_square_plain(m, tc, update="counts")
-    _, s, n = sn_square.fused_aji(m, t_raw, variant="counts")
-    check(f"sn_square {label} variant=counts", s, n, s_c, n_c, "precise")
-    del s_f, n_f, s_c, n_c
     variant_errs = variant_checks(label, m, t_raw, tc)
+    library = counts_library(m, tc)
     # packed at an odd K (the wrapper pads one zero column, then packs)
     mo = m[:, :, : K - 1].contiguous()
     to = mo.sum(dim=2, dtype=torch.int32)
     s_o, n_o = sn_square.fused_sn_square_plain(mo, clamp_t(to))
     for mode, kw in MODES:
         _, s, n = sn_square.fused_aji(mo, to, packed=True, **kw)
-        check(f"sn_square main P={P} G={G} K={K - 1} packed", s, n, s_o, n_o,
-              mode)
+        err = check(f"sn_square main P={P} G={G} K={K - 1} packed", s, n,
+                    s_o, n_o, mode)
+        if mode == "newton":
+            packed_err = err
     del mo, to, s_o, n_o, s, n
 
     # times at the bench shape
     sq = sn_square.fused_sn_square
     mp = sn_square.pack_nibbles(m)
     # MACs of each route from its own plan: 128-row tiles on the wgmma
-    # kernel, 64-row tiles (two proteins per step in mode 2p) on the others.
+    # kernel, 64-row tiles (f32gram: two proteins per step) on the others.
     plan_of = sn_square.fused_aji_plan
     wgmma_macs = plan_of(P, G, K)["mxu_macs"]
-    plan64 = plan_of(P, G, K, variant="fused")
+    plan64 = plan_of(P, G, K, variant="f32gram")
     nt, pp = plan64["nt"], plan64["pp"]
     tile_macs = plan64["tile"] ** 2 * plan64["kp"]
     triu = nt * (nt + 1) // 2
@@ -517,11 +543,9 @@ def square_phase(dev) -> dict:
          plan_of(P, G, K, symmetric=False)["mxu_macs"], False),
         ("1 protein/step triu packed", lambda: sq(mp, tc, packed=True),
          plan_of(P, G, K, packed=True)["mxu_macs"], True),
-        ("counts", lambda: sq(m, tc, pairs_per_step=2, update="counts"),
-         plan_of(P, G, K, variant="counts")["mxu_macs"], True),
         *((variant, lambda v=variant: sq(m, tc, pairs_per_step=2, update=v),
            plan_of(P, G, K, variant=variant)["mxu_macs"], True)
-          for variant in ("fused", *VARIANTS)),
+          for variant in VARIANTS),
         ("diag", lambda: sn_square.sn_sym_diag(m, tc),
          (nt // 2 + 1) * nt * tile_macs * P, True),
         ("bands", lambda: sn_square.sn_sym_bands(m, tc),
@@ -533,7 +557,7 @@ def square_phase(dev) -> dict:
         *((f"{variant} plain", lambda v=variant:
            sn_square.fused_sn_square_plain(m, tc, update=v), P * G * G * K,
            True)
-          for variant in ("fused", *VARIANTS)),
+          for variant in VARIANTS),
         ("fused_aji default", lambda: sn_square.fused_aji(m, t_raw),
          wgmma_macs, True),
     ])
@@ -593,21 +617,62 @@ def square_phase(dev) -> dict:
           f"of the symmetric square; the tiles execute {wgmma_macs:.4e} MACs "
           f"(128 x 128) and {plan64['mxu_macs']:.4e} MACs (64 x 64)")
     return {
-        # the default plan (lean), and each two-count-set body beside it
+        # the default plan (lean), and each other update beside it; the
+        # library call of counts' function is one int8 GEMM
         "sn_square_wgmma": {
             "max_abs_err": errs["newton"],
             "ms": times["wgmma triu, 2 proteins/step (fused_aji default)"],
             "plain_ms": times["plain"], **b,
             "variants": {v: {"max_abs_err": variant_errs[v],
                              "ms": times[v], "plain_ms": times[f"{v} plain"],
-                             **b} for v in WGMMA_VARIANTS}},
-        # a route that still runs on the __dp4a kernel
-        "sn_square": {"max_abs_err": fused_err, "ms": times["fused"],
-                      "plain_ms": times["fused plain"], **b},
+                             **b, "library_ms": None,
+                             **(library if v == "counts" else {})}
+                         for v in WGMMA_VARIANTS}},
+        # packed presence, the route of the __dp4a kernel that fused_aji
+        # takes
+        "sn_square": {"max_abs_err": packed_err,
+                      "ms": times["1 protein/step triu packed"],
+                      "plain_ms": times["plain"], **b},
         "sn_square_mma": {"max_abs_err": variant_errs["f32gram"],
                           "ms": times["f32gram"],
                           "plain_ms": times["f32gram plain"], **b},
     }
+
+
+def counts_library(m, tc) -> dict:
+    """``counts``' function as one library call: with X the proteins' (G,
+    K) slabs side by side, (G, P K) int8, S = f32(X X^T) by
+    ``torch._int_mm``.  Every partial sum of the kernel is an integer
+    below P K < 2^24, so its S must equal the call's bit for bit.  The
+    kernel, the call and the relayout copy that builds X are each timed as
+    the median of 5 calls.  Returns the call's and the copy's ms."""
+    import torch
+
+    from parfastaai_tpu_torch.ops import sn_square
+
+    P, G, K = m.shape
+    if P * K >= 1 << 24:
+        fail(f"counts_library: P K = {P * K} is not below 2^24")
+    m8 = m.view(torch.int8)
+    relayout = lambda: m8.permute(1, 0, 2).reshape(G, P * K)  # noqa: E731
+    x = relayout()
+    if not x.is_contiguous():
+        fail("counts_library: X is not one contiguous (G, P K) copy")
+    gram = lambda: torch._int_mm(x, x.t())  # noqa: E731
+    counts = lambda: sn_square.fused_sn_square(  # noqa: E731
+        m, tc, pairs_per_step=2, update="counts")
+    s, n = counts()
+    if not (torch.equal(gram().to(torch.float32), s) and not n.any()):
+        fail("counts: S differs from the f32 cast of torch._int_mm(X, X^T) "
+             "or N is not 0")
+    ms = {"kernel": median_ms(counts), "library": median_ms(gram),
+          "relayout": median_ms(relayout)}
+    print(f"counts P={P} G={G} K={K}: S bit-equal to the f32 cast of "
+          f"torch._int_mm(X, X^T), X = (G, P K) int8; median of 5: kernel "
+          f"{ms['kernel']:.3f} ms, torch._int_mm {ms['library']:.3f} ms, "
+          f"relayout copy {ms['relayout']:.3f} ms")
+    return {"library_ms": ms["library"], "relayout_ms": ms["relayout"],
+            "median_ms": ms["kernel"]}
 
 
 def time_all(label: str, shape, timed) -> dict:
@@ -657,10 +722,9 @@ def bench_phase(dev) -> dict:
     launches = {"sn_square_wgmma": run({}, "sn_square_wgmma", "")[
         "sn_square_wgmma"]}
     variant_launches = {}
-    for variant in ("fused", *VARIANTS):
+    for variant in VARIANTS:
         name = ("sn_square_mma" if variant == "f32gram"
-                else "sn_square_wgmma" if variant in WGMMA_VARIANTS
-                else "sn_square")
+                else "sn_square_wgmma")
         ran = run({"PARFASTAAI_BENCH_VARIANT": variant}, name,
                   f" variant={variant}")[name]
         if variant in WGMMA_VARIANTS:
@@ -669,8 +733,6 @@ def bench_phase(dev) -> dict:
                      f"{ran} times, not {BENCH_CALLS}")
             variant_launches[variant] = ran
         else:
-            # sn_square is reported on its 'fused' route, as square_phase
-            # times it
             launches[name] = ran
     t0 = time.perf_counter()
     sn_rect.LAUNCHES = 0
@@ -679,9 +741,20 @@ def bench_phase(dev) -> dict:
           f"sn_rect launches {sn_rect.LAUNCHES}")
 
     m, t = bench.workload(SQUARE_MAIN[1])
-    aji, _, n = sn_square.fused_aji(
-        torch.from_numpy(m).to(dev), torch.from_numpy(t).to(dev)
-    )
+    md, td = torch.from_numpy(m).to(dev), torch.from_numpy(t).to(dev)
+    aji, s, n = sn_square.fused_aji(md, td)
+    # the route of the __dp4a kernel: packed presence, one library call
+    reset_launches()
+    _, s_p, n_p = sn_square.fused_aji(md, td, packed=True)
+    torch.cuda.synchronize()
+    ran = read_launches()
+    if ran != {**dict.fromkeys(ran, 0), "sn_square": 1}:
+        fail(f"fused_aji(packed=True) should launch sn_square once and "
+             f"nothing else: {ran}")
+    launches["sn_square"] = ran["sn_square"]
+    check("bench workload fused_aji packed vs the default plan", s_p, n_p, s,
+          n, "newton")
+    del md, td, s, s_p, n_p
     R = BAND_ROWS
     s64, n64 = exact_band(m, t, R)
     if not np.array_equal(n[:R].cpu().numpy(), n64):
@@ -1186,8 +1259,8 @@ def sass_phase() -> None:
     """From the toolkit's cuobjdump on the built library: integer warpgroup
     products (IGMMA) and asynchronous copies (LDGSTS) and no __dp4a (IDP)
     in every sn_rect and sn_square_wgmma kernel (every divide mode and, for
-    the square, every update: lean, pipe, pair); HMMA and no IDP in the
-    f32gram kernel (sn_square_mma).  Fails unless every instantiation that
+    the square, every update: lean, pipe, pair, counts); HMMA and no IDP in
+    the f32gram kernel (sn_square_mma).  Fails unless every instantiation that
     the sources build was found and passed."""
     from parfastaai_tpu_torch.ops import _build, sn_square
 
@@ -1234,12 +1307,15 @@ def sass_phase() -> None:
         if not ok:
             fail(f"SASS of {name}: {hmma} HMMA and {idp} IDP instructions")
     # what the sources build: sn_rect and sn_square_mma per divide mode,
-    # sn_square_wgmma per divide mode and update
+    # sn_square_wgmma per divide mode and update, but counts (which never
+    # divides) once
     modes = [str(i) for i in range(len(MODES))]
+    counts = str(sn_square._WGMMA_UPDATES["counts"])
     updates = sorted({str(v) for v in sn_square._WGMMA_UPDATES.values()})
     built = {("sn_rect", m) for m in modes} | {
         ("sn_square_mma", m) for m in modes} | {
-        ("sn_square_wgmma", m, u) for m in modes for u in updates}
+        ("sn_square_wgmma", m, u) for u in updates
+        for m in (["0"] if u == counts else modes)}
     if found != built or checked != len(built):
         fail(f"SASS: checked {checked} tensor-core kernels, found "
              f"{sorted(found)}, the sources build {sorted(built)}")
@@ -1278,10 +1354,10 @@ def main() -> None:
             fail(f"ptxas: {line.strip()}")
         # and a wait it injects into a two-count-set body (sn_square_wgmma
         # update 1 or 2) makes kPipe's epilogue wait for its own slice's
-        # products
+        # products; the counts loop (update 3) must have none either
         injected = re.search(r"warpgroup\.wait is injected.*function '(\w+)'",
                              line)
-        if injected and re.search(r"sn_square_wgmma_kernelILi\dELi[12]E",
+        if injected and re.search(r"sn_square_wgmma_kernelILi\dELi[123]E",
                                   injected.group(1)):
             fail(f"ptxas: {line.strip()}")
 
@@ -1311,9 +1387,10 @@ def main() -> None:
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")],
                     **kern[("main", "bound")]},
-        # sn_square: its 'fused' route throughout (the bench run with that
-        # variant, its error and its times); sn_square_wgmma: the default
-        # plan's, with 'pipe' and 'mxu_outer' (their bench runs) beside it
+        # sn_square: its packed route throughout (one fused_aji call with
+        # packed=True on the bench's workload, its error and its times);
+        # sn_square_wgmma: the default plan's, with the other updates (their
+        # bench runs) beside it
         **{name: {"launches": whole[name], **square[name]}
            for name in ("sn_square", "sn_square_mma", "sn_square_wgmma")},
     }
@@ -1326,7 +1403,8 @@ def main() -> None:
         "replaces": ", ".join(f"{PALLAS}:{line}" for line in REPLACES[name]),
         **results[name],
         # no single PyTorch call computes P Gram products, the per-protein
-        # transform and the two running sums
+        # transform and the two running sums (counts' call is in its
+        # variant's entry)
         "library_ms": None,
     } for name in ("sn_rect", "sn_square", "sn_square_mma",
                    "sn_square_wgmma")]}))

@@ -9,22 +9,13 @@
 //     N  += min(cnt, 1)                       (int32)
 //
 // and differ only in which output tiles they walk and how.  The tile-list
-// walks of unpacked presence with the `lean` / `base`, `pipe` and
-// `mxu_outer` updates run csrc/sn_square_wgmma.cu, on the int8 tensor cores;
-// this kernel keeps the `fused` and `counts` updates, nibble-packed input and
-// the diagonal and band walks, and its `lean` instantiations serve those
-// walks:
-//   `_pallas_sn_sym_2p`      triu tiles, two proteins per step (kPP = 2),
-//                            with the `lean`/`base` (`_sym_kernel_2p_lean`),
-//                            `fused` (`_sym_kernel_2p_fused`) and `counts`
-//                            updates (kUpdate); its `f32gram` body is
-//                            csrc/sn_square_mma.cu;
-//   `_pallas_sn_sym`         triu tiles, one protein per step, optionally
+// walks of unpacked presence, with every update of the two-proteins-per-step
+// body but `f32gram`, run csrc/sn_square_wgmma.cu on the int8 tensor cores,
+// and `f32gram` runs csrc/sn_square_mma.cu.  This kernel keeps nibble-packed
+// input and the diagonal and band walks, all with the `lean` update:
+//   `_pallas_sn_sym`         triu tiles, one protein per step, with
 //                            nibble-packed input (kPacked);
-//   `_pallas_sn`             every tile of the square;
-//   `_pallas_sn_sym_kb`,     the K-blocked twins of the two above: the K
-//   `_pallas_sn_kb`          loop here has no VMEM-style cap, so they are
-//                            the same launches;
+//   `_pallas_sn`             every tile of the square, packed;
 //   `_pallas_sn_sym_diag`    tiles (i, (i + d) mod nt), d = 0..nt/2, decoded
 //                            in closed form from the block index;
 //   `_pallas_sn_sym_bands`,  one launch per band row r over tiles
@@ -46,10 +37,8 @@
 //     and are never stored, and the missing second protein of the last pair
 //     is a zero protein (cnt == 0 adds exactly 0 to S and N).
 //   * kPP = 2 finishes both proteins' count tiles before either epilogue
-//     runs; the `lean` epilogues then accumulate in ascending protein order,
-//     so the output is bit-identical to kPP = 1.  `fused` adds the pair's
-//     terms first (s += j0 + j1), `counts` only converts and adds the counts
-//     (the machinery ceiling without the transform; N stays 0).
+//     runs; the epilogues then accumulate in ascending protein order, so the
+//     output is bit-identical to kPP = 1.
 //   * kPacked: each input byte holds two presence columns as nibbles (column
 //     2j low, 2j+1 high); two __dp4a over the masked nibbles count exactly.
 //   * The Jaccard transform uses explicit round-to-nearest intrinsics, so
@@ -62,10 +51,7 @@
 // sixteenth of the int8 tensor-core peak), and the shared-memory loads that
 // feed it: on an H100 80GB HBM3 at 700 W the packed input, with half the
 // loads and more integer work, ran 13% faster than the unpacked one.  The
-// triu walk halves the work of the full square.  The counts on the tensor
-// cores are csrc/sn_square_wgmma.cu (int8 wgmma: the default plans, `pipe`
-// and `mxu_outer`) and csrc/sn_square_mma.cu (f16 mma.sync, the `f32gram`
-// update).
+// triu walk halves the work of the full square.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,11 +69,6 @@ constexpr unsigned int kNibbles = 0x0F0F0F0Fu;
 constexpr int kWalkList = 0;  // tiles[2q], tiles[2q + 1]
 constexpr int kWalkDiag = 1;  // (i, (i + d) mod nt), q = d * nt + i
 constexpr int kWalkBand = 2;  // (r, r + q)
-
-// Updates of the two-proteins-per-step body.
-constexpr int kLean = 0;
-constexpr int kCounts = 1;
-constexpr int kFused = 2;
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
@@ -132,8 +113,8 @@ __device__ __forceinline__ void load_t(float (&tav)[kPP][kReg],
   }
 }
 
-// The `lean` epilogue of the step starting at protein p0: each protein's
-// Jaccard terms into the resident S/N tile, in ascending protein order.
+// The epilogue of the step starting at protein p0: each protein's Jaccard
+// terms into the resident S/N tile, in ascending protein order.
 template <int kMode, int kPP>
 __device__ __forceinline__ void lean_update(const int (&cnt)[kPP][kReg][kReg],
                                             float (&s)[kReg][kReg],
@@ -157,7 +138,7 @@ __device__ __forceinline__ void lean_update(const int (&cnt)[kPP][kReg][kReg],
   }
 }
 
-template <int kMode, int kPP, bool kPacked, int kUpdate>
+template <int kMode, int kPP, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
                  const int32_t* __restrict__ tiles, float* __restrict__ s_out,
@@ -298,34 +279,7 @@ sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
       __syncthreads();
     }
 
-    // Epilogue: the step's Jaccard terms into the resident S/N tile, in
-    // ascending protein order.
-    if constexpr (kUpdate == kLean) {
-      lean_update<kMode, kPP>(cnt, s, n, t, p0, P, G, row0, col0);
-    } else if constexpr (kUpdate == kCounts) {
-#pragma unroll
-      for (int i = 0; i < kReg; ++i) {
-#pragma unroll
-        for (int j = 0; j < kReg; ++j)
-          s[i][j] = __fadd_rn(s[i][j],
-                              __fadd_rn(__int2float_rn(cnt[0][i][j]),
-                                        __int2float_rn(cnt[kPP - 1][i][j])));
-      }
-    } else {  // kFused
-      float tav[kPP][kReg], tbv[kPP][kReg];
-      load_t<kPP>(tav, tbv, t, p0, P, G, row0, col0);
-#pragma unroll
-      for (int i = 0; i < kReg; ++i) {
-#pragma unroll
-        for (int j = 0; j < kReg; ++j) {
-          const float j0 = jaccard<kMode>(cnt[0][i][j], tav[0][i], tbv[0][j]);
-          const float j1 = jaccard<kMode>(cnt[kPP - 1][i][j],
-                                          tav[kPP - 1][i], tbv[kPP - 1][j]);
-          s[i][j] = __fadd_rn(s[i][j], __fadd_rn(j0, j1));
-          n[i][j] += min(cnt[0][i][j], 1) + min(cnt[kPP - 1][i][j], 1);
-        }
-      }
-    }
+    lean_update<kMode, kPP>(cnt, s, n, t, p0, P, G, row0, col0);
   }
 
 #pragma unroll
@@ -348,18 +302,18 @@ sn_square_kernel(const uint8_t* __restrict__ m, const float* __restrict__ t,
 }
 
 // One launch; kMode 0/1/2 picked at run time.
-template <int kPP, bool kPacked, int kUpdate>
+template <int kPP, bool kPacked>
 void launch(int mode, const dim3& grid, cudaStream_t st, const uint8_t* m,
             const float* t, const int32_t* tiles, float* s, int32_t* n,
             int P, int G, int K, int walk, int walk_arg, int mirror) {
   if (mode == 0)
-    sn_square_kernel<0, kPP, kPacked, kUpdate><<<grid, kThreads, 0, st>>>(
+    sn_square_kernel<0, kPP, kPacked><<<grid, kThreads, 0, st>>>(
         m, t, tiles, s, n, P, G, K, walk, walk_arg, mirror);
   else if (mode == 1)
-    sn_square_kernel<1, kPP, kPacked, kUpdate><<<grid, kThreads, 0, st>>>(
+    sn_square_kernel<1, kPP, kPacked><<<grid, kThreads, 0, st>>>(
         m, t, tiles, s, n, P, G, K, walk, walk_arg, mirror);
   else
-    sn_square_kernel<2, kPP, kPacked, kUpdate><<<grid, kThreads, 0, st>>>(
+    sn_square_kernel<2, kPP, kPacked><<<grid, kThreads, 0, st>>>(
         m, t, tiles, s, n, P, G, K, walk, walk_arg, mirror);
 }
 
@@ -373,12 +327,11 @@ extern "C" {
 // tiles is the int32 (n_blocks, 2) tile list of walk 0 (unused otherwise).
 // The launch writes s (G, G) f32 and n (G, G) int32 at every cell of the
 // tiles it walks and, where it mirrors, of their transposes.
-// pp is 1 or 2; packed needs pp == 1; update (0 lean, 1 counts, 2 fused)
-// other than lean needs pp == 2, and counts ignores mode.
+// pp is 1 or 2; packed needs pp == 1.
 int sn_square_launch(const void* m, const void* t, const void* tiles,
                      void* s, void* n, int P, int G, int K, int n_blocks,
                      int walk, int walk_arg, int mirror, int mode, int pp,
-                     int packed, int update, void* stream) {
+                     int packed, void* stream) {
   if (n_blocks <= 0 || walk < kWalkList || walk > kWalkBand || mode < 0 ||
       mode > 2)
     return (int)cudaErrorInvalidValue;
@@ -389,23 +342,15 @@ int sn_square_launch(const void* m, const void* t, const void* tiles,
   const int32_t* tl = static_cast<const int32_t*>(tiles);
   float* so = static_cast<float*>(s);
   int32_t* no = static_cast<int32_t*>(n);
-  if (pp == 1 && update == kLean) {
-    if (packed)
-      launch<1, true, kLean>(mode, grid, st, mp, tp, tl, so, no, P, G, K,
-                             walk, walk_arg, mirror);
-    else
-      launch<1, false, kLean>(mode, grid, st, mp, tp, tl, so, no, P, G, K,
-                              walk, walk_arg, mirror);
-  } else if (pp == 2 && !packed && update == kLean) {
-    launch<2, false, kLean>(mode, grid, st, mp, tp, tl, so, no, P, G, K, walk,
-                            walk_arg, mirror);
-  } else if (pp == 2 && !packed && update == kFused) {
-    launch<2, false, kFused>(mode, grid, st, mp, tp, tl, so, no, P, G, K,
-                             walk, walk_arg, mirror);
-  } else if (pp == 2 && !packed && update == kCounts) {
-    // counts never divides: one instantiation serves every mode
-    launch<2, false, kCounts>(0, grid, st, mp, tp, tl, so, no, P, G, K, walk,
-                              walk_arg, mirror);
+  if (pp == 1 && packed) {
+    launch<1, true>(mode, grid, st, mp, tp, tl, so, no, P, G, K, walk,
+                    walk_arg, mirror);
+  } else if (pp == 1) {
+    launch<1, false>(mode, grid, st, mp, tp, tl, so, no, P, G, K, walk,
+                     walk_arg, mirror);
+  } else if (pp == 2 && !packed) {
+    launch<2, false>(mode, grid, st, mp, tp, tl, so, no, P, G, K, walk,
+                     walk_arg, mirror);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -2,19 +2,20 @@
 //
 // Replaces, for unpacked presence, the square TPU kernels of
 // parfastaai_tpu/ops/pallas_intersect.py: `_pallas_sn_sym_2p` with its
-// `lean` / `base` (`_sym_kernel_2p_lean`, `_sym_kernel_2p`), `pipe`
-// (`_sym_kernel_2p_pipe`) and `mxu_outer` (`_sym_kernel_2p_fused` with
-// mxu_outer=True) bodies, `_pallas_sn_sym`, `_pallas_sn` and their K-blocked
-// twins `_pallas_sn_sym_kb` and `_pallas_sn_kb`.  For one presence tensor M
-// (P, G, K) against itself it computes, per protein p in ascending order,
+// `lean` / `base` (`_sym_kernel_2p_lean`, `_sym_kernel_2p`), `counts`
+// (`_sym_kernel_2p_lean` with counts_only), `pipe` (`_sym_kernel_2p_pipe`),
+// `fused` and `mxu_outer` (`_sym_kernel_2p_fused`) bodies, `_pallas_sn_sym`,
+// `_pallas_sn` and their K-blocked twins `_pallas_sn_sym_kb` and
+// `_pallas_sn_kb`.  For one presence tensor M (P, G, K) against itself it
+// computes, per protein p in ascending order,
 //
 //     cnt = M_p . M_p^T                       (0/1 bytes, int32 counts)
 //     S  += cnt / (t_p[i] + t_p[j] - cnt)     (f32, T pre-clamped >= 1)
 //     N  += min(cnt, 1)                       (int32)
 //
-// over the 128 x 128 output tiles of a list, and writes S and N once.  The
-// `fused` and `counts` updates, nibble-packed input and the diagonal and band
-// walks stay on the __dp4a body of csrc/sn_square.cu.
+// over the 128 x 128 output tiles of a list, and writes S and N once.
+// Nibble-packed input and the diagonal and band walks stay on the __dp4a
+// body of csrc/sn_square.cu.
 //
 // Design: the block body that csrc/sn_rect.cu runs (sn_wgmma_tile of
 // csrc/sn_wgmma.cuh) with both operands taken from M.
@@ -50,16 +51,18 @@
 //     carried the counts through a 2 MB VMEM scratch each step and lost 21%;
 //     here the carry is registers and wgmma is asynchronous.  Each cell adds
 //     its terms in ascending protein order, so `pipe` is bit-equal to `lean`.
-//     `mxu_outer` (kPair) counts two proteins into the two sets and adds
-//     j0 + j1 in one epilogue, bit-equal to csrc/sn_square.cu's `fused`.  Its
-//     TPU body built the outer sums ta[i] + tb[j] on the MXU to spare VPU
-//     broadcasts, and measured 1.7x slower even there
-//     (pallas_intersect.py's _pallas_sn_sym_2p notes); here ta + tb is the
-//     one __fadd_rn a cell that the Jaccard term already issues, and a
-//     tensor-core outer sum (the TF32 rank-4 product this kernel's
-//     predecessor used) would need a third 64-register set.  The two-set
-//     updates hold N in 16-bit halves, so they take P < kMaxPackedP (the
-//     header's "Registers" note says why).
+//     `fused` and `mxu_outer` (kPair) count two proteins into the two sets
+//     and add j0 + j1 in one epilogue.  The TPU bodies of the two differ
+//     only in how they form the outer sums ta[i] + tb[j]: `mxu_outer` built
+//     them on the MXU to spare VPU broadcasts, and measured 1.7x slower even
+//     there (pallas_intersect.py's _pallas_sn_sym_2p notes); here ta + tb is
+//     the one __fadd_rn a cell that the Jaccard term already issues, and a
+//     tensor-core outer sum (the TF32 rank-4 product of an earlier version)
+//     would need a third 64-register set, so both are one launch.  The
+//     two-set updates hold N in 16-bit halves, so they take P < kMaxPackedP
+//     (the header's "Registers" note says why).  `counts` (kCounts) keeps
+//     one count set over each pair and adds the pair's f32 count sum: the
+//     products and the loop without the transform.
 //   * The mirror is written in the last epilogue: with `mirror`, an
 //     off-diagonal tile (r, c) also stores its transpose at (c, r).  Counts
 //     are symmetric and ta + tb commutes, so that is bit-equal to computing
@@ -194,14 +197,15 @@ extern "C" {
 // s (G, G) f32 and n (G, G) int32 at every cell of the tiles it walks and,
 // with mirror, of the transposes of the off-diagonal ones.  mode: 0 Newton,
 // 1 approximate reciprocal, 2 IEEE divide.  update: 0 lean, 1 pipe, 2 pair
-// (the `mxu_outer` values); 1 and 2 need P < 32768.
+// (the `fused` and `mxu_outer` values), 3 counts (S the f32 sum of the
+// counts, N 0; any mode); 1 and 2 need P < 32768.
 int sn_square_wgmma_launch(const void* m, const void* t, const void* tiles,
                            void* s, void* n, int P, int G, int K,
                            int n_blocks, int mirror, int mode, int update,
                            void* stream) {
   if (P <= 0 || G <= 0 || K <= 0 || n_blocks <= 0 || K % kSliceBytes ||
-      (long long)P * (K / kSliceBytes) > 0x7fffffffLL ||
-      (update != kLean && P >= kMaxPackedP))
+      (long long)P * (K / kSliceBytes) > 0x7fffffffLL || mode < 0 ||
+      mode > 2 || ((update == kPipe || update == kPair) && P >= kMaxPackedP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* mp = static_cast<const uint8_t*>(m);
@@ -219,6 +223,10 @@ int sn_square_wgmma_launch(const void* m, const void* t, const void* tiles,
     case kPair:
       return (int)launch_update<kPair>(mode, mp, tp, tl, so, no, P, G, K,
                                        n_blocks, mirror, st);
+    case kCounts:
+      // counts never divides: one instantiation serves every mode
+      return (int)launch<0, kCounts>(mp, tp, tl, so, no, P, G, K, n_blocks,
+                                     mirror, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,9 +3,10 @@
 // product, the shared-memory matrix descriptor of the staged layout, the
 // Jaccard term, and the body of a block: S and N of one 128 x 128 output
 // tile, from a ring of staged K slices to the accumulator registers, with
-// one of three updates (kLean, kPipe, kPair: when and in what order the
-// counts become S and N).  The kernels differ in where the staged rows come
-// from and in how the tile is stored.  All in an unnamed namespace.
+// one of four updates (kLean, kPipe, kPair, kCounts: when and in what
+// order the counts become S and N).  The kernels differ in where the staged
+// rows come from and in how the tile is stored.  All in an unnamed
+// namespace.
 //
 // The staged layout: a tile is K-major, a slice of 128 bytes of K a row; row
 // r lies at byte 128 r and its 16-byte chunk c at chunk c ^ (r % 8) of that
@@ -173,6 +174,12 @@ constexpr int kNWordBytes = kTile * kTile * 2;
 //          plain `fused` update (`_sym_kernel_2p_fused`).  An odd last
 //          protein's partner is a zero protein, whose term adds exactly 0,
 //          so it takes kLean's s += j0.
+//   kCounts one count set a pair of proteins 2k, 2k + 1: 2k's first slice
+//          overwrites it, every later slice of the pair adds to it, and one
+//          epilogue a pair adds s += f32(c0 + c1); N stays 0 and no T is
+//          read (`_sym_kernel_2p_lean` with counts_only, the machinery
+//          without the transform).  c0, c1 <= K < 2^24 are exact in f32, so
+//          the rounded f32(c0) + f32(c1) of the plain version is f32(c0 + c1).
 //
 // Registers.  A thread owns 64 cells of its warpgroup's 64 x 128 piece: 64
 // s32 counts, 64 f32 S and 64 s32 N are 192 of the 255 registers it may
@@ -201,6 +208,7 @@ constexpr int kNWordBytes = kTile * kTile * 2;
 constexpr int kLean = 0;
 constexpr int kPipe = 1;
 constexpr int kPair = 2;
+constexpr int kCounts = 3;
 constexpr int kPipePieces = 4;       // kPipe: kNT / kPipePieces groups a piece
 constexpr int kMaxPackedP = 32768;   // kPipe, kPair: P below this
 static_assert(kNT % kPipePieces == 0, "whole column groups a piece");
@@ -277,7 +285,8 @@ __device__ __forceinline__ void pipe_pieces(const int (&c)[4 * kNT],
 // (wg = tid / 128, warp = tid % 128 / 32, g = lane / 4, tig = lane % 4).
 // Called by all kThreads threads of a block that was launched with
 // smem_bytes(kUpdate) of dynamic shared memory; K is a multiple of
-// kSliceBytes, and P < kMaxPackedP for kPipe and kPair.
+// kSliceBytes, and P < kMaxPackedP for kPipe and kPair; kCounts leaves N
+// at 0 and its S is the sum of the counts (no transform).
 //
 // `src` names the global memory behind the staged rows:
 //   src.stage_rows(p, k_off, dst0, lrow): this thread's part of one slice of
@@ -414,6 +423,37 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
         wgmma_wait<1>();
       }
     }
+  } else if constexpr (kUpdate == kCounts) {
+    // kLean's loop over runs of two proteins' slices, in a branch of its
+    // own so that kLean's code stays as it is.  The pair's products run
+    // back to back (wait_group 1 between its slices), the pair's last
+    // slice (or an odd last protein's) drains them before the conversion.
+    int cnt[4 * kNT];
+#pragma unroll
+    for (int i = 0; i < 4 * kNT; ++i) {
+      cnt[i] = 0;
+      s[i] = 0.0f;
+      n[i] = 0;
+    }
+    fill_ring();
+    const int total = P * ks_per_p;
+    const int per_pair = 2 * ks_per_p;
+    int ks = 0;  // slice of the pair: mma_slice overwrites the set at 0
+    for (int it = 0; it < total; ++it) {
+      mma_slice(cnt, ks);
+      if (++ks == per_pair || it + 1 == total) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 4 * kNT; ++i)
+          s[i] = __fadd_rn(s[i], __int2float_rn(cnt[i]));
+        ks = 0;
+      } else {
+        wgmma_wait<1>();
+      }
+    }
+    // Retires nothing (the last slice drained), but ptxas cannot see that
+    // the loop leaves only after a wait_group 0, and injects one (C7517).
+    wgmma_wait<0>();
   } else {
     static_assert(kUpdate == kPipe || kUpdate == kPair, "unknown update");
     const int ta_row = 64 * wg + 16 * warp + g;
@@ -492,7 +532,7 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
 // Dynamic shared memory of a block of the update: the ring, and for the
 // two-set updates N's words.
 constexpr int smem_bytes(int update) {
-  return kSmemBytes + (update == kLean ? 0 : kNWordBytes);
+  return kSmemBytes + (update == kPipe || update == kPair ? kNWordBytes : 0);
 }
 
 // Allows kernel `bytes` of dynamic shared memory: above 48 KB it must be

@@ -127,7 +127,7 @@ def load() -> ctypes.CDLL:
             lib.sn_rect_launch.restype = ci
             lib.sn_square_launch.argtypes = [
                 vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                ci, vp,
+                vp,
             ]
             lib.sn_square_launch.restype = ci
             lib.sn_square_mma_launch.argtypes = [

@@ -16,15 +16,15 @@ with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are
 three hand-written CUDA kernels.  The tile-list walks of unpacked presence
 with the ``lean`` / ``base`` update (``fused_aji``'s default plan, one or
 two proteins per step, the full square and the K-blocked plans) and with
-the ``pipe`` and ``mxu_outer`` updates run csrc/sn_square_wgmma.cu: int8
-counts on the tensor cores in 128 x 128 tiles.  Nibble-packed input, the
-``fused`` and ``counts`` updates and the diagonal and band walks run
+the ``pipe``, ``fused``, ``mxu_outer`` and ``counts`` updates run
+csrc/sn_square_wgmma.cu: int8 counts on the tensor cores in 128 x 128
+tiles.  Nibble-packed input and the diagonal and band walks run
 csrc/sn_square.cu, one ``__dp4a`` kernel in 64 x 64 tiles that differs only
-in the tiles it walks, the proteins it takes per step, the packing and the
-update; the ``f32gram`` update, whose counts come out of the tensor cores
-as f32, is csrc/sn_square_mma.cu.  CUDA tensors go to those kernels, CPU
-tensors to ``fused_sn_square_plain``, and any other device raises; there is
-no fallback from a kernel to the plain version.
+in the tiles it walks, the proteins it takes per step and the packing; the
+``f32gram`` update, whose counts come out of the tensor cores as f32, is
+csrc/sn_square_mma.cu.  CUDA tensors go to those kernels, CPU tensors to
+``fused_sn_square_plain``, and any other device raises; there is no
+fallback from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -63,15 +63,17 @@ WGMMA_K_SLICE = 128
 WGMMA_THREADS = 256
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 # Updates of the two-proteins-per-step body (the 2p variants of the TPU
-# kernel).  'lean' and 'base' run identical code in the JAX package.  On the
-# wgmma kernel, csrc/sn_wgmma.cuh's update codes (kLean, kPipe, kPair: the
-# pair body gives the 'mxu_outer' values); on csrc/sn_square.cu, its kUpdate
-# codes; 'f32gram' runs csrc/sn_square_mma.cu, which takes no code.
-_WGMMA_UPDATES = {"lean": 0, "base": 0, "pipe": 1, "mxu_outer": 2}
-_DP4A_UPDATES = {"lean": 0, "base": 0, "counts": 1, "fused": 2}
-_VARIANTS = sorted({*_WGMMA_UPDATES, *_DP4A_UPDATES, "f32gram"})
-# The wgmma kernel's 'pipe' and 'mxu_outer' hold N in 16-bit halves: P stays
-# below this (csrc/sn_wgmma.cuh's kMaxPackedP).
+# kernel) on the wgmma kernel: csrc/sn_wgmma.cuh's update codes (kLean,
+# kPipe, kPair, kCounts).  'lean' and 'base' run identical code in the JAX
+# package; so do 'fused' and 'mxu_outer' on the card (the pair body, whose
+# outer sums ta + tb the TPU formed in two ways).  'f32gram' runs
+# csrc/sn_square_mma.cu, which takes no code.
+_WGMMA_UPDATES = {"lean": 0, "base": 0, "pipe": 1, "fused": 2,
+                  "mxu_outer": 2, "counts": 3}
+_VARIANTS = sorted({*_WGMMA_UPDATES, "f32gram"})
+# The two-count-set updates ('pipe', 'fused', 'mxu_outer') hold N in 16-bit
+# halves: P stays below this (csrc/sn_wgmma.cuh's kMaxPackedP).
+_TWO_SET_CODES = (1, 2)
 WGMMA_MAX_PACKED_P = 32768
 _WALK_LIST, _WALK_DIAG, _WALK_BAND = 0, 1, 2
 
@@ -83,7 +85,7 @@ def _check_variant(variant: str) -> None:
 
 def _on_wgmma(packed: bool, update: str) -> bool:
     """True where a tile-list walk runs csrc/sn_square_wgmma.cu: unpacked
-    presence with the 'lean' / 'base', 'pipe' or 'mxu_outer' update."""
+    presence with any update but 'f32gram'."""
     return not packed and update in _WGMMA_UPDATES
 
 
@@ -130,9 +132,9 @@ def fused_aji_plan(
     card.  The other keys describe what the CUDA kernel really executes.
     ``tile`` is the route's tile: 128 rows on the wgmma kernel (unpacked
     presence; in mode '2p', the one mode in which ``variant`` selects
-    anything, with ``variant`` 'lean' / 'base', 'pipe' or 'mxu_outer'), 64
-    on the others.  ``gp`` is G rounded up to it (rows past G are masked but
-    their products are computed), ``nt`` and ``n_tiles`` the tiles walked
+    anything, with any ``variant`` but 'f32gram'), 64 on the others.
+    ``gp`` is G rounded up to it (rows past G are masked but their
+    products are computed), ``nt`` and ``n_tiles`` the tiles walked
     (triu over-coverage included), ``pp`` the proteins multiplied (P;
     rounded up to the two per step where a 64-row kernel takes two), ``kp``
     the presence columns contracted (K padded to the kernel's slice, 128 or
@@ -291,56 +293,82 @@ def _tile_list(nt: int, symmetric: bool, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tiles).to(device)
 
 
-def _launch(
-    m: torch.Tensor, t: torch.Tensor, walks, *, mirror: bool, pp: int,
-    packed: bool, update: str, approx: bool, precise: bool,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the kernel once per (walk, tiles, n_blocks, walk_arg) of
-    ``walks`` into one (G, G) S and N on m's CUDA device: csrc/sn_square.cu,
-    or csrc/sn_square_mma.cu for the 'f32gram' update (tile-list walk, two
-    proteins per step)."""
-    global LAUNCHES, MMA_LAUNCHES
-    dev = m.device
-    P, G, K = m.shape
-    if K % K_SLICE:
-        m = F.pad(m, (0, K_SLICE - K % K_SLICE))
-        K = m.shape[2]
+def _padded(m: torch.Tensor, k_slice: int) -> torch.Tensor:
+    """m with K zero-padded to a multiple of the kernel's slice; raises
+    unless its first byte is 16-byte aligned (the kernels copy 16 bytes a
+    thread)."""
+    if m.shape[2] % k_slice:
+        m = F.pad(m, (0, k_slice - m.shape[2] % k_slice))
     if m.data_ptr() % 16:
         raise ValueError("m must be 16-byte aligned")
+    return m
+
+
+def _launch(
+    m: torch.Tensor, t: torch.Tensor, walks, *, mirror: bool, pp: int,
+    packed: bool, approx: bool, precise: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run csrc/sn_square.cu once per (walk, tiles, n_blocks, walk_arg) of
+    ``walks`` into one (G, G) S and N on m's CUDA device."""
+    global LAUNCHES
+    dev = m.device
+    m = _padded(m, K_SLICE)
+    P, G, K = m.shape
     s = torch.empty((G, G), dtype=torch.float32, device=dev)
     n = torch.empty((G, G), dtype=torch.int32, device=dev)
     if G == 0:
         return s, n
     lib = _build.load()
     mode = _MODES[(approx, precise)]
-    mma = update == "f32gram"
-    name = "sn_square_mma" if mma else "sn_square"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for walk, tiles, n_blocks, walk_arg in walks:
-            if mma:
-                rc = lib.sn_square_mma_launch(
-                    m.data_ptr(), t.data_ptr(), tiles.data_ptr(),
-                    s.data_ptr(), n.data_ptr(), P, G, K, n_blocks,
-                    int(mirror), mode, stream,
-                )
-            else:
-                rc = lib.sn_square_launch(
-                    m.data_ptr(), t.data_ptr(),
-                    None if tiles is None else tiles.data_ptr(),
-                    s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
-                    walk_arg, int(mirror), mode, pp, int(packed),
-                    _DP4A_UPDATES[update], stream,
-                )
+            rc = lib.sn_square_launch(
+                m.data_ptr(), t.data_ptr(),
+                None if tiles is None else tiles.data_ptr(),
+                s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
+                walk_arg, int(mirror), mode, pp, int(packed), stream,
+            )
             if rc != 0:
-                err = getattr(lib, f"{name}_error_string")(rc).decode()
                 raise RuntimeError(
-                    f"{name} kernel launch failed: {err} (cudaError {rc})"
+                    "sn_square kernel launch failed: "
+                    f"{lib.sn_square_error_string(rc).decode()} "
+                    f"(cudaError {rc})"
                 )
-            if mma:
-                MMA_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
+            LAUNCHES += 1
+    return s, n
+
+
+def _launch_mma(
+    m: torch.Tensor, t: torch.Tensor, *, symmetric: bool, approx: bool,
+    precise: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run csrc/sn_square_mma.cu (the 'f32gram' update, two proteins per
+    step) once over the upper-triangle 64-row tiles (with the mirror) or
+    every tile of the square, on m's CUDA device."""
+    global MMA_LAUNCHES
+    dev = m.device
+    m = _padded(m, K_SLICE)
+    P, G, K = m.shape
+    s = torch.empty((G, G), dtype=torch.float32, device=dev)
+    n = torch.empty((G, G), dtype=torch.int32, device=dev)
+    if G == 0:
+        return s, n
+    tiles = _tile_list(-(-G // TILE), symmetric, dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sn_square_mma_launch(
+            m.data_ptr(), t.data_ptr(), tiles.data_ptr(), s.data_ptr(),
+            n.data_ptr(), P, G, K, tiles.shape[0], int(symmetric),
+            _MODES[(approx, precise)], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "sn_square_mma kernel launch failed: "
+            f"{lib.sn_square_mma_error_string(rc).decode()} (cudaError {rc})"
+        )
+    MMA_LAUNCHES += 1
     return s, n
 
 
@@ -355,16 +383,13 @@ def _launch_wgmma(
     dev = m.device
     P, G, K = m.shape
     code = _WGMMA_UPDATES[update]
-    if code and P >= WGMMA_MAX_PACKED_P:
+    if code in _TWO_SET_CODES and P >= WGMMA_MAX_PACKED_P:
         raise ValueError(
             f"update {update!r} on the wgmma kernel takes P < "
             f"{WGMMA_MAX_PACKED_P} (N in 16-bit halves), not {P}"
         )
-    if K % WGMMA_K_SLICE:
-        m = F.pad(m, (0, WGMMA_K_SLICE - K % WGMMA_K_SLICE))
-        K = m.shape[2]
-    if m.data_ptr() % 16:
-        raise ValueError("m must be 16-byte aligned")
+    m = _padded(m, WGMMA_K_SLICE)
+    K = m.shape[2]
     if G == 0 or P == 0 or K == 0:
         return (torch.zeros((G, G), dtype=torch.float32, device=dev),
                 torch.zeros((G, G), dtype=torch.int32, device=dev))
@@ -420,19 +445,19 @@ def fused_sn_square(
     On CUDA the kernel walks the upper-triangle tiles and writes each
     off-diagonal tile's mirror (``symmetric``, the TPU's ``_pallas_sn_sym``
     / ``_pallas_sn_sym_2p`` / ``_pallas_sn_sym_kb``) or every tile
-    (``_pallas_sn`` / ``_pallas_sn_kb``).  Unpacked presence with the
-    'lean' / 'base', 'pipe' or 'mxu_outer' update runs the wgmma kernel
-    (csrc/sn_square_wgmma.cu, 128 x 128 tiles), whose protein loop has no
-    steps: ``pairs_per_step`` 1 and 2 are the same 'lean' launch there,
-    bit-identical by construction.  The rest runs csrc/sn_square.cu in
-    64 x 64 tiles, taking ``pairs_per_step`` proteins (1 or 2) per step.
-    ``update`` other than 'lean' / 'base' selects a 2p variant and needs two
-    proteins per step: 'pipe' adds each protein's terms under the next
-    protein's products (bit-equal to 'lean'), 'mxu_outer' counts two
-    proteins and adds ``j0 + j1`` in one epilogue (bit-equal to 'fused';
-    both take P < WGMMA_MAX_PACKED_P), 'f32gram' takes the counts as f32
-    from the tensor cores (csrc/sn_square_mma.cu), 'fused' and 'counts' as
-    in ``fused_sn_square_plain``.  ``packed`` needs one protein per step.
+    (``_pallas_sn`` / ``_pallas_sn_kb``).  Unpacked presence runs the wgmma
+    kernel (csrc/sn_square_wgmma.cu, 128 x 128 tiles) with every update but
+    'f32gram'; its protein loop has no steps: ``pairs_per_step`` 1 and 2
+    are the same 'lean' launch there, bit-identical by construction.
+    Packed presence runs csrc/sn_square.cu in 64 x 64 tiles, one protein
+    per step.  ``update`` other than 'lean' / 'base' selects a 2p variant
+    and needs two proteins per step: 'pipe' adds each protein's terms under
+    the next protein's products (bit-equal to 'lean'), 'fused' and
+    'mxu_outer' (one launch) count two proteins and add ``j0 + j1`` in one
+    epilogue (these three take P < WGMMA_MAX_PACKED_P), 'counts' adds each
+    pair's f32 count sum and leaves N at 0, and 'f32gram' takes the counts
+    as f32 from the tensor cores (csrc/sn_square_mma.cu, 64 x 64 tiles).
+    ``packed`` needs one protein per step.
     ``approx`` selects the raw approximate reciprocal, ``precise`` the IEEE
     divide (bit-identical to the plain version), neither the
     Newton-refined reciprocal.  CPU tensors go to
@@ -449,12 +474,13 @@ def fused_sn_square(
     if _on_wgmma(packed, update):
         return _launch_wgmma(m, t, symmetric=symmetric, update=update,
                              approx=approx, precise=precise)
-    nt = -(-m.shape[1] // TILE)
-    tiles = _tile_list(nt, symmetric, m.device)
+    if update == "f32gram":
+        return _launch_mma(m, t, symmetric=symmetric, approx=approx,
+                           precise=precise)
+    tiles = _tile_list(-(-m.shape[1] // TILE), symmetric, m.device)
     return _launch(
         m, t, [(_WALK_LIST, tiles, tiles.shape[0], 0)], mirror=symmetric,
-        pp=pairs_per_step, packed=packed, update=update, approx=approx,
-        precise=precise,
+        pp=1, packed=True, approx=approx, precise=precise,
     )
 
 
@@ -473,7 +499,7 @@ def sn_sym_diag(
     nt = -(-m.shape[1] // TILE)
     return _launch(
         m, t, [(_WALK_DIAG, None, (nt // 2 + 1) * nt, nt)], mirror=True,
-        pp=1, packed=packed, update="lean", approx=approx, precise=precise,
+        pp=1, packed=packed, approx=approx, precise=precise,
     )
 
 
@@ -481,8 +507,7 @@ def _bands(m, t, pp, packed, approx, precise):
     nt = -(-m.shape[1] // TILE)
     return _launch(
         m, t, [(_WALK_BAND, None, nt - r, r) for r in range(nt)],
-        mirror=True, pp=pp, packed=packed, update="lean", approx=approx,
-        precise=precise,
+        mirror=True, pp=pp, packed=packed, approx=approx, precise=precise,
     )
 
 

@@ -42,13 +42,15 @@ CUTS = [
     ("nomma", [
         ("      wgmma_m64n128k32(d, da + 2 * j, db + 2 * j, (ks | j) != 0);",
          "      (void)da, (void)db;")]),
-    # every update's epilogue: kLean's column groups, and add_terms' (the
-    # two-count-set updates)
+    # every update's epilogue: kLean's column groups, add_terms' (the
+    # two-count-set updates) and kCounts' conversion
     ("noepi", [
         ("        for (int j = 0; j < kNT; ++j) {",
          "        for (int j = 0; j < 0; ++j) {"),
         ("  for (int j = kJ0; j < kJ1; ++j) {",
-         "  for (int j = kJ0; j < kJ0; ++j) {")]),
+         "  for (int j = kJ0; j < kJ0; ++j) {"),
+        ("          s[i] = __fadd_rn(s[i], __int2float_rn(cnt[i]));",
+         "          (void)cnt[i];")]),
 ]
 
 

@@ -12,9 +12,10 @@ products and the epilogue alone), without the wgmma products (``nomma``:
 the feed from L2 and the epilogue on zero counts alone), and without the
 epilogue's transform (``noepi``).  The cut copies compute nothing useful;
 only their times mean something.  ``--update`` names the body's updates to
-time, each of ``lean`` (the default plans), ``pipe`` and ``mxu_outer`` (the
-two-count-set bodies; default: ``lean``); the cuts apply to every update,
-so ``noepi`` against ``full`` of ``pipe`` is the epilogue that its
+time, each of ``lean`` (the default plans), ``pipe``, ``fused`` /
+``mxu_outer`` (the two-count-set bodies; one launch) and ``counts`` (one
+count set a pair, no transform; default: ``lean``); the cuts apply to every
+update, so ``noepi`` against ``full`` of ``pipe`` is the epilogue that its
 schedule leaves exposed.  Each is timed with CUDA events over the
 upper-triangle tiles at the whole-matrix bench's shape (P=80, G=4096) at
 K = 1280 and 2560 and at the K-blocked shape (P=16, G=1024, K=51200), and

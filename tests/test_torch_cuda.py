@@ -116,8 +116,8 @@ def _launches():
 )
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_square_kernel_matches_plain(cuda, P, G, K, kw, mode):
-    """Unpacked 'lean' walks launch csrc/sn_square_wgmma.cu once, packed
-    input and the 'fused' update csrc/sn_square.cu once."""
+    """Unpacked walks ('lean' and 'fused') launch csrc/sn_square_wgmma.cu
+    once, packed input csrc/sn_square.cu once."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     packed = kw.get("packed", False)
     update = kw.get("update", "lean")
@@ -126,7 +126,7 @@ def test_sn_square_kernel_matches_plain(cuda, P, G, K, kw, mode):
     s, n = sn_square.fused_sn_square(
         sn_square.pack_nibbles(m) if packed else m, t, **kw, **_DIVIDE[mode]
     )
-    wgmma = not packed and update == "lean"
+    wgmma = not packed
     assert _launches() == (before[0] + (not wgmma), before[1],
                            before[2] + wgmma)
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
@@ -181,12 +181,39 @@ def test_sn_square_wgmma_empty_protein_axis(cuda):
 
 @pytest.mark.cuda
 def test_sn_square_counts_variant(cuda):
-    """The 'counts' diagnostic: S is the f32 sum of the counts, N stays 0."""
+    """The 'counts' diagnostic: S is the f32 sum of the counts, N stays 0;
+    one launch of csrc/sn_square_wgmma.cu and of no other kernel."""
     m, t = _square(cuda, 3, 300, 256, seed=9)
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update="counts")
+    before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update="counts")
+    assert _launches() == (before[0], before[1], before[2] + 1)
     _assert_matches_plain(s, n, s_ref, n_ref, "precise")
     assert not n.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "P,G,K",
+    [(5, 300, 256), (4, 130, 128), (9, 129, 128), (1, 77, 200),
+     (2, 130, 34816)],
+    ids=["odd_p_ragged", "even_p_one_slice", "odd_p_one_slice", "p1",
+         "wide_k"],
+)
+@pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
+def test_sn_square_counts_bit_equal_in_every_mode(cuda, P, G, K, mode):
+    """'counts' never divides: in every divide mode its S is bit-equal to
+    the plain version's (one count set a pair, converted once: exact for
+    counts below 2^24) and N is 0, at a ragged G, an odd P and one slice
+    a protein."""
+    m, t = _square(cuda, P, G, K, seed=P * G + K)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update="counts")
+    before = _launches()
+    s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update="counts",
+                                     **_DIVIDE[mode])
+    assert _launches() == (before[0], before[1], before[2] + 1)
+    _assert_matches_plain(s, n, s_ref, n_ref, "precise")
+    assert torch.equal(s, s.T)
 
 
 # The 2p variants' shapes: the bench shape, a ragged G, an odd P, one slice
@@ -201,24 +228,24 @@ _VARIANT_SHAPES = [(80, 4096, 1280), (3, 300, 256), (4, 130, 128),
                          ids=[f"{P}-{G}-{K}" for P, G, K in _VARIANT_SHAPES])
 @pytest.mark.parametrize(
     "variant,like",
-    [("pipe", "lean"), ("f32gram", "lean"), ("mxu_outer", "fused")],
+    [("pipe", "lean"), ("f32gram", "lean"), ("mxu_outer", "fused"),
+     ("fused", "mxu_outer")],
 )
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_square_2p_variant(cuda, P, G, K, variant, like, mode):
-    """'pipe' and 'mxu_outer' (csrc/sn_square_wgmma.cu's two-count-set
-    bodies) and 'f32gram' (csrc/sn_square_mma.cu) against their plain
-    versions, and bit-equal to the kernel whose values they keep ('lean',
-    on csrc/sn_square_wgmma.cu, or 'fused', on csrc/sn_square.cu) in every
-    divide mode; one launch of the variant's kernel and of no other."""
+    """'pipe', 'fused' and 'mxu_outer' (csrc/sn_square_wgmma.cu's
+    two-count-set bodies) and 'f32gram' (csrc/sn_square_mma.cu) against
+    their plain versions, and bit-equal to the kernel whose values they
+    keep ('lean', or 'fused' and 'mxu_outer' each other's, all on
+    csrc/sn_square_wgmma.cu) in every divide mode; one launch of the
+    variant's kernel and of no other."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
     mma = variant == "f32gram"
-    wgmma = variant in ("pipe", "mxu_outer")
     before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant,
                                      **_DIVIDE[mode])
-    assert _launches() == (before[0] + (not mma and not wgmma),
-                           before[1] + mma, before[2] + wgmma)
+    assert _launches() == (before[0], before[1] + mma, before[2] + (not mma))
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
     ws, wn = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=like,
                                        **_DIVIDE[mode])
@@ -227,10 +254,10 @@ def test_sn_square_2p_variant(cuda, P, G, K, variant, like, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["pipe", "mxu_outer"])
+@pytest.mark.parametrize("variant", ["pipe", "mxu_outer", "fused", "counts"])
 def test_fused_aji_two_set_variants_launch_the_wgmma_kernel(cuda, variant):
-    """fused_aji(variant='pipe' | 'mxu_outer') plans 128-row tiles and
-    launches sn_square_wgmma once and no other kernel."""
+    """fused_aji(variant='pipe' | 'mxu_outer' | 'fused' | 'counts') plans
+    128-row tiles and launches sn_square_wgmma once and no other kernel."""
     m, t = _square(cuda, 5, 300, 256, seed=11)
     assert sn_square.fused_aji_plan(5, 300, 256, variant=variant)["tile"] == 128
     before = _launches()
@@ -241,7 +268,7 @@ def test_fused_aji_two_set_variants_launch_the_wgmma_kernel(cuda, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["pipe", "mxu_outer"])
+@pytest.mark.parametrize("variant", ["pipe", "mxu_outer", "fused"])
 def test_two_set_variants_reject_packed_n_overflow(cuda, variant):
     """N in 16-bit halves: P >= 32768 raises before any launch."""
     P = sn_square.WGMMA_MAX_PACKED_P

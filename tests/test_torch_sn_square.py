@@ -137,12 +137,12 @@ def test_plan_rejects_other_tiles():
         sn_square.fused_aji_plan(3, 100, 64, tile=64)
     assert sn_square.fused_aji_plan(3, 100, 64, tile=64,
                                     packed=True)["tile"] == 64
-    for variant in ("pipe", "mxu_outer"):
+    for variant in ("pipe", "fused", "mxu_outer", "counts"):
         assert sn_square.fused_aji_plan(3, 100, 64, tile=128,
                                         variant=variant)["tile"] == 128
         with pytest.raises(ValueError, match="tile on this route is 128"):
             sn_square.fused_aji_plan(3, 100, 64, tile=64, variant=variant)
-    for kw in ({"packed": True}, {"variant": "fused"}):
+    for kw in ({"packed": True}, {"variant": "f32gram"}):
         with pytest.raises(ValueError, match="tile on this route is 64"):
             sn_square.fused_aji_plan(3, 100, 64, tile=128, **kw)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -181,16 +181,16 @@ def test_plan_rejects_other_tiles():
          dict(mode="kb_sym", tile=128, n_tiles=36)),
         (5, 4096, 1280, {"variant": "base"},
          dict(mode="2p", tile=128, n_tiles=528, pp=5)),
-        *((5, 4096, 1280, {"variant": v},
-           dict(mode="2p", tile=64, nt=64, n_tiles=2080, pp=6, kp=1280,
-                mxu_macs=2080 * 64 * 64 * 6 * 1280))
-          for v in ("counts", "fused", "f32gram")),
-        # 'pipe' and 'mxu_outer' run the wgmma kernel's two-count-set
-        # bodies: 528 triu tiles of 128 at the bench shape, 8.858e11 MACs
+        # 'f32gram' alone runs 64-row tiles, two proteins a step
+        (5, 4096, 1280, {"variant": "f32gram"},
+         dict(mode="2p", tile=64, nt=64, n_tiles=2080, pp=6, kp=1280,
+              mxu_macs=2080 * 64 * 64 * 6 * 1280)),
+        # the other variants run the wgmma kernel's bodies: 528 triu tiles
+        # of 128 at the bench shape, 8.858e11 MACs at P=80
         *((p, 4096, 1280, {"variant": v},
            dict(mode="2p", tile=128, gp=4096, nt=32, n_tiles=528, pp=p,
                 kp=1280, mxu_macs=528 * 128 * 128 * p * 1280))
-          for v in ("pipe", "mxu_outer") for p in (5, 80)),
+          for v in ("counts", "fused", "pipe", "mxu_outer") for p in (5, 80)),
         (3, 300, 200, {"variant": "mxu_outer"},
          dict(tile=128, nt=3, n_tiles=6, kp=256, pp=3)),
     ],
@@ -198,7 +198,7 @@ def test_plan_rejects_other_tiles():
 def test_plan_describes_the_route(p, g, k, kw, want):
     """The plan's tile, tile count and MACs are those of the kernel the
     same arguments launch: 128-row tiles on the wgmma kernel, 64-row tiles
-    and two proteins per step on the others."""
+    on the others ('f32gram' with two proteins per step)."""
     plan = sn_square.fused_aji_plan(p, g, k, **kw)
     assert {key: plan[key] for key in want} == want
 
@@ -206,63 +206,67 @@ def test_plan_describes_the_route(p, g, k, kw, want):
 @pytest.mark.parametrize(
     "update,packed,want",
     [("lean", False, True), ("base", False, True), ("pipe", False, True),
-     ("mxu_outer", False, True), ("fused", False, False),
-     ("counts", False, False), ("f32gram", False, False),
+     ("mxu_outer", False, True), ("fused", False, True),
+     ("counts", False, True), ("f32gram", False, False),
      ("lean", True, False)],
 )
 def test_on_wgmma_routes(update, packed, want):
-    """Unpacked presence with 'lean' / 'base', 'pipe' and 'mxu_outer' runs
-    csrc/sn_square_wgmma.cu; 'fused', 'counts', 'f32gram' and packed input
-    run the other two kernels."""
+    """Unpacked presence with every update but 'f32gram' runs
+    csrc/sn_square_wgmma.cu; 'f32gram' and packed input run the other two
+    kernels."""
     assert sn_square._on_wgmma(packed, update) is want
 
 
 def test_wgmma_update_codes_match_the_kernel_sources():
-    """The wrapper's update codes are the header's kLean / kPipe / kPair
-    (the pair body gives the 'mxu_outer' values) and csrc/sn_square.cu's
-    kUpdate codes; the packed-N bound is the header's kMaxPackedP."""
+    """The wrapper's update codes are the header's kLean / kPipe / kPair /
+    kCounts (the pair body gives the 'fused' and 'mxu_outer' values);
+    csrc/sn_square.cu has no update left; the packed-N bound is the
+    header's kMaxPackedP, which binds the two-set codes."""
     csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
     hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
     dp4a = open(os.path.join(csrc, "sn_square.cu")).read()
-    codes = {"lean": "kLean", "pipe": "kPipe", "mxu_outer": "kPair"}
+    codes = {"lean": "kLean", "pipe": "kPipe", "fused": "kPair",
+             "mxu_outer": "kPair", "counts": "kCounts"}
     for name, const in codes.items():
         want = sn_square._WGMMA_UPDATES[name]
         assert f"constexpr int {const} = {want};" in hdr
+    assert "constexpr int kCounts = 3;" in hdr
     assert sn_square._WGMMA_UPDATES["base"] == sn_square._WGMMA_UPDATES["lean"]
-    assert set(sn_square._WGMMA_UPDATES) == {"lean", "base", "pipe",
-                                             "mxu_outer"}
-    for name, const in (("lean", "kLean"), ("counts", "kCounts"),
-                        ("fused", "kFused")):
-        want = sn_square._DP4A_UPDATES[name]
-        assert f"constexpr int {const} = {want};" in dp4a
+    assert set(sn_square._WGMMA_UPDATES) == {"lean", "base", *codes}
+    for gone in ("kFused", "kCounts", "kUpdate", "kLean"):
+        assert gone not in dp4a, gone
     assert (f"constexpr int kMaxPackedP = {sn_square.WGMMA_MAX_PACKED_P};"
             in hdr)
+    assert sorted(sn_square._TWO_SET_CODES) == sorted(
+        {sn_square._WGMMA_UPDATES[u] for u in ("pipe", "fused", "mxu_outer")})
     assert sn_square._VARIANTS == sorted(
-        {*sn_square._WGMMA_UPDATES, *sn_square._DP4A_UPDATES, "f32gram"})
+        {*sn_square._WGMMA_UPDATES, "f32gram"})
 
 
 def test_one_ring_two_count_sets_and_no_dp4a_pipe():
     """One block body: one ring (its refill, its four wgmma a slice and the
     wait for its slices each written once), one count set for 'lean' and
-    two for the two-set updates; csrc/sn_square.cu keeps nothing of its old
-    'pipe' and 'mxu_outer' bodies."""
+    for 'counts' (each its own loop) and two for the two-set updates;
+    csrc/sn_square.cu keeps nothing of its old 'pipe', 'mxu_outer',
+    'fused' and 'counts' bodies."""
     csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
     hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
     # the PTX wrapper's definition and its one call
     assert hdr.count("wgmma_m64n128k32(") == 2
     for once in ("cp_async_wait<kStages - 3>();",
                  "load_slice((stage + kStages - 2) % kStages);",
-                 "    int cnt[4 * kNT];",
                  "    int ca[4 * kNT], cb[4 * kNT];",
                  "auto mma_slice = ",
                  "auto fill_ring = "):
         assert hdr.count(once) == 1, once
+    assert hdr.count("    int cnt[4 * kNT];") == 2
     square = open(os.path.join(csrc, "sn_square_wgmma.cu")).read()
     assert square.count("sn_wgmma_tile<kMode, kUpdate>(") == 1
     assert "smem_bytes(kUpdate)" in square
     dp4a = open(os.path.join(csrc, "sn_square.cu")).read()
     for gone in ("kPipe", "kMxuOuter", "cnt_prev", "mxu_outer_update",
-                 "tf32_hi", "outer_tile_mma", "mma.sync.aligned", "kOuterLd"):
+                 "tf32_hi", "outer_tile_mma", "mma.sync.aligned", "kOuterLd",
+                 "kFused", "kCounts", "__fadd_rn(j0, j1)"):
         assert gone not in dp4a, gone
 
 
@@ -279,6 +283,81 @@ def test_wgmma_two_set_updates_limit_p():
             sn_square._launch_wgmma(m, t, symmetric=True, update=update,
                                     approx=False, precise=False)
     assert sn_square.WGMMA_LAUNCHES == before
+
+
+def test_wgmma_fused_limits_p():
+    """'fused' runs the pair body, which holds N in 16-bit halves: P >=
+    WGMMA_MAX_PACKED_P raises before any launch, through the wrapper's
+    kernel route as through ``_launch_wgmma``.  The reference has no such
+    limit; 'counts' keeps no N and is not bound."""
+    P = sn_square.WGMMA_MAX_PACKED_P
+    m = torch.zeros((P, 1, 128), dtype=torch.uint8)
+    t = torch.ones((P, 1), dtype=torch.float32)
+    before = sn_square.WGMMA_LAUNCHES
+    with pytest.raises(ValueError, match="'fused' on the wgmma kernel takes "
+                                         "P < 32768"):
+        sn_square._launch_wgmma(m, t, symmetric=True, update="fused",
+                                approx=False, precise=False)
+    assert sn_square.WGMMA_LAUNCHES == before
+    assert sn_square._WGMMA_UPDATES["counts"] not in sn_square._TWO_SET_CODES
+
+
+def test_pair_count_sum_is_exact_in_f32():
+    """f32(c0) + f32(c1), rounded to nearest, equals f32(c0 + c1) for every
+    c0, c1 <= MAX_K_SINGLE_BLOCK // 4 (mode '2p''s K bound): 'counts' on the
+    card adds a pair's integer count sum once, converted once, where the
+    plain version adds the pair's two f32 counts."""
+    k = MAX_K_SINGLE_BLOCK // 4
+    assert k == 8192
+    c1 = np.arange(k + 1, dtype=np.int32)
+    f1 = c1.astype(np.float32)
+    for lo in range(0, k + 1, 1024):
+        c0 = np.arange(lo, min(lo + 1024, k + 1), dtype=np.int32)[:, None]
+        got = c0.astype(np.float32) + f1[None, :]
+        want = (c0 + c1[None, :]).astype(np.float32)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+def _emulate_counts(m: np.ndarray) -> np.ndarray:
+    """S of csrc/sn_wgmma.cuh's kCounts update over the whole square, in its
+    schedule: the flat (protein, slice) sequence, four k32 products a slice,
+    each overwriting the count set where the pair's slice index and the
+    step are both 0 (the wgmma scale-d of ``(ks | j) != 0``) and adding to
+    it elsewhere, and after the pair's last slice (or an odd last
+    protein's) one ``s = rn(s + rn(int32 count))``."""
+    P, G, K = m.shape
+    slice_bytes, step = 128, 32
+    m = np.pad(m, ((0, 0), (0, 0), (0, -K % slice_bytes))).astype(np.int32)
+    ks_per_p = m.shape[2] // slice_bytes
+    total, per_pair = P * ks_per_p, 2 * ks_per_p
+    s = np.zeros((G, G), np.float32)
+    cnt = np.full((G, G), -7, np.int32)  # what the set held before
+    ks = 0
+    for it in range(total):
+        p, k = divmod(it, ks_per_p)
+        for j in range(slice_bytes // step):
+            a = m[p, :, k * slice_bytes + j * step:][:, :step]
+            prod = a @ a.T
+            cnt = cnt + prod if (ks | j) != 0 else prod
+        ks += 1
+        if ks == per_pair or it + 1 == total:
+            s = s + cnt.astype(np.float32)
+            ks = 0
+    return s
+
+
+@pytest.mark.parametrize("P,K", [(4, 256), (5, 256), (3, 128), (1, 200)])
+def test_counts_schedule_emulation_equals_plain(P, K):
+    """kCounts' per-pair schedule, emulated in numpy, is bit-equal to
+    ``fused_sn_square_plain(update='counts')`` for even and odd P, one or
+    more slices a protein and a K padded to the slice; N stays 0."""
+    m, t = _presence(P, 70, K, 0.5, seed=P * K)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(
+        torch.from_numpy(m), sn_rect.clamp_t(torch.from_numpy(t)),
+        update="counts")
+    np.testing.assert_array_equal(_emulate_counts(m), s_ref.numpy())
+    assert not n_ref.any()
 
 
 @pytest.mark.parametrize("nt", [1, 2, 3, 32])
@@ -436,7 +515,7 @@ def test_unknown_variant_raises():
                             variant="nope")
 
 
-_VARIANTS_2P = ("pipe", "mxu_outer", "f32gram")
+_VARIANTS_2P = ("pipe", "fused", "mxu_outer", "counts", "f32gram")
 
 
 @pytest.mark.parametrize(
@@ -624,7 +703,7 @@ def test_ablation_cuts_match_the_sources(tool, source):
         args = len(_build_argtypes("sn_square_wgmma_launch"))
         assert (mod.N_POINTERS, mod.N_INTS) == (5, 7) and args == 5 + 7 + 1
         with pytest.raises(SystemExit):
-            mod.main(["--update", "fused"])
+            mod.main(["--update", "f32gram"])
     cuts = sn_rect_ablation.CUTS
     csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
     hdr = open(os.path.join(csrc, sn_rect_ablation.HEADER)).read()
@@ -632,8 +711,8 @@ def test_ablation_cuts_match_the_sources(tool, source):
         os.path.join(csrc, source)).read()
     assert source in open(mod.__file__).read()
     assert [name for name, _ in cuts] == ["full", "noload", "nomma", "noepi"]
-    # noepi cuts both epilogues: kLean's and the two-set updates'
-    assert len(dict(cuts)["noepi"]) == 2
+    # noepi cuts every epilogue: kLean's, the two-set updates' and kCounts'
+    assert len(dict(cuts)["noepi"]) == 3
     for name, replacements in cuts:
         for old, new in replacements:
             assert hdr.count(old) == 1 and new != old, name
