@@ -8,10 +8,11 @@ Run from the repository root:
 1. Builds the CUDA kernels (nvcc) and the host library (g++) from the
    sources in this checkout; fails where ptxas reports a spill in a wgmma
    kernel, serializes its wgmma or injects a wait into a two-count-set
-   body; checks in the kernels' SASS (cuobjdump) that every tensor-core
-   instantiation that the sources build runs on the tensor cores (sn_rect
-   and sn_square_wgmma, each update: IGMMA, the warpgroup product, and
-   asynchronous copies, no __dp4a; sn_square_mma: HMMA), and checks each
+   body; checks in the kernels' SASS (cuobjdump) that every instantiation
+   that the sources build runs on the tensor cores (sn_rect and
+   sn_square_wgmma, each update, packing and walk: IGMMA, the warpgroup
+   product, and asynchronous copies, no __dp4a; packed rows also the
+   shared-memory stores of their split into nibbles), and checks each
    kernel against its plain PyTorch version on the card, in every divide
    mode:
    * sn_rect at the --fast path's block shape, at ragged shapes (one with
@@ -19,29 +20,32 @@ Run from the repository root:
      TPU package's single-block limit and at the kb bench's block, with a
      K sweep at the --fast block that splits its time into a slope per
      presence column and an intercept;
-   * the whole-matrix kernels behind ``sn_square.fused_aji`` at the
-     benchmark's shape: sn_square_wgmma (int8 wgmma in 128 x 128 tiles)
-     through ``fused_aji``'s default plan, one and two proteins per step,
-     the full square and the K-blocked plans, with S and N bit-symmetric
-     and a K sweep that splits its time into a slope per presence column
-     and an intercept (``lean`` in every divide mode, ``pipe``,
-     ``mxu_outer``, ``fused`` and ``counts`` under Newton); sn_square
-     (``__dp4a`` in 64 x 64 tiles) through packed presence and the diagonal
-     and band walks; both also at ragged, one-tile and one-slice shapes and
-     at a K wider than the TPU package's single-block limit;
+   * the whole-matrix kernel behind ``sn_square.fused_aji``,
+     sn_square_wgmma (int8 wgmma in 128 x 128 tiles), at the benchmark's
+     shape through every route: ``fused_aji``'s default plan, one and two
+     proteins per step, the full square, nibble-packed rows (triu and full,
+     also at an odd K), the diagonal walk (one launch) and the band walks
+     (one launch per band row of 128), each launching sn_square_wgmma alone
+     with S and N bit-symmetric, and the K-blocked plans; with a K sweep
+     that splits its time into a slope per presence column and an
+     intercept (``lean`` in every divide mode, ``pipe``, ``mxu_outer``,
+     ``fused``, ``counts`` and packed rows under Newton); every route also
+     at ragged, one-tile and one-slice shapes and at a K wider than the TPU
+     package's single-block limit;
    * the two-proteins-per-step variants ``pipe``, ``fused`` /
      ``mxu_outer`` (sn_square_wgmma's two-count-set bodies, one launch
      each), ``counts`` (its one-count-set pair loop, bit-equal to its plain
-     version in every divide mode) and ``f32gram`` (sn_square_mma, f16
-     counts on the tensor cores) at the benchmark's shape, a ragged G, an
-     odd P, one kernel slice per protein and one protein, each also
+     version in every divide mode) and ``f32gram`` (the default's body) at
+     the benchmark's shape, a ragged G, an odd P, one kernel slice per
+     protein and one protein, each launching sn_square_wgmma once and
      bit-equal to the kernel whose values it keeps (``lean``, ``fused`` or
      ``mxu_outer``);
    * ``counts`` at the benchmark's shape against its library call: one
      ``torch._int_mm`` of the proteins' slabs side by side, (G, P K) by its
      transpose, whose f32 cast must equal the kernel's S bit for bit; the
      call and its relayout copy are timed apart.
-   Kernel and plain times are taken with CUDA events at the main shapes,
+   Kernel and plain times are taken with CUDA events at the main shapes
+   (the median of 5 runs of back-to-back calls),
    and each kernel's bound (the larger of its bytes over the card's
    memory rate and the MACs its function needs over the int8 tensor-core
    peak: P K G (G + 1) / 2 for a symmetric square, whatever tiles the
@@ -86,13 +90,13 @@ Run from the repository root:
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
    sn_square_wgmma and no other kernel, and once with each
-   ``PARFASTAAI_BENCH_VARIANT`` above (all but ``f32gram`` must launch
-   sn_square_wgmma alone, once per ``fused_aji`` call: 81 times), and in
-   kb mode, echoing their JSON lines; checks a band of ``fused_aji`` on the
-   bench's workload against exact f64; and calls ``fused_aji`` with
-   ``packed=True`` on the same workload (launch counters reset just before
-   and read just after: sn_square once, no other kernel), against the
-   default plan's result.
+   ``PARFASTAAI_BENCH_VARIANT`` above (each must launch sn_square_wgmma
+   alone, once per ``fused_aji`` call: 81 times), and in kb mode, echoing
+   their JSON lines; checks a band of ``fused_aji`` on the bench's workload
+   against exact f64; and calls ``fused_aji`` with ``packed=True`` on the
+   same workload (launch counters reset just before and read just after:
+   sn_square_wgmma once, no other kernel), against the default plan's
+   result.
 6. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -131,8 +135,12 @@ SHAPES = [
     ("kb", 16, 1024, 1024, 51200),
 ]
 # K sweep of sn_rect at the main shape's P, A, B and of sn_square_wgmma at
-# the bench shape's P, G.
+# the bench shape's P, G (presence columns; packed rows hold half as many
+# bytes).
 K_SWEEP = (640, 1280, 2560)
+# Kernel times: the median of TIMED_RUNS runs of back-to-back calls, each
+# run between its own pair of CUDA events, after one warm-up.
+TIMED_RUNS = 5
 MODES = [
     ("newton", {}),
     ("approx", {"approx": True}),
@@ -144,8 +152,9 @@ MODES = [
 # under the IEEE divide.
 RTOL_NEWTON_S = 2e-6
 RTOL_APPROX_AJI = 1e-3
-# sn_square at the benchmark's shape (bench.py: P=80, G=4096, K=1280, ~400
-# of 1280 present), a ragged G, and K past the TPU's single-block limit.
+# sn_square_wgmma at the benchmark's shape (bench.py: P=80, G=4096, K=1280,
+# ~400 of 1280 present), a ragged G, and K past the TPU's single-block
+# limit.
 SQUARE_MAIN = (80, 4096, 1280)
 SQUARE_DENSITY = 400 / 1280
 # Then: one ragged 128 x 128 tile, and a diagonal tile with a one-row edge
@@ -160,8 +169,9 @@ VARIANTS = {"pipe": "lean", "mxu_outer": "fused", "fused": "mxu_outer",
             "counts": None, "f32gram": "lean"}
 VARIANT_SMALL = [("ragged", 3, 300, 256), ("odd_p", 5, 700, 1280),
                  ("one_slice", 9, 129, 128), ("p1", 1, 300, 256)]
-# The variants on sn_square_wgmma's bodies other than the default: two
-# count sets (pipe; fused and mxu_outer, one launch) and one a pair (counts).
+# The variants on sn_square_wgmma's bodies other than the default's: two
+# count sets (pipe; fused and mxu_outer, one launch) and one a pair
+# (counts); f32gram runs the default's (lean).
 WGMMA_VARIANTS = ("pipe", "mxu_outer", "fused", "counts")
 # fused_aji calls of one kernel-mode bench run at its default knobs: one
 # warm-up, then 5 timed runs of 16 calls (bench.kernel_bench).
@@ -171,14 +181,16 @@ SQUARE_KB = (16, 1024, 51200)
 # The bench runs with its default knobs, in kernel mode and in kb mode.
 BENCH_KB_ENV = {"PARFASTAAI_BENCH_MODE": "kb"}
 PALLAS = "parfastaai_tpu/ops/pallas_intersect.py"
-# def lines of the TPU kernels each CUDA kernel replaces
+# def lines of the TPU kernels each CUDA kernel replaces: sn_square_wgmma
+# takes _pallas_sn_sym_2p (402) with its bodies (219, 253, 315 and f32gram's
+# _gram 82, 339), _pallas_sn_sym and _pallas_sn (802, 744, packed too),
+# their K-blocked twins (593, 636) and the walks (867, 949, 1035)
 REPLACES = {
     "sn_rect": (1112, 697),
-    # packed presence (_pallas_sn_sym, _pallas_sn) and the walks
-    "sn_square": (802, 744, 867, 949, 1035),
-    "sn_square_wgmma": (402, 219, 253, 315, 339, 802, 744, 593, 636),
-    "sn_square_mma": (315, 82),
+    "sn_square_wgmma": (402, 219, 253, 315, 82, 339, 802, 744, 593, 636, 867,
+                        949, 1035),
 }
+KERNELS = tuple(REPLACES)
 # Device-memory rate (bytes/s) by a substring of
 # torch.cuda.get_device_name, from NVIDIA's H100 data sheet; the int8
 # tensor-core peak beside it is bench.INT8_PEAK_MACS.
@@ -266,19 +278,25 @@ def median_ms(fn, runs: int = 5) -> float:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the card, after one warm-up."""
+    """Milliseconds per call of ``fn`` on the card: the median over
+    TIMED_RUNS runs of the mean of ``reps`` back-to-back calls, each run
+    between its own pair of CUDA events, after one warm-up.  (A single run
+    of 5 calls moved by up to 19% between runs of one tree.)"""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(TIMED_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
 
 
 @contextlib.contextmanager
@@ -419,39 +437,63 @@ def random_square(gen, dev, P, G, K, density):
 
 def square_checks(label, m, t_raw, tc, s_ref, n_ref, modes) -> dict:
     """Every route of sn_square against the plain version's (s_ref, n_ref)
-    of (m, tc); ``modes`` are the divide modes to check.  Returns the max
-    abs errors of the default plan by mode."""
+    of (m, tc), each with S and N bit-symmetric and launching
+    sn_square_wgmma alone: a band walk once per band row of 128, every other
+    route once.  ``modes`` are the divide modes to check.  Returns the max
+    abs errors by (route, mode); the default plan's route is "default"."""
     import torch
 
     from parfastaai_tpu_torch.ops import sn_square
 
+    mp = sn_square.pack_nibbles(m)
+    nt = -(-m.shape[1] // sn_square.WGMMA_TILE)
+    sq = sn_square.fused_sn_square
     errs = {}
     for mode in modes:
         kw = dict(MODES)[mode]
-        aji, s, n = sn_square.fused_aji(m, t_raw, **kw)
-        errs[mode] = check(f"sn_square {label} fused_aji default", s, n,
-                           s_ref, n_ref, mode)
+        (aji, s, n), ran = launched(
+            lambda: sn_square.fused_aji(m, t_raw, **kw))
+        errs[("default", mode)] = check(
+            f"sn_square {label} fused_aji default", s, n, s_ref, n_ref, mode)
         if not torch.equal(torch.isnan(aji), n == 0):
             fail(f"{label}: AJI NaN pattern differs from N == 0")
-        if not (torch.equal(s, s.T) and torch.equal(n, n.T)):
-            fail(f"{label}/{mode}: S or N of the default plan is not "
-                 "bit-symmetric")
-        for name, run in (
-            ("1 protein/step", lambda: sn_square.fused_sn_square(m, tc, **kw)),
-            ("2 proteins/step base", lambda: sn_square.fused_sn_square(
-                m, tc, pairs_per_step=2, update="base", **kw)),
-            ("full square", lambda: sn_square.fused_sn_square(
-                m, tc, symmetric=False, **kw)),
-            ("diag", lambda: sn_square.sn_sym_diag(m, tc, **kw)),
-            ("bands", lambda: sn_square.sn_sym_bands(m, tc, **kw)),
-            ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc, **kw)),
+        for name, run, want in (
+            ("default", None, 1),
+            ("1 protein/step", lambda: sq(m, tc, **kw), 1),
+            ("2 proteins/step base", lambda: sq(
+                m, tc, pairs_per_step=2, update="base", **kw), 1),
+            ("full square", lambda: sq(m, tc, symmetric=False, **kw), 1),
+            ("packed", lambda: sq(mp, tc, packed=True, **kw), 1),
+            ("packed full", lambda: sq(mp, tc, packed=True, symmetric=False,
+                                       **kw), 1),
+            ("diag", lambda: sn_square.sn_sym_diag(m, tc, **kw), 1),
+            ("packed diag", lambda: sn_square.sn_sym_diag(
+                mp, tc, packed=True, **kw), 1),
+            ("bands", lambda: sn_square.sn_sym_bands(m, tc, **kw), nt),
+            ("packed bands", lambda: sn_square.sn_sym_bands(
+                mp, tc, packed=True, **kw), nt),
+            ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc, **kw), nt),
             ("fused_aji full", lambda: sn_square.fused_aji(
-                m, t_raw, symmetric=False, **kw)[1:]),
+                m, t_raw, symmetric=False, **kw)[1:], 1),
+            ("fused_aji packed", lambda: sn_square.fused_aji(
+                m, t_raw, packed=True, **kw)[1:], 1),
         ):
-            check(f"sn_square {label} {name}", *run(), s_ref, n_ref, mode)
+            if run is not None:
+                (s, n), ran = launched(run)
+                errs[(name, mode)] = check(f"sn_square {label} {name}", s, n,
+                                           s_ref, n_ref, mode)
+            if ran != {"sn_square_wgmma": want, "sn_rect": 0}:
+                fail(f"{label}/{mode}: {name} should launch sn_square_wgmma "
+                     f"{want} times and nothing else: {ran}")
+            if not (torch.equal(s, s.T) and torch.equal(n, n.T)):
+                fail(f"{label}/{mode}: S or N of {name} is not bit-symmetric")
         _, s, n = sn_square.fused_aji(m, t_raw, variant="fused", **kw)
         check(f"sn_square {label} variant=fused vs lean plain", s, n, s_ref,
               n_ref, "newton" if mode == "precise" else mode)
+    print(f"sn_square {label}: every route launched sn_square_wgmma alone "
+          f"(the band walks {nt} times, the others once), S and N "
+          "bit-symmetric")
+    del mp
     return errs
 
 
@@ -471,8 +513,7 @@ def variant_checks(label, m, t_raw, tc) -> dict:
             before = read_launches()
             _, s, n = sn_square.fused_aji(m, t_raw, variant=variant, **kw)
             ran = {k: v - before[k] for k, v in read_launches().items()}
-            if variant in WGMMA_VARIANTS and ran != {
-                    **dict.fromkeys(ran, 0), "sn_square_wgmma": 1}:
+            if ran != {**dict.fromkeys(ran, 0), "sn_square_wgmma": 1}:
                 fail(f"{label}: variant={variant} should launch "
                      f"sn_square_wgmma once and nothing else: {ran}")
             err = check(f"sn_square {label} variant={variant}", s, n, s_ref,
@@ -494,9 +535,9 @@ def variant_checks(label, m, t_raw, tc) -> dict:
 
 
 def square_phase(dev) -> dict:
-    """The whole-matrix kernels against their plain versions at the bench
+    """The whole-matrix kernel against its plain versions at the bench
     shape, small shapes and a wide K; kernel and plain times at the bench
-    shape, each with the MACs that its route's plan executes."""
+    shape, each with the MACs that its route's tiles execute."""
     import torch
 
     from parfastaai_tpu_torch.ops import sn_square
@@ -516,44 +557,49 @@ def square_phase(dev) -> dict:
     to = mo.sum(dim=2, dtype=torch.int32)
     s_o, n_o = sn_square.fused_sn_square_plain(mo, clamp_t(to))
     for mode, kw in MODES:
-        _, s, n = sn_square.fused_aji(mo, to, packed=True, **kw)
-        err = check(f"sn_square main P={P} G={G} K={K - 1} packed", s, n,
-                    s_o, n_o, mode)
-        if mode == "newton":
-            packed_err = err
+        for symmetric in (True, False):
+            (_, s, n), ran = launched(lambda: sn_square.fused_aji(
+                mo, to, packed=True, symmetric=symmetric, **kw))
+            check(f"sn_square main P={P} G={G} K={K - 1} packed "
+                  f"{'triu' if symmetric else 'full'}", s, n, s_o, n_o, mode)
+            if ran != {"sn_square_wgmma": 1, "sn_rect": 0} or not (
+                    torch.equal(s, s.T) and torch.equal(n, n.T)):
+                fail(f"odd K packed: launches {ran}, or S / N not symmetric")
     del mo, to, s_o, n_o, s, n
 
     # times at the bench shape
     sq = sn_square.fused_sn_square
     mp = sn_square.pack_nibbles(m)
-    # MACs of each route from its own plan: 128-row tiles on the wgmma
-    # kernel, 64-row tiles (f32gram: two proteins per step) on the others.
+    nt = G // sn_square.WGMMA_TILE
     plan_of = sn_square.fused_aji_plan
     wgmma_macs = plan_of(P, G, K)["mxu_macs"]
-    plan64 = plan_of(P, G, K, variant="f32gram")
-    nt, pp = plan64["nt"], plan64["pp"]
-    tile_macs = plan64["tile"] ** 2 * plan64["kp"]
-    triu = nt * (nt + 1) // 2
+    full_macs = plan_of(P, G, K, symmetric=False)["mxu_macs"]
+    diag_macs = wgmma_macs // (nt * (nt + 1) // 2) * (nt // 2 + 1) * nt
+    routes = [
+        ("packed", lambda: sq(mp, tc, packed=True),
+         plan_of(P, G, K, packed=True)["mxu_macs"], True),
+        ("packed full", lambda: sq(mp, tc, packed=True, symmetric=False),
+         plan_of(P, G, K, packed=True, symmetric=False)["mxu_macs"], False),
+        ("diag", lambda: sn_square.sn_sym_diag(m, tc), diag_macs, True),
+        ("bands", lambda: sn_square.sn_sym_bands(m, tc), wgmma_macs, True),
+        ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc), wgmma_macs,
+         True),
+    ]
     times = time_all(label, (P, G, K), [
         ("wgmma triu, 2 proteins/step (fused_aji default)",
          lambda: sq(m, tc, pairs_per_step=2), wgmma_macs, True),
         # the same launch: the wgmma kernel's protein loop has no steps
         ("wgmma triu, 1 protein/step", lambda: sq(m, tc), wgmma_macs, True),
-        ("wgmma full square", lambda: sq(m, tc, symmetric=False),
-         plan_of(P, G, K, symmetric=False)["mxu_macs"], False),
-        ("1 protein/step triu packed", lambda: sq(mp, tc, packed=True),
-         plan_of(P, G, K, packed=True)["mxu_macs"], True),
+        ("wgmma full square", lambda: sq(m, tc, symmetric=False), full_macs,
+         False),
+        *routes,
         *((variant, lambda v=variant: sq(m, tc, pairs_per_step=2, update=v),
            plan_of(P, G, K, variant=variant)["mxu_macs"], True)
           for variant in VARIANTS),
-        ("diag", lambda: sn_square.sn_sym_diag(m, tc),
-         (nt // 2 + 1) * nt * tile_macs * P, True),
-        ("bands", lambda: sn_square.sn_sym_bands(m, tc),
-         triu * tile_macs * P, True),
-        ("bands_2p", lambda: sn_square.sn_sym_bands_2p(m, tc),
-         triu * tile_macs * pp, True),
         ("plain", lambda: sn_square.fused_sn_square_plain(m, tc),
          P * G * G * K, True),
+        ("packed plain", lambda: sn_square.fused_sn_square_plain(
+            mp, tc, packed=True), P * G * G * K, True),
         *((f"{variant} plain", lambda v=variant:
            sn_square.fused_sn_square_plain(m, tc, update=v), P * G * G * K,
            True)
@@ -561,11 +607,14 @@ def square_phase(dev) -> dict:
         ("fused_aji default", lambda: sn_square.fused_aji(m, t_raw),
          wgmma_macs, True),
     ])
+    # one call of each moved route, counters set to 0 just before it
+    route_launches = {name: launched(run)[1]["sn_square_wgmma"]
+                      for name, run, _, _ in routes}
     del m, mp, t_raw, tc, s_ref, n_ref
     torch.cuda.empty_cache()
 
-    # K sweep of the wgmma kernel at the bench shape's P and G: lean in
-    # every divide mode, the two-count-set bodies under Newton
+    # K sweep at the bench shape's P and G: lean in every divide mode, the
+    # other bodies and packed rows under Newton
     sweep = {}
     for Ks in K_SWEEP:
         m, _, tc = random_square(gen, dev, P, G, Ks, SQUARE_DENSITY)
@@ -574,9 +623,11 @@ def square_phase(dev) -> dict:
         for v in WGMMA_VARIANTS:
             sweep[Ks][v] = cuda_ms(
                 lambda: sq(m, tc, pairs_per_step=2, update=v), 5)
-        del m, tc
+        mp = sn_square.pack_nibbles(m)
+        sweep[Ks]["packed"] = cuda_ms(lambda: sq(mp, tc, packed=True), 5)
+        del m, mp, tc
         torch.cuda.empty_cache()
-    for key in (*(mode for mode, _ in MODES), *WGMMA_VARIANTS):
+    for key in (*(mode for mode, _ in MODES), *WGMMA_VARIANTS, "packed"):
         what = f"lean {key}" if key in dict(MODES) else f"{key} newton"
         print_sweep(f"sn_square_wgmma K sweep P={P} G={G} triu {what}",
                     [sweep[Ks][key] for Ks in K_SWEEP])
@@ -611,31 +662,35 @@ def square_phase(dev) -> dict:
     ]))
     del m, t_raw, tc, s_ref, n_ref, s, n
     torch.cuda.empty_cache()
-    # one bound for the three: each computes the symmetric square
+    # one bound for the triu routes, each of which computes the symmetric
+    # square; the full square's for the full walks
     b = square_bound(*SQUARE_MAIN)
+    b_full = square_bound(*SQUARE_MAIN, symmetric=False)
     print(f"sn_square main: bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
-          f"of the symmetric square; the tiles execute {wgmma_macs:.4e} MACs "
-          f"(128 x 128) and {plan64['mxu_macs']:.4e} MACs (64 x 64)")
+          f"of the symmetric square, {b_full['bound_ms']:.3f} ms of the full "
+          f"one; the triu tiles execute {wgmma_macs:.4e} MACs")
+
+    def entry(name, plain, err, bound_of=b, **extra):
+        return {"max_abs_err": err, "ms": times[name],
+                "plain_ms": times[plain], **bound_of, "library_ms": None,
+                **extra}
+
     return {
-        # the default plan (lean), and each other update beside it; the
-        # library call of counts' function is one int8 GEMM
-        "sn_square_wgmma": {
-            "max_abs_err": errs["newton"],
-            "ms": times["wgmma triu, 2 proteins/step (fused_aji default)"],
-            "plain_ms": times["plain"], **b,
-            "variants": {v: {"max_abs_err": variant_errs[v],
-                             "ms": times[v], "plain_ms": times[f"{v} plain"],
-                             **b, "library_ms": None,
-                             **(library if v == "counts" else {})}
-                         for v in WGMMA_VARIANTS}},
-        # packed presence, the route of the __dp4a kernel that fused_aji
-        # takes
-        "sn_square": {"max_abs_err": packed_err,
-                      "ms": times["1 protein/step triu packed"],
-                      "plain_ms": times["plain"], **b},
-        "sn_square_mma": {"max_abs_err": variant_errs["f32gram"],
-                          "ms": times["f32gram"],
-                          "plain_ms": times["f32gram plain"], **b},
+        "max_abs_err": errs[("default", "newton")],
+        "ms": times["wgmma triu, 2 proteins/step (fused_aji default)"],
+        "plain_ms": times["plain"], **b,
+        # the other updates beside the default plan (their bench runs'
+        # launches); the library call of counts' function is one int8 GEMM
+        "variants": {v: entry(v, f"{v} plain", variant_errs[v],
+                              **(library if v == "counts" else {}))
+                     for v in (*WGMMA_VARIANTS, "f32gram")},
+        # the routes that ran on __dp4a and f16 kernels before: one call's
+        # launches each (counters set to 0 just before it)
+        "routes": {name: entry(name, "packed plain" if "packed" in name
+                               else "plain", errs[(name, "newton")],
+                               b_full if "full" in name else b,
+                               launches=route_launches[name])
+                   for name, _, _, _ in routes},
     }
 
 
@@ -676,9 +731,10 @@ def counts_library(m, tc) -> dict:
 
 
 def time_all(label: str, shape, timed) -> dict:
-    """CUDA-event ms of each (name, fn, executed MACs, symmetric), printed
-    with the int8 MACs per second that the call executes and the bound of
-    the function it computes (``square_bound`` at ``shape``)."""
+    """CUDA-event ms of each (name, fn, executed MACs, symmetric)
+    (``cuda_ms``: the median of TIMED_RUNS runs), printed with the int8
+    MACs per second that the call executes and the bound of the function
+    it computes (``square_bound`` at ``shape``)."""
     times = {}
     for name, fn, macs, symmetric in timed:
         times[name] = cuda_ms(fn, 3 if "plain" in name else 5)
@@ -719,21 +775,15 @@ def bench_phase(dev) -> dict:
               f"launches {ran[name]}")
         return ran
 
-    launches = {"sn_square_wgmma": run({}, "sn_square_wgmma", "")[
-        "sn_square_wgmma"]}
+    launches = run({}, "sn_square_wgmma", "")["sn_square_wgmma"]
     variant_launches = {}
     for variant in VARIANTS:
-        name = ("sn_square_mma" if variant == "f32gram"
-                else "sn_square_wgmma")
-        ran = run({"PARFASTAAI_BENCH_VARIANT": variant}, name,
-                  f" variant={variant}")[name]
-        if variant in WGMMA_VARIANTS:
-            if ran != BENCH_CALLS:
-                fail(f"the bench variant={variant} launched sn_square_wgmma "
-                     f"{ran} times, not {BENCH_CALLS}")
-            variant_launches[variant] = ran
-        else:
-            launches[name] = ran
+        ran = run({"PARFASTAAI_BENCH_VARIANT": variant}, "sn_square_wgmma",
+                  f" variant={variant}")["sn_square_wgmma"]
+        if ran != BENCH_CALLS:
+            fail(f"the bench variant={variant} launched sn_square_wgmma "
+                 f"{ran} times, not {BENCH_CALLS}")
+        variant_launches[variant] = ran
     t0 = time.perf_counter()
     sn_rect.LAUNCHES = 0
     bench.main(BENCH_KB_ENV)
@@ -743,17 +793,16 @@ def bench_phase(dev) -> dict:
     m, t = bench.workload(SQUARE_MAIN[1])
     md, td = torch.from_numpy(m).to(dev), torch.from_numpy(t).to(dev)
     aji, s, n = sn_square.fused_aji(md, td)
-    # the route of the __dp4a kernel: packed presence, one library call
-    reset_launches()
-    _, s_p, n_p = sn_square.fused_aji(md, td, packed=True)
+    # packed presence: one library call on the same workload
+    (_, s_p, n_p), ran = launched(
+        lambda: sn_square.fused_aji(md, td, packed=True))
     torch.cuda.synchronize()
-    ran = read_launches()
-    if ran != {**dict.fromkeys(ran, 0), "sn_square": 1}:
-        fail(f"fused_aji(packed=True) should launch sn_square once and "
-             f"nothing else: {ran}")
-    launches["sn_square"] = ran["sn_square"]
+    if ran != {**dict.fromkeys(ran, 0), "sn_square_wgmma": 1}:
+        fail(f"fused_aji(packed=True) should launch sn_square_wgmma once "
+             f"and nothing else: {ran}")
     check("bench workload fused_aji packed vs the default plan", s_p, n_p, s,
           n, "newton")
+    packed_launches = ran["sn_square_wgmma"]
     del md, td, s, s_p, n_p
     R = BAND_ROWS
     s64, n64 = exact_band(m, t, R)
@@ -767,7 +816,7 @@ def bench_phase(dev) -> dict:
     err = np.nanmax(np.abs(got - want) / np.abs(want))
     print(f"bench workload band: rows 0..{R - 1} x {m.shape[1]} columns, N "
           f"exact, AJI max rel err {err:.3e} (rtol {RTOL_E2E_AJI}) ok")
-    return launches, variant_launches
+    return launches, variant_launches, packed_launches
 
 
 def synth_db(n_genomes: int | None = None) -> str:
@@ -863,17 +912,22 @@ def cli_phases(text: str) -> dict:
 def reset_launches() -> None:
     from parfastaai_tpu_torch.ops import sn_rect, sn_square
 
-    sn_square.LAUNCHES = sn_square.MMA_LAUNCHES = 0
     sn_square.WGMMA_LAUNCHES = sn_rect.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     from parfastaai_tpu_torch.ops import sn_rect, sn_square
 
-    return {"sn_square": sn_square.LAUNCHES,
-            "sn_square_mma": sn_square.MMA_LAUNCHES,
-            "sn_square_wgmma": sn_square.WGMMA_LAUNCHES,
+    return {"sn_square_wgmma": sn_square.WGMMA_LAUNCHES,
             "sn_rect": sn_rect.LAUNCHES}
+
+
+def launched(fn) -> tuple:
+    """(fn's result, {kernel: launches}) with every launch counter set to
+    0 just before the call and read just after."""
+    reset_launches()
+    out = fn()
+    return out, read_launches()
 
 
 def cli_call(out_dir: str, db: str, name: str, flags=(), env=None):
@@ -1259,8 +1313,9 @@ def sass_phase() -> None:
     """From the toolkit's cuobjdump on the built library: integer warpgroup
     products (IGMMA) and asynchronous copies (LDGSTS) and no __dp4a (IDP)
     in every sn_rect and sn_square_wgmma kernel (every divide mode and, for
-    the square, every update: lean, pipe, pair, counts); HMMA and no IDP in
-    the f32gram kernel (sn_square_mma).  Fails unless every instantiation that
+    the square, every update: lean, pipe, pair, counts; lean also on packed
+    rows, whose split into nibbles stores to shared memory (STS), and over
+    the diagonal and band walks).  Fails unless every instantiation that
     the sources build was found and passed."""
     from parfastaai_tpu_torch.ops import _build, sn_square
 
@@ -1278,47 +1333,42 @@ def sass_phase() -> None:
             funcs[name].append(line)
     checked, found = 0, set()
     for name, body in funcs.items():
+        kernel = next((k for k in KERNELS if f"{k}_kernel" in name), None)
+        if kernel is None:
+            continue
         sass = "\n".join(body)
-        hmma = len(re.findall(r"\bHMMA\b", sass))
-        idp = len(re.findall(r"\bIDP\b", sass))
-        wgmma = next((k for k in ("sn_rect", "sn_square_wgmma")
-                      if f"{k}_kernel" in name), None)
         targs = re.search(r"_kernelI((?:Li\d+E)+)E", name)
-        if targs and (wgmma or "sn_square_mma_kernel" in name):
-            found.add((wgmma or "sn_square_mma",
-                       *re.findall(r"Li(\d+)E", targs.group(1))))
-        if wgmma:
-            igmma = len(re.findall(r"\bIGMMA\b", sass))
-            ldgsts = len(re.findall(r"\bLDGSTS\b", sass))
-            ok = igmma > 0 and ldgsts > 0 and idp == 0
-            checked += 1
-            print(f"SASS {wgmma} {name}: {igmma} IGMMA, {ldgsts} LDGSTS, "
-                  f"{idp} IDP {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"SASS of {name}: {igmma} IGMMA, {ldgsts} LDGSTS and "
-                     f"{idp} IDP instructions")
-            continue
-        if "sn_square_mma_kernel" not in name:
-            continue
-        ok = hmma > 0 and idp == 0
+        key = (kernel, *re.findall(r"Li(\d+)E", targs.group(1)))
+        found.add(key)
+        ops = {op: len(re.findall(rf"\b{op}\b", sass))
+               for op in ("IGMMA", "LDGSTS", "IDP", "STS")}
+        packed = kernel == "sn_square_wgmma" and key[3] == "1"
+        ok = (ops["IGMMA"] > 0 and ops["LDGSTS"] > 0 and ops["IDP"] == 0
+              and (ops["STS"] > 0 or not packed))
         checked += 1
-        print(f"SASS f32gram (sn_square_mma) {name}: {hmma} HMMA, {idp} IDP "
+        print(f"SASS {kernel} {name}: {ops['IGMMA']} IGMMA, {ops['LDGSTS']} "
+              f"LDGSTS, {ops['STS']} STS, {ops['IDP']} IDP "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"SASS of {name}: {hmma} HMMA and {idp} IDP instructions")
-    # what the sources build: sn_rect and sn_square_mma per divide mode,
-    # sn_square_wgmma per divide mode and update, but counts (which never
-    # divides) once
+            fail(f"SASS of {name}: {ops}")
+    # what the sources build: sn_rect per divide mode; sn_square_wgmma per
+    # divide mode, update, packing and walk: lean on 0/1 bytes and packed
+    # rows over the list, the diagonals and the bands, the two-set updates
+    # on 0/1 bytes over the list, and counts (which never divides) once
     modes = [str(i) for i in range(len(MODES))]
-    counts = str(sn_square._WGMMA_UPDATES["counts"])
-    updates = sorted({str(v) for v in sn_square._WGMMA_UPDATES.values()})
+    code = {u: str(c) for u, c in sn_square._WGMMA_UPDATES.items()}
+    walks = [str(w) for w in (sn_square._WALK_LIST, sn_square._WALK_DIAG,
+                              sn_square._WALK_BAND)]
     built = {("sn_rect", m) for m in modes} | {
-        ("sn_square_mma", m) for m in modes} | {
-        ("sn_square_wgmma", m, u) for u in updates
-        for m in (["0"] if u == counts else modes)}
+        ("sn_square_wgmma", m, code["lean"], pk, w)
+        for m in modes for pk in "01" for w in walks} | {
+        ("sn_square_wgmma", m, code[u], "0", "0")
+        for m in modes for u in ("pipe", "fused")} | {
+        ("sn_square_wgmma", "0", code["counts"], "0", "0")}
     if found != built or checked != len(built):
         fail(f"SASS: checked {checked} tensor-core kernels, found "
              f"{sorted(found)}, the sources build {sorted(built)}")
+    print(f"SASS: {checked} tensor-core kernels, every one the sources build")
 
 
 def main() -> None:
@@ -1368,7 +1418,7 @@ def main() -> None:
     e2e = e2e_phase(dev)
     streamed_launches = streamed_phase(dev, e2e["band"])
     exact_phase(e2e["band"])
-    whole, whole_variants = bench_phase(dev)
+    whole, whole_variants, packed_launches = bench_phase(dev)
     # every entry module of the port is loaded by now, the library API too
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
@@ -1387,15 +1437,15 @@ def main() -> None:
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")],
                     **kern[("main", "bound")]},
-        # sn_square: its packed route throughout (one fused_aji call with
-        # packed=True on the bench's workload, its error and its times);
-        # sn_square_wgmma: the default plan's, with the other updates (their
-        # bench runs) beside it
-        **{name: {"launches": whole[name], **square[name]}
-           for name in ("sn_square", "sn_square_mma", "sn_square_wgmma")},
+        # the default plan's (its bench run), with the other updates (their
+        # bench runs) and the other routes (one call each; packed: one
+        # fused_aji call on the bench's workload) beside it
+        "sn_square_wgmma": {"launches": whole, **square},
     }
     for v, entry in results["sn_square_wgmma"]["variants"].items():
         entry["launches"] = whole_variants[v]
+    results["sn_square_wgmma"]["routes"]["packed"]["launches"] = (
+        packed_launches)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1406,8 +1456,7 @@ def main() -> None:
         # transform and the two running sums (counts' call is in its
         # variant's entry)
         "library_ms": None,
-    } for name in ("sn_rect", "sn_square", "sn_square_mma",
-                   "sn_square_wgmma")]}))
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,7 @@ from .engine import (
     compute_fast,
     compute_streamed,
     compute_streamed_exact,
+    staged_override,
 )
 from .etl.database import PresenceData, QueryTargetDatabase, SCPDatabase
 from .io.csv_writer import aji_matrix, write_aji_csv
@@ -105,7 +106,8 @@ def _reject_unported(
     for asked, what in (
         (engine == "sharded", "engine='sharded' (the multi-GPU engine)"),
         (bool(mesh), "mesh (the multi-GPU engines)"),
-        (bool(staged), "staged=True (the staged slab engine)"),
+        (bool(staged_override(staged)),
+         "staged=True or PARFASTAAI_STAGED (the staged slab engine)"),
     ):
         if asked:
             raise PFAAIError(
@@ -163,7 +165,9 @@ def aji(
       approx / precise: fused-kernel divide selection (CLI ``--approx`` /
         ``--precise``); only meaningful with ``engine="fast"``.
       staged: presence-slab staging; ``True`` is not run by this package
-        yet (raises), ``None`` / ``False`` keep the buckets resident.
+        yet (raises), ``False`` keeps the buckets resident, ``None`` reads
+        PARFASTAAI_STAGED as the reference does ("0", "false", "no" or
+        unset: resident; any other value: staging, which raises).
       compat_qt_t_swap: replicate the reference's swapped T-column read in
         two-database mode (modes.query_target; default True = reference
         parity).

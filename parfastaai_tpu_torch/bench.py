@@ -10,8 +10,8 @@ mfu, device_kind).
 Kernel mode times ``ops.sn_square.fused_aji`` (the default plan: the
 upper-triangle tiles of 128 x 128 with the mirror written, on the int8
 ``wgmma`` kernel csrc/sn_square_wgmma.cu, whose protein loop has no
-steps; every other variant but ``f32gram`` runs another update of the
-same kernel, ``f32gram`` a 64 x 64 kernel with two proteins per step) on
+steps; every other variant runs an update of the same kernel, ``f32gram``
+the default's) on
 bench.py's workload: P=80 proteins, G=4096 genomes, a compacted presence width of 1280 with each genome holding ~400
 tetramers per protein, drawn from ``np.random.default_rng(0)`` exactly as
 bench.py draws it.  ``value`` is genome pairs (G(G-1)/2) per second.  kb
@@ -165,8 +165,7 @@ def cuda_kernel_and_macs(variant: str, g: int) -> tuple[str, int]:
     the MACs one call of it executes (``fused_aji_plan``: the tiles of that
     kernel, triu over-coverage and padding included)."""
     plan = sn_square.fused_aji_plan(P, g, POOL, variant=variant)
-    kernel = "sn_square_mma" if variant == "f32gram" else "sn_square_wgmma"
-    return kernel, plan["mxu_macs"]
+    return "sn_square_wgmma", plan["mxu_macs"]
 
 
 def kernel_bench(device: torch.device, env) -> dict:

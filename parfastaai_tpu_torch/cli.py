@@ -11,8 +11,8 @@ dense exact path (PARFASTAAI_EXACT_HOST_BYTES, default 4 GiB) the default
 call routes itself through the banded exact engine and writes the same
 bytes.  ``--profile DIR`` writes a Chrome trace of the compute phase (a
 ``torch.profiler`` run) into DIR.  Flags whose engines the port does not
-run yet (``--staged``, ``--mesh``) exit with CONSTRUCT_ERROR (3) and write
-no CSV.
+run yet (``--staged``, ``--mesh``, and PARFASTAAI_STAGED set to ask for
+staging) exit with CONSTRUCT_ERROR (3) and write no CSV.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from .engine import (
     compute_fast,
     compute_streamed,
     compute_streamed_exact,
+    staged_override,
 )
 from .etl.database import QueryTargetDatabase, SCPDatabase
 from .etl.derive import derive_qsub, derive_qt, derive_single
@@ -259,6 +260,13 @@ def _validate(args) -> None:
             ErrorCode.CONSTRUCT_ERROR,
             "--approx/--precise select the fused kernel's divide and "
             "require --fast or --streamed",
+        )
+    if not args.staged and staged_override(None):
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            f"PARFASTAAI_STAGED={os.environ['PARFASTAAI_STAGED']!r} asks for "
+            "staged slabs: the PyTorch port does not run this yet "
+            "(parfastaai_tpu.cli does)",
         )
     not_run = [name for name in _NOT_PORTED if getattr(args, name)]
     if not_run:

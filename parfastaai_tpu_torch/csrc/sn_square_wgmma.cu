@@ -1,21 +1,22 @@
 // Square all-vs-all fused (S, N) on the int8 tensor cores of Hopper (sm_90a).
 //
-// Replaces, for unpacked presence, the square TPU kernels of
-// parfastaai_tpu/ops/pallas_intersect.py: `_pallas_sn_sym_2p` with its
-// `lean` / `base` (`_sym_kernel_2p_lean`, `_sym_kernel_2p`), `counts`
-// (`_sym_kernel_2p_lean` with counts_only), `pipe` (`_sym_kernel_2p_pipe`),
-// `fused` and `mxu_outer` (`_sym_kernel_2p_fused`) bodies, `_pallas_sn_sym`,
-// `_pallas_sn` and their K-blocked twins `_pallas_sn_sym_kb` and
-// `_pallas_sn_kb`.  For one presence tensor M (P, G, K) against itself it
-// computes, per protein p in ascending order,
+// Replaces the square TPU kernels of parfastaai_tpu/ops/pallas_intersect.py:
+// `_pallas_sn_sym_2p` with its `lean` / `base` (`_sym_kernel_2p_lean`,
+// `_sym_kernel_2p`), `f32gram` (`_sym_kernel_2p` with `_gram(f32=True)`,
+// whose exact f32 counts are lean's values), `counts` (`_sym_kernel_2p_lean`
+// with counts_only), `pipe` (`_sym_kernel_2p_pipe`), `fused` and
+// `mxu_outer` (`_sym_kernel_2p_fused`) bodies, `_pallas_sn_sym` and
+// `_pallas_sn` (with nibble-packed input too), their K-blocked twins
+// `_pallas_sn_sym_kb` and `_pallas_sn_kb`, and the walks
+// `_pallas_sn_sym_diag`, `_pallas_sn_sym_bands` and
+// `_pallas_sn_sym_bands_2p`.  For one presence tensor M (P, G, K) against
+// itself it computes, per protein p in ascending order,
 //
 //     cnt = M_p . M_p^T                       (0/1 bytes, int32 counts)
 //     S  += cnt / (t_p[i] + t_p[j] - cnt)     (f32, T pre-clamped >= 1)
 //     N  += min(cnt, 1)                       (int32)
 //
-// over the 128 x 128 output tiles of a list, and writes S and N once.
-// Nibble-packed input and the diagonal and band walks stay on the __dp4a
-// body of csrc/sn_square.cu.
+// over 128 x 128 output tiles, and writes S and N once.
 //
 // Design: the block body that csrc/sn_rect.cu runs (sn_wgmma_tile of
 // csrc/sn_wgmma.cuh) with both operands taken from M.
@@ -26,11 +27,19 @@
 //     16 warp + g + 8 (e / 2), column 8 j + 2 tig + e % 2 of the warpgroup's
 //     64 x 128 piece; g = lane / 4, tig = lane % 4).  192 of a thread's 255
 //     registers are state, which fixes the tile and one block per SM.
-//   * A block reads its (row tile, column tile) from an int32 list that the
-//     wrapper builds: the upper triangle in row-major order, or every tile of
-//     the square (the counterpart of the TPU's scalar-prefetched `rows, cols`
-//     index maps).  Blocks that run together share a row tile and walk the
-//     proteins together, so a protein's slab is read from L2.
+//   * A block finds its (row tile, column tile) in one of three walks
+//     (kWalk).  The list: an int32 list that the wrapper builds, the upper
+//     triangle in row-major order or every tile of the square (the
+//     counterpart of the TPU's scalar-prefetched `rows, cols` index maps).
+//     The wrapped diagonals: block (i, d) of a 2-D grid is tile
+//     (i, (i + d) mod nt), d = 0 .. nt / 2, decoded in closed form (the
+//     TPU's affine-mod index maps; blockIdx.x runs fastest, so the blocks
+//     of one diagonal run together).  The two grid indices are special
+//     registers: nothing of the decode stays live through the body (a 1-D
+//     grid's q / nt did, and ptxas spilled).  A band: block q of the launch for row
+//     tile r is tile (r, r + q); one launch per band row, as the TPU ran it.
+//     Blocks that run together walk the proteins together, so a protein's
+//     slab is read from L2.
 //   * Each K slice stages the tile's 128 rows of M (the A operand) and its 128
 //     columns' rows of M (the B operand) in the 128-byte swizzle of
 //     csrc/sn_wgmma.cuh, through a ring of kStages slices filled by cp.async
@@ -63,16 +72,24 @@
 //     (the header's "Registers" note says why).  `counts` (kCounts) keeps
 //     one count set over each pair and adds the pair's f32 count sum: the
 //     products and the loop without the transform.
+//   * Nibble-packed rows (kPacked, with kLean) hold two presence columns a
+//     byte: each thread splits its own chunks of a landed slice into low
+//     and high nibbles, each a slice of 0/1 bytes, and the slice takes
+//     eight products (csrc/sn_wgmma.cuh).  Half the bytes come out of L2
+//     per product; the split adds shared-memory traffic and a barrier.
 //   * The mirror is written in the last epilogue: with `mirror`, an
-//     off-diagonal tile (r, c) also stores its transpose at (c, r).  Counts
-//     are symmetric and ta + tb commutes, so that is bit-equal to computing
-//     (c, r).  A quad of lanes writes 32 consecutive bytes of a row directly;
-//     the eight lanes of equal tig write 32 consecutive bytes of a mirrored
-//     row: whole sectors both ways.
+//     off-diagonal tile (r, c) of the list or of a band also stores its
+//     transpose at (c, r).  On the wrapped diagonals a tile at 0 < d mirrors
+//     unless 2 d == nt, whose two orientations are both walked (the TPU
+//     wrapper's `covered = dist <= nt // 2`): no cell is stored twice.
+//     Counts are symmetric and ta + tb commutes, so that is bit-equal to
+//     computing (c, r).  A quad of lanes writes 32 consecutive bytes of a
+//     row directly; the eight lanes of equal tig write 32 consecutive bytes
+//     of a mirrored row: whole sectors both ways.
 //   * No atomics and no split over K or P across blocks: S sums in the plain
 //     version's order and the result is deterministic.
 //
-// What bounds it on the H100: see PERF.md (chip_smoke.py's K sweep,
+// What bounds it on the H100: see PERF.md (chip_smoke.py's K sweeps,
 // tools/sn_square_ablation.py); as for sn_rect.cu, the feed from L2 and the
 // epilogue, not the tensor cores.
 
@@ -112,26 +129,48 @@ struct SquareSrc {
   }
 };
 
-template <int kMode, int kUpdate>
+// Walks: how a block finds its output tile.
+constexpr int kWalkList = 0;  // tiles[2 q], tiles[2 q + 1]
+constexpr int kWalkDiag = 1;  // (i, (i + d) mod nt), i, d = blockIdx.x, .y;
+                              // walk_arg nt
+constexpr int kWalkBand = 2;  // (r, r + q); walk_arg r
+
+template <int kMode, int kUpdate, int kPacked, int kWalk>
 __global__ void __launch_bounds__(kThreads, 1)
 sn_square_wgmma_kernel(const uint8_t* __restrict__ m,
                        const float* __restrict__ t,
                        const int32_t* __restrict__ tiles,
                        float* __restrict__ s_out, int32_t* __restrict__ n_out,
-                       int P, int G, int K, int mirror) {
-  const int rt = tiles[2 * blockIdx.x];
-  const int ct = tiles[2 * blockIdx.x + 1];
+                       int P, int G, int K, int mirror, int walk_arg) {
+  int rt, ct;
+  if constexpr (kWalk == kWalkList) {
+    rt = tiles[2 * blockIdx.x];
+    ct = tiles[2 * blockIdx.x + 1];
+  } else if constexpr (kWalk == kWalkDiag) {
+    const int d = blockIdx.y;
+    rt = blockIdx.x;
+    ct = rt + d < walk_arg ? rt + d : rt + d - walk_arg;
+  } else {
+    static_assert(kWalk == kWalkBand, "unknown walk");
+    rt = walk_arg;
+    ct = walk_arg + blockIdx.x;
+  }
   const int row0 = rt * kTile;
   const int col0 = ct * kTile;
   float s[4 * kNT];
   int n[4 * kNT];
-  sn_wgmma_tile<kMode, kUpdate>(SquareSrc{m, t, G, K, row0, col0}, P, K, s,
-                                n);
+  sn_wgmma_tile<kMode, kUpdate, kPacked != 0>(
+      SquareSrc{m, t, G, K, row0, col0}, P, K, s, n);
 
   const int tid = threadIdx.x;
   const int r0 = row0 + tid / 128 * 64 + tid % 128 / 32 * 16 + tid % 32 / 4;
   const int c0 = col0 + 2 * (tid % 4);
-  const bool mirror_tile = mirror && rt != ct;
+  bool mirror_tile = mirror && rt != ct;
+  if constexpr (kWalk == kWalkDiag) {
+    // forward distance d: both orientations of 2 d == nt are walked
+    const int d = blockIdx.y;
+    mirror_tile = d != 0 && 2 * d != walk_arg;
+  }
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
 #pragma unroll
@@ -152,35 +191,56 @@ sn_square_wgmma_kernel(const uint8_t* __restrict__ m,
 
 // ---- host launch ---------------------------------------------------------
 
-template <int kMode, int kUpdate>
-cudaError_t launch(const uint8_t* m, const float* t, const int32_t* tiles,
-                   float* so, int32_t* no, int P, int G, int K, int n_blocks,
-                   int mirror, cudaStream_t st) {
+struct Args {
+  const uint8_t* m;
+  const float* t;
+  const int32_t* tiles;
+  float* s;
+  int32_t* n;
+  int P, G, K, n_blocks, mirror, walk_arg;
+  cudaStream_t st;
+};
+
+template <int kMode, int kUpdate, int kPacked, int kWalk>
+cudaError_t launch(const Args& a) {
   static bool allowed[64] = {};
-  const cudaError_t err = allow_ring(sn_square_wgmma_kernel<kMode, kUpdate>,
-                                     allowed, smem_bytes(kUpdate));
+  constexpr int kBytes = smem_bytes(kUpdate, kPacked);
+  const cudaError_t err = allow_ring(
+      sn_square_wgmma_kernel<kMode, kUpdate, kPacked, kWalk>, allowed, kBytes);
   if (err != cudaSuccess) return err;
-  sn_square_wgmma_kernel<kMode, kUpdate>
-      <<<(unsigned)n_blocks, kThreads, smem_bytes(kUpdate), st>>>(
-          m, t, tiles, so, no, P, G, K, mirror);
+  const dim3 grid = kWalk == kWalkDiag
+                        ? dim3(a.walk_arg, a.n_blocks / a.walk_arg)
+                        : dim3(a.n_blocks);
+  sn_square_wgmma_kernel<kMode, kUpdate, kPacked, kWalk>
+      <<<grid, kThreads, kBytes, a.st>>>(
+          a.m, a.t, a.tiles, a.s, a.n, a.P, a.G, a.K, a.mirror, a.walk_arg);
   return cudaGetLastError();
 }
 
-template <int kUpdate>
-cudaError_t launch_update(int mode, const uint8_t* m, const float* t,
-                          const int32_t* tiles, float* so, int32_t* no, int P,
-                          int G, int K, int n_blocks, int mirror,
-                          cudaStream_t st) {
+template <int kUpdate, int kPacked = 0, int kWalk = kWalkList>
+cudaError_t launch_mode(int mode, const Args& a) {
   switch (mode) {
     case 0:
-      return launch<0, kUpdate>(m, t, tiles, so, no, P, G, K, n_blocks,
-                                mirror, st);
+      return launch<0, kUpdate, kPacked, kWalk>(a);
     case 1:
-      return launch<1, kUpdate>(m, t, tiles, so, no, P, G, K, n_blocks,
-                                mirror, st);
+      return launch<1, kUpdate, kPacked, kWalk>(a);
     case 2:
-      return launch<2, kUpdate>(m, t, tiles, so, no, P, G, K, n_blocks,
-                                mirror, st);
+      return launch<2, kUpdate, kPacked, kWalk>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// kLean on packed or unpacked rows over any walk.
+template <int kPacked>
+cudaError_t launch_walk(int walk, int mode, const Args& a) {
+  switch (walk) {
+    case kWalkList:
+      return launch_mode<kLean, kPacked, kWalkList>(mode, a);
+    case kWalkDiag:
+      return launch_mode<kLean, kPacked, kWalkDiag>(mode, a);
+    case kWalkBand:
+      return launch_mode<kLean, kPacked, kWalkBand>(mode, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -191,42 +251,49 @@ cudaError_t launch_update(int mode, const uint8_t* m, const float* t,
 extern "C" {
 
 // Launches on `stream` and returns the first CUDA error (0 on success).
-// m (P, G, K) holds 0/1 bytes, K a multiple of 128 and m 16-byte aligned;
-// t (P, G) is f32 T clamped to >= 1; tiles is the int32 (n_blocks, 2) list
-// of (row tile, column tile) in units of 128 rows.  The launch writes
-// s (G, G) f32 and n (G, G) int32 at every cell of the tiles it walks and,
-// with mirror, of the transposes of the off-diagonal ones.  mode: 0 Newton,
-// 1 approximate reciprocal, 2 IEEE divide.  update: 0 lean, 1 pipe, 2 pair
-// (the `fused` and `mxu_outer` values), 3 counts (S the f32 sum of the
-// counts, N 0; any mode); 1 and 2 need P < 32768.
+// m (P, G, K) holds 0/1 bytes or, with packed, two nibble columns a byte
+// (column 2j low, 2j + 1 high), K bytes a multiple of 128 and m 16-byte
+// aligned; t (P, G) is f32 T clamped to >= 1.  walk 0 reads the int32
+// (n_blocks, 2) list `tiles` of (row tile, column tile) in units of 128
+// rows; walk 1 (the wrapped diagonals, walk_arg = nt = ceil(G / 128),
+// n_blocks = (nt / 2 + 1) nt, on an nt x (nt / 2 + 1) grid) and walk 2
+// (band row walk_arg, n_blocks = nt - walk_arg) decode their tiles and
+// read no list.  The launch writes
+// s (G, G) f32 and n (G, G) int32 at every cell of the tiles it walks and
+// of the transposes of those it mirrors.  mode: 0 Newton, 1 approximate
+// reciprocal, 2 IEEE divide.  update: 0 lean, 1 pipe, 2 pair (the `fused`
+// and `mxu_outer` values), 3 counts (S the f32 sum of the counts, N 0; any
+// mode); 1 and 2 need P < 32768; packed and walks 1 and 2 run lean.
 int sn_square_wgmma_launch(const void* m, const void* t, const void* tiles,
                            void* s, void* n, int P, int G, int K,
                            int n_blocks, int mirror, int mode, int update,
-                           void* stream) {
+                           int packed, int walk, int walk_arg, void* stream) {
   if (P <= 0 || G <= 0 || K <= 0 || n_blocks <= 0 || K % kSliceBytes ||
       (long long)P * (K / kSliceBytes) > 0x7fffffffLL || mode < 0 ||
-      mode > 2 || ((update == kPipe || update == kPair) && P >= kMaxPackedP))
+      mode > 2 || ((update == kPipe || update == kPair) && P >= kMaxPackedP) ||
+      packed < 0 || packed > 1 || walk < kWalkList || walk > kWalkBand ||
+      (walk == kWalkList) != (tiles != nullptr) || walk_arg < 0 ||
+      (walk == kWalkDiag && (walk_arg == 0 || n_blocks % walk_arg)) ||
+      ((packed || walk != kWalkList) && update != kLean))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* mp = static_cast<const uint8_t*>(m);
-  const float* tp = static_cast<const float*>(t);
-  const int32_t* tl = static_cast<const int32_t*>(tiles);
-  float* so = static_cast<float*>(s);
-  int32_t* no = static_cast<int32_t*>(n);
+  const Args a{static_cast<const uint8_t*>(m),
+               static_cast<const float*>(t),
+               static_cast<const int32_t*>(tiles),
+               static_cast<float*>(s),
+               static_cast<int32_t*>(n),
+               P, G, K, n_blocks, mirror, walk_arg,
+               static_cast<cudaStream_t>(stream)};
+  if (packed) return (int)launch_walk<1>(walk, mode, a);
   switch (update) {
     case kLean:
-      return (int)launch_update<kLean>(mode, mp, tp, tl, so, no, P, G, K,
-                                       n_blocks, mirror, st);
+      return (int)launch_walk<0>(walk, mode, a);
     case kPipe:
-      return (int)launch_update<kPipe>(mode, mp, tp, tl, so, no, P, G, K,
-                                       n_blocks, mirror, st);
+      return (int)launch_mode<kPipe>(mode, a);
     case kPair:
-      return (int)launch_update<kPair>(mode, mp, tp, tl, so, no, P, G, K,
-                                       n_blocks, mirror, st);
+      return (int)launch_mode<kPair>(mode, a);
     case kCounts:
       // counts never divides: one instantiation serves every mode
-      return (int)launch<0, kCounts>(mp, tp, tl, so, no, P, G, K, n_blocks,
-                                     mirror, st);
+      return (int)launch<0, kCounts, 0, kWalkList>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,9 +4,9 @@
 // Jaccard term, and the body of a block: S and N of one 128 x 128 output
 // tile, from a ring of staged K slices to the accumulator registers, with
 // one of four updates (kLean, kPipe, kPair, kCounts: when and in what
-// order the counts become S and N).  The kernels differ in where the staged
-// rows come from and in how the tile is stored.  All in an unnamed
-// namespace.
+// order the counts become S and N), on 0/1 bytes or, with kPacked, on
+// nibble-packed rows.  The kernels differ in where the staged rows come
+// from and in how the tile is stored.  All in an unnamed namespace.
 //
 // The staged layout: a tile is K-major, a slice of 128 bytes of K a row; row
 // r lies at byte 128 r and its 16-byte chunk c at chunk c ^ (r % 8) of that
@@ -153,6 +153,24 @@ constexpr int kRows = 2 * kTile;  // staged rows: the A side's, then the B side'
 constexpr int kTileBytes = kRows * kSliceBytes;
 // ring of slices, ring of T rows, slack to align the ring to 1024 bytes
 constexpr int kSmemBytes = kStages * (kTileBytes + kRows * 4) + 1024;
+// kPacked: a staged byte holds presence columns 2j (low nibble) and 2j + 1
+// (high nibble).  The loader stages the packed bytes as it stages 0/1
+// bytes; each thread then turns its own chunks of a slice that has landed
+// into two slices of 0/1 bytes, the low nibbles in place and the high ones
+// at the same offsets of a buffer beside the ring, and the slice takes
+// eight k32 products instead of four.  Both sides keep one order of the
+// columns (a packed chunk's low nibbles, then its high ones), so the sum
+// over K is the count.  The second slice does not fit beside five stages
+// (227 KB a block): the packed ring has four, two slices in flight (512
+// presence columns, against 384 of the unpacked ring's three), and two
+// high-nibble buffers, slice i's at i % 2.  A thread writes that buffer
+// before the barrier that makes slice i visible, while the other
+// warpgroup's products of slice i - 2 may still read it, so one more
+// barrier a slice comes first: two a packed slice, one per 128 columns as
+// unpacked.
+constexpr int kPackedStages = 4;
+constexpr unsigned kNibbles = 0x0F0F0F0Fu;
+static_assert(kPackedStages % 2 == 0, "slice i's high nibbles at stage % 2");
 constexpr int kNT = kTile / 8;    // n8 column groups of the accumulator
 static_assert(kRows == kThreads, "one T value a thread");
 // The two-set updates keep N beside the ring, two 16-bit halves a word.
@@ -279,14 +297,31 @@ __device__ __forceinline__ void pipe_pieces(const int (&c)[4 * kNT],
   }
 }
 
+// kPacked: the thread's own eight 16-byte chunks of a packed slice (at p,
+// its first; 32 rows apart) after its own copies have landed: the low
+// nibbles in place, the high ones hi_offset bytes on.
+__device__ __forceinline__ void unpack_chunks(uint8_t* p, int hi_offset) {
+#pragma unroll
+  for (int i = 0; i < kRows / 32; ++i) {
+    uint4* const c = reinterpret_cast<uint4*>(p + i * 32 * kSliceBytes);
+    const uint4 v = *c;
+    *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(c) + hi_offset) =
+        make_uint4((v.x >> 4) & kNibbles, (v.y >> 4) & kNibbles,
+                   (v.z >> 4) & kNibbles, (v.w >> 4) & kNibbles);
+    *c = make_uint4(v.x & kNibbles, v.y & kNibbles, v.z & kNibbles,
+                    v.w & kNibbles);
+  }
+}
+
 // S and N of one 128 x 128 tile over proteins 0 .. P - 1 in ascending order,
 // left in this thread's accumulator layout: element 4 j + e is row
 // 64 wg + 16 warp + g + 8 (e / 2), column 8 j + 2 tig + e % 2 of the tile
 // (wg = tid / 128, warp = tid % 128 / 32, g = lane / 4, tig = lane % 4).
 // Called by all kThreads threads of a block that was launched with
-// smem_bytes(kUpdate) of dynamic shared memory; K is a multiple of
-// kSliceBytes, and P < kMaxPackedP for kPipe and kPair; kCounts leaves N
-// at 0 and its S is the sum of the counts (no transform).
+// smem_bytes(kUpdate, kPacked) of dynamic shared memory; K is a multiple
+// of kSliceBytes (packed: bytes of two columns each), and P < kMaxPackedP
+// for kPipe and kPair; kCounts leaves N at 0 and its S is the sum of the
+// counts (no transform).  kPacked runs kLean.
 //
 // `src` names the global memory behind the staged rows:
 //   src.stage_rows(p, k_off, dst0, lrow): this thread's part of one slice of
@@ -298,18 +333,25 @@ __device__ __forceinline__ void pipe_pieces(const int (&c)[4 * kNT],
 //     with it the kernel's time, by up to a tenth.
 //   src.t_row(p, i, live): the T value of staged row i (A's 128, then B's);
 //     past the edge `live` is false and the address any valid one.
-template <int kMode, int kUpdate = kLean, class Src>
+template <int kMode, int kUpdate = kLean, bool kPacked = false, class Src>
 __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
                                               float (&s)[4 * kNT],
                                               int (&n)[4 * kNT]) {
+  static_assert(!kPacked || kUpdate == kLean, "packed rows run kLean");
+  constexpr int kSt = kPacked ? kPackedStages : kStages;
+  // k32 products a slice: packed, four of the low nibbles, four of the high
+  constexpr int kSteps = (kPacked ? 2 : 1) * kSliceBytes / 32;
   extern __shared__ uint4 smem_u4[];
   // 1024-byte aligned: the swizzle is a function of the address bits.
   const uint32_t raw_sa = shared_addr(smem_u4);
   const uint32_t smem_sa = (raw_sa + 1023u) & ~1023u;
   uint8_t* const smem =
       reinterpret_cast<uint8_t*>(smem_u4) + (smem_sa - raw_sa);
-  float* const t_s = reinterpret_cast<float*>(smem + kStages * kTileBytes);
-  const uint32_t t_sa = smem_sa + kStages * kTileBytes;
+  float* const t_s = reinterpret_cast<float*>(smem + kSt * kTileBytes);
+  const uint32_t t_sa = smem_sa + kSt * kTileBytes;
+  // Behind the ring and its T rows: kPacked's two high-nibble buffers, the
+  // two-set updates' N words.
+  const int ring_end = kSt * (kTileBytes + kRows * 4);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;          // warpgroup: rows 64 wg .. + 63
@@ -335,7 +377,7 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
       // This protein's T (zeros past the edge: those cells are never
       // stored).
       const float* t = src.t_row(lp, tid, live);
-      cp_async4(t_sa + ((lp % kStages) * kRows + tid) * 4, t, live ? 4 : 0);
+      cp_async4(t_sa + ((lp % kSt) * kRows + tid) * 4, t, live ? 4 : 0);
     }
     if (++lks == ks_per_p) {
       lks = 0;
@@ -343,10 +385,10 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
     }
   };
 
-  // Slices 0 .. kStages - 3 of the flat (protein, slice) sequence in flight.
+  // Slices 0 .. kSt - 3 of the flat (protein, slice) sequence in flight.
   auto fill_ring = [&] {
 #pragma unroll
-    for (int st = 0; st < kStages - 2; ++st) {
+    for (int st = 0; st < kSt - 2; ++st) {
       if (lp < P) load_slice(st);
       cp_async_commit();
     }
@@ -354,34 +396,48 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
 
   // The next slice of the sequence, slice ks of its protein: its products
   // into count set d (a protein's first overwrites it), one commit group.
-  // Slices it .. it + kStages - 3 are loaded or in flight while slice it is
+  // Slices it .. it + kSt - 3 are loaded or in flight while slice it is
   // multiplied; the stage of slice it - 1 may still be read by wgmma.
   int stage = 0;
   auto mma_slice = [&](int (&d)[4 * kNT], int ks) {
-    cp_async_wait<kStages - 3>();
+    cp_async_wait<kSt - 3>();
+    // kPacked: past this barrier both warpgroups have waited for their
+    // wgmma of slice it - 2, which read the high-nibble buffer of slice it.
+    if constexpr (kPacked) {
+      __syncthreads();
+      unpack_chunks(smem + stage * kTileBytes + lphys,
+                    ring_end + (stage % 2 - stage) * kTileBytes);
+    }
     fence_proxy_async();
     // Past the barrier slice `it` is visible to all, and both warpgroups
     // have waited for their wgmma of slice it - 2: its stage is free.
     __syncthreads();
-    if (lp < P) load_slice((stage + kStages - 2) % kStages);
+    if (lp < P) load_slice((stage + kSt - 2) % kSt);
     cp_async_commit();
 
     const uint32_t a_sa = smem_sa + stage * kTileBytes + wg * 64 * kSliceBytes;
     const uint32_t b_sa = smem_sa + stage * kTileBytes + kTile * kSliceBytes;
-    const uint64_t da = smem_desc(a_sa), db = smem_desc(b_sa);
+    uint64_t da = smem_desc(a_sa), db = smem_desc(b_sa);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kSliceBytes / 32; ++j) {
+    for (int j = 0; j < kSteps; ++j) {
+      if (kPacked && j == kSliceBytes / 32) {
+        // the high nibbles: the same offsets in this slice's buffer
+        const uint32_t h_sa = smem_sa + ring_end + stage % 2 * kTileBytes;
+        da = smem_desc(h_sa + wg * 64 * kSliceBytes);
+        db = smem_desc(h_sa + kTile * kSliceBytes);
+      }
       // 32 bytes further along K inside the swizzled row: + 2 in the
       // descriptor's 16-byte address units.
-      wgmma_m64n128k32(d, da + 2 * j, db + 2 * j, (ks | j) != 0);
+      const int k32 = j % (kSliceBytes / 32);
+      wgmma_m64n128k32(d, da + 2 * k32, db + 2 * k32, (ks | j) != 0);
     }
     wgmma_commit();
-    stage = (stage + 1) % kStages;
+    stage = (stage + 1) % kSt;
   };
-  // Protein p's T: its ring slot, which the loader refills kStages proteins
-  // later (at least kStages slices on, while it runs kStages - 2 ahead).
-  auto t_of = [&](int p) { return t_s + (p % kStages) * kRows; };
+  // Protein p's T: its ring slot, which the loader refills kSt proteins
+  // later (at least kSt slices on, while it runs kSt - 2 ahead).
+  auto t_of = [&](int p) { return t_s + (p % kSt) * kRows; };
 
   if constexpr (kUpdate == kLean) {
     int cnt[4 * kNT];
@@ -401,7 +457,7 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
         // (written out: through add_terms this update compiles to other
         // SASS, and sn_rect's --fast block and the default plans run it).
         wgmma_wait<0>();
-        const float* tp = t_s + (p % kStages) * kRows;
+        const float* tp = t_s + (p % kSt) * kRows;
         const float ta0 = tp[64 * wg + 16 * warp + g];
         const float ta1 = tp[64 * wg + 16 * warp + g + 8];
 #pragma unroll
@@ -459,9 +515,7 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
     const int ta_row = 64 * wg + 16 * warp + g;
     // Counts of the even and the odd proteins; N's words in shared memory.
     int ca[4 * kNT], cb[4 * kNT];
-    uint32_t* const nw = reinterpret_cast<uint32_t*>(
-                             smem + kStages * (kTileBytes + kRows * 4)) +
-                         tid;
+    uint32_t* const nw = reinterpret_cast<uint32_t*>(smem + ring_end) + tid;
 #pragma unroll
     for (int i = 0; i < 4 * kNT; ++i) {
       ca[i] = 0;
@@ -530,9 +584,13 @@ __device__ __forceinline__ void sn_wgmma_tile(const Src& src, int P, int K,
 }
 
 // Dynamic shared memory of a block of the update: the ring, and for the
-// two-set updates N's words.
-constexpr int smem_bytes(int update) {
-  return kSmemBytes + (update == kPipe || update == kPair ? kNWordBytes : 0);
+// two-set updates N's words; packed, the ring of four and the two
+// high-nibble buffers (197 KB).
+constexpr int smem_bytes(int update, bool packed = false) {
+  return packed ? kPackedStages * (kTileBytes + kRows * 4) + 2 * kTileBytes +
+                      1024
+                : kSmemBytes +
+                      (update == kPipe || update == kPair ? kNWordBytes : 0);
 }
 
 // Allows kernel `bytes` of dynamic shared memory: above 48 KB it must be

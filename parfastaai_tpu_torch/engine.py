@@ -257,6 +257,20 @@ def presence_device_bytes(presence: PresenceData) -> int:
     return sum((i - k) * g * kb for k, i, kb in bounds)
 
 
+def staged_override(staged: bool | None) -> bool | None:
+    """The reference's tri-state resolution of staged slabs
+    (``_staged_override``): an explicit ``staged`` wins; else
+    PARFASTAAI_STAGED, where "0", "false", "no" (any case) ask for a
+    resident run and any other non-empty value for staging; else None
+    (decide from the device budget)."""
+    if staged is not None:
+        return staged
+    env = os.environ.get("PARFASTAAI_STAGED")
+    if env:
+        return env.lower() not in ("0", "false", "no")
+    return None
+
+
 def _device_budget(device: torch.device) -> int | None:
     """Device-memory budget for the presence buckets: PARFASTAAI_HBM_BYTES,
     else 75% of the card's memory; None on the CPU."""

@@ -20,8 +20,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [
     os.path.join(_PKG, "csrc", name)
-    for name in ("sn_rect.cu", "sn_square.cu", "sn_square_mma.cu",
-                 "sn_square_wgmma.cu")
+    for name in ("sn_rect.cu", "sn_square_wgmma.cu")
 ]
 # Headers the sources include: hashed with them, so that a changed header
 # never loads a stale library.
@@ -125,21 +124,12 @@ def load() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
             ]
             lib.sn_rect_launch.restype = ci
-            lib.sn_square_launch.argtypes = [
+            lib.sn_square_wgmma_launch.argtypes = [
                 vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                 vp,
             ]
-            lib.sn_square_launch.restype = ci
-            lib.sn_square_mma_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
-            ]
-            lib.sn_square_mma_launch.restype = ci
-            lib.sn_square_wgmma_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
-            ]
             lib.sn_square_wgmma_launch.restype = ci
-            for fn in (lib.sn_rect_error_string, lib.sn_square_error_string,
-                       lib.sn_square_mma_error_string,
+            for fn in (lib.sn_rect_error_string,
                        lib.sn_square_wgmma_error_string):
                 fn.argtypes = [ci]
                 fn.restype = ctypes.c_char_p

@@ -12,19 +12,17 @@ its dispatch plan ``fused_aji_plan`` and the square TPU kernels behind them:
     S  += cnt / (t_p[:, None] + t_p[None, :] - cnt)
     N  += min(cnt, 1)
 
-with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card they are
-three hand-written CUDA kernels.  The tile-list walks of unpacked presence
-with the ``lean`` / ``base`` update (``fused_aji``'s default plan, one or
-two proteins per step, the full square and the K-blocked plans) and with
-the ``pipe``, ``fused``, ``mxu_outer`` and ``counts`` updates run
-csrc/sn_square_wgmma.cu: int8 counts on the tensor cores in 128 x 128
-tiles.  Nibble-packed input and the diagonal and band walks run
-csrc/sn_square.cu, one ``__dp4a`` kernel in 64 x 64 tiles that differs only
-in the tiles it walks, the proteins it takes per step and the packing; the
-``f32gram`` update, whose counts come out of the tensor cores as f32, is
-csrc/sn_square_mma.cu.  CUDA tensors go to those kernels, CPU tensors to
+with T pre-clamped to >= 1 (``sn_rect.clamp_t``).  On the card every route
+is one hand-written CUDA kernel, csrc/sn_square_wgmma.cu: int8 counts on
+the tensor cores in 128 x 128 tiles, with the block body of
+csrc/sn_wgmma.cuh.  Its routes differ in the tiles a launch walks (the
+upper triangle or the whole square from a list, the wrapped diagonals, one
+band row a launch), in the update (``lean`` / ``base`` and ``f32gram``,
+whose exact f32 counts are ``lean``'s values; ``pipe``, ``fused`` /
+``mxu_outer`` and ``counts``) and in the rows it stages (0/1 bytes or
+nibble-packed).  CUDA tensors go to that kernel, CPU tensors to
 ``fused_sn_square_plain``, and any other device raises; there is no
-fallback from a kernel to the plain version.
+fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -41,40 +39,37 @@ from . import _build
 from .fused import int_gram
 from .sn_rect import _as_int8, accumulator_cell, clamp_t
 
-# Kernel launches since the process started (or since a caller reset it):
-# csrc/sn_square.cu's and, apart, csrc/sn_square_mma.cu's and
-# csrc/sn_square_wgmma.cu's.
-LAUNCHES = 0
-MMA_LAUNCHES = 0
+# Launches of csrc/sn_square_wgmma.cu since the process started (or since a
+# caller reset it).
 WGMMA_LAUNCHES = 0
 
-# Output tile edge of the __dp4a and f32gram kernels (rows and columns per
-# thread block) and the K bytes they stage per shared-memory slice (K is
-# zero-padded to a multiple).
-TILE = 64
-K_SLICE = 64
-# The same of csrc/sn_square_wgmma.cu, and its threads per block: two
-# warpgroups with 64 rows of the tile each.  They equal sn_rect's, whose
-# block body it shares (csrc/sn_wgmma.cuh), so sn_rect's index maps
-# (``sn_rect.loader_chunks`` and ``sn_rect.staged_offset`` for each of the
-# two staged sides, ``sn_rect.accumulator_cell``) are this kernel's too.
+# Output tile edge of csrc/sn_square_wgmma.cu (rows and columns per thread
+# block), the K bytes it stages per shared-memory slice (K is zero-padded
+# to a multiple) and its threads per block: two warpgroups with 64 rows of
+# the tile each.  They equal sn_rect's, whose block body it shares
+# (csrc/sn_wgmma.cuh), so sn_rect's index maps (``sn_rect.loader_chunks``
+# and ``sn_rect.staged_offset`` for each of the two staged sides,
+# ``sn_rect.accumulator_cell``) are this kernel's too.
 WGMMA_TILE = 128
 WGMMA_K_SLICE = 128
 WGMMA_THREADS = 256
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 # Updates of the two-proteins-per-step body (the 2p variants of the TPU
-# kernel) on the wgmma kernel: csrc/sn_wgmma.cuh's update codes (kLean,
-# kPipe, kPair, kCounts).  'lean' and 'base' run identical code in the JAX
-# package; so do 'fused' and 'mxu_outer' on the card (the pair body, whose
-# outer sums ta + tb the TPU formed in two ways).  'f32gram' runs
-# csrc/sn_square_mma.cu, which takes no code.
-_WGMMA_UPDATES = {"lean": 0, "base": 0, "pipe": 1, "fused": 2,
+# kernel): csrc/sn_wgmma.cuh's update codes (kLean, kPipe, kPair, kCounts).
+# 'lean' and 'base' run identical code in the JAX package; so do 'fused'
+# and 'mxu_outer' on the card (the pair body, whose outer sums ta + tb the
+# TPU formed in two ways).  'f32gram' asked for counts that leave the matrix
+# unit as f32: exact either way (counts < 2^24), so its values are 'lean''s,
+# and 'lean''s int8 body is the fastest way to them on the card (the f16
+# peak is half the int8 one, and f16 operands double the staged bytes).
+_WGMMA_UPDATES = {"lean": 0, "base": 0, "f32gram": 0, "pipe": 1, "fused": 2,
                   "mxu_outer": 2, "counts": 3}
-_VARIANTS = sorted({*_WGMMA_UPDATES, "f32gram"})
+_VARIANTS = sorted(_WGMMA_UPDATES)
 # The two-count-set updates ('pipe', 'fused', 'mxu_outer') hold N in 16-bit
 # halves: P stays below this (csrc/sn_wgmma.cuh's kMaxPackedP).
 _TWO_SET_CODES = (1, 2)
 WGMMA_MAX_PACKED_P = 32768
+# csrc/sn_square_wgmma.cu's walks (kWalkList, kWalkDiag, kWalkBand).
 _WALK_LIST, _WALK_DIAG, _WALK_BAND = 0, 1, 2
 
 
@@ -83,24 +78,38 @@ def _check_variant(variant: str) -> None:
         raise ValueError(f"unknown variant {variant!r}; one of {_VARIANTS}")
 
 
-def _on_wgmma(packed: bool, update: str) -> bool:
-    """True where a tile-list walk runs csrc/sn_square_wgmma.cu: unpacked
-    presence with any update but 'f32gram'."""
-    return not packed and update in _WGMMA_UPDATES
+def walk_tiles(
+    walk: int, nt: int, walk_arg: int = 0, mirror: bool = True
+) -> list[tuple[int, int, bool]]:
+    """(row tile, column tile, mirrored) of each block of one launch of a
+    walk over nt x nt tiles of 128, in block order, as
+    csrc/sn_square_wgmma.cu decodes them: the list (the upper triangle, or
+    with ``mirror`` off the whole square), the wrapped diagonals
+    (i, (i + d) mod nt) for d = 0 .. nt // 2, where a tile mirrors for 0 < d
+    unless 2 d == nt (both orientations are walked), or band row
+    ``walk_arg`` (r, r .. nt - 1)."""
+    if walk == _WALK_LIST:
+        tiles = _tile_list(nt, mirror, torch.device("cpu")).tolist()
+        return [(r, c, mirror and r != c) for r, c in tiles]
+    if walk == _WALK_DIAG:
+        return [(i, (i + d) % nt, d != 0 and 2 * d != nt)
+                for d in range(nt // 2 + 1) for i in range(nt)]
+    r = walk_arg
+    return [(r, c, mirror and c != r) for c in range(r, nt)]
 
 
 def stored_cells(
-    tid: int, i: int, rt: int, ct: int, mirror: bool
+    tid: int, i: int, rt: int, ct: int, mirrored: bool
 ) -> list[tuple[int, int]]:
     """(row, column) cells of the G x G output that thread ``tid`` of the
     wgmma kernel's block at tile (rt, ct) stores accumulator element ``i``
-    to, as csrc/sn_square_wgmma.cu computes them: the cell itself and, with
-    ``mirror`` off the diagonal tiles, its transpose (cells past G are
-    masked by the kernel)."""
+    to, as csrc/sn_square_wgmma.cu computes them: the cell itself and, where
+    the walk mirrors the tile (``walk_tiles``), its transpose (cells past G
+    are masked by the kernel)."""
     r, c = accumulator_cell(tid % 128, i)
     r += rt * WGMMA_TILE + 64 * (tid // 128)
     c += ct * WGMMA_TILE
-    return [(r, c), (c, r)] if mirror and rt != ct else [(r, c)]
+    return [(r, c), (c, r)] if mirrored else [(r, c)]
 
 
 def pack_nibbles(m: torch.Tensor) -> torch.Tensor:
@@ -130,20 +139,17 @@ def fused_aji_plan(
     ``kb_*`` modes run the same kernel as 'sym' / 'full': the kernel's K
     loop has no fast-memory cap, so K-blocking has nothing to do on the
     card.  The other keys describe what the CUDA kernel really executes.
-    ``tile`` is the route's tile: 128 rows on the wgmma kernel (unpacked
-    presence; in mode '2p', the one mode in which ``variant`` selects
-    anything, with any ``variant`` but 'f32gram'), 64 on the others.
-    ``gp`` is G rounded up to it (rows past G are masked but their
-    products are computed), ``nt`` and ``n_tiles`` the tiles walked
-    (triu over-coverage included), ``pp`` the proteins multiplied (P;
-    rounded up to the two per step where a 64-row kernel takes two), ``kp``
-    the presence columns contracted (K padded to the kernel's slice, 128 or
-    64 bytes; packed rows hold two columns a byte, so the kernel reads kp /
-    2 bytes a row) and ``mxu_macs`` = n_tiles * tile^2 * pp * kp.
+    ``tile`` is its tile, 128 rows on every route (``variant`` selects the
+    update in mode '2p' only).  ``gp`` is G rounded up to it (rows past G
+    are masked but their products are computed), ``nt`` and ``n_tiles``
+    the tiles walked (triu over-coverage included), ``pp`` the proteins
+    multiplied (P: the kernel's protein loop has no steps), ``kp`` the
+    presence columns contracted (K padded to the kernel's 128-byte slice;
+    packed rows hold two columns a byte, so the kernel reads kp / 2 bytes a
+    row) and ``mxu_macs`` = n_tiles * tile^2 * pp * kp.
 
     The JAX ``auto_tile`` model (v5e rates and VMEM budget) has no
-    counterpart: ``tile`` other than None or the route's own raises
-    ValueError."""
+    counterpart: ``tile`` other than None or 128 raises ValueError."""
     _check_variant(variant)
     if packed and k % 2:
         k += 1
@@ -161,26 +167,24 @@ def fused_aji_plan(
         mode = "kb_sym" if symmetric else "kb_full"
     else:
         mode = "sym" if symmetric else "full"
-    wgmma = _on_wgmma(packed, variant if two_per_step else "lean")
-    own, k_slice = (WGMMA_TILE, WGMMA_K_SLICE) if wgmma else (TILE, K_SLICE)
+    own = WGMMA_TILE
     if tile not in (None, own):
         raise ValueError(
             f"the CUDA kernel's tile on this route is {own}, not {tile}"
         )
     nt = -(-g // own)
-    kbytes = -(-k_eff // k_slice) * k_slice
+    kbytes = -(-k_eff // WGMMA_K_SLICE) * WGMMA_K_SLICE
     kp = 2 * kbytes if packed else kbytes
     n_tiles = nt * (nt + 1) // 2 if symmetric else nt * nt
-    pp = p + p % 2 if two_per_step and not wgmma else p
     return {
         "mode": mode,
         "tile": own,
         "gp": nt * own,
         "nt": nt,
         "n_tiles": n_tiles,
-        "pp": pp,
+        "pp": p,
         "kp": kp,
-        "mxu_macs": n_tiles * own * own * pp * kp,
+        "mxu_macs": n_tiles * own * own * p * kp,
     }
 
 
@@ -304,81 +308,15 @@ def _padded(m: torch.Tensor, k_slice: int) -> torch.Tensor:
     return m
 
 
-def _launch(
-    m: torch.Tensor, t: torch.Tensor, walks, *, mirror: bool, pp: int,
-    packed: bool, approx: bool, precise: bool,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run csrc/sn_square.cu once per (walk, tiles, n_blocks, walk_arg) of
-    ``walks`` into one (G, G) S and N on m's CUDA device."""
-    global LAUNCHES
-    dev = m.device
-    m = _padded(m, K_SLICE)
-    P, G, K = m.shape
-    s = torch.empty((G, G), dtype=torch.float32, device=dev)
-    n = torch.empty((G, G), dtype=torch.int32, device=dev)
-    if G == 0:
-        return s, n
-    lib = _build.load()
-    mode = _MODES[(approx, precise)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for walk, tiles, n_blocks, walk_arg in walks:
-            rc = lib.sn_square_launch(
-                m.data_ptr(), t.data_ptr(),
-                None if tiles is None else tiles.data_ptr(),
-                s.data_ptr(), n.data_ptr(), P, G, K, n_blocks, walk,
-                walk_arg, int(mirror), mode, pp, int(packed), stream,
-            )
-            if rc != 0:
-                raise RuntimeError(
-                    "sn_square kernel launch failed: "
-                    f"{lib.sn_square_error_string(rc).decode()} "
-                    f"(cudaError {rc})"
-                )
-            LAUNCHES += 1
-    return s, n
-
-
-def _launch_mma(
-    m: torch.Tensor, t: torch.Tensor, *, symmetric: bool, approx: bool,
-    precise: bool,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run csrc/sn_square_mma.cu (the 'f32gram' update, two proteins per
-    step) once over the upper-triangle 64-row tiles (with the mirror) or
-    every tile of the square, on m's CUDA device."""
-    global MMA_LAUNCHES
-    dev = m.device
-    m = _padded(m, K_SLICE)
-    P, G, K = m.shape
-    s = torch.empty((G, G), dtype=torch.float32, device=dev)
-    n = torch.empty((G, G), dtype=torch.int32, device=dev)
-    if G == 0:
-        return s, n
-    tiles = _tile_list(-(-G // TILE), symmetric, dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sn_square_mma_launch(
-            m.data_ptr(), t.data_ptr(), tiles.data_ptr(), s.data_ptr(),
-            n.data_ptr(), P, G, K, tiles.shape[0], int(symmetric),
-            _MODES[(approx, precise)], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            "sn_square_mma kernel launch failed: "
-            f"{lib.sn_square_mma_error_string(rc).decode()} (cudaError {rc})"
-        )
-    MMA_LAUNCHES += 1
-    return s, n
-
-
 def _launch_wgmma(
     m: torch.Tensor, t: torch.Tensor, *, symmetric: bool, update: str,
-    approx: bool, precise: bool,
+    approx: bool, precise: bool, packed: bool = False, walk: int = _WALK_LIST,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run csrc/sn_square_wgmma.cu once over the upper-triangle tiles (with
-    the mirror) or every tile of the square, on m's CUDA device, with the
-    update of ``update``."""
+    """Run csrc/sn_square_wgmma.cu with the update of ``update`` on m's CUDA
+    device, into one G x G S and N: once over the upper-triangle tiles
+    (with the mirror) or every tile of the square (the list walk), once
+    over the wrapped diagonals, or once per band row (``walk``; both
+    mirror)."""
     global WGMMA_LAUNCHES
     dev = m.device
     P, G, K = m.shape
@@ -393,24 +331,34 @@ def _launch_wgmma(
     if G == 0 or P == 0 or K == 0:
         return (torch.zeros((G, G), dtype=torch.float32, device=dev),
                 torch.zeros((G, G), dtype=torch.int32, device=dev))
-    tiles = _tile_list(-(-G // WGMMA_TILE), symmetric, dev)
+    nt = -(-G // WGMMA_TILE)
+    if walk == _WALK_LIST:
+        tiles = _tile_list(nt, symmetric, dev)
+        launches = [(tiles.data_ptr(), tiles.shape[0], 0)]
+    else:
+        # (tiles, blocks, walk_arg) of each launch: the kernel decodes the
+        # tiles that walk_tiles lists
+        args = [nt] if walk == _WALK_DIAG else range(nt)
+        launches = [(None, len(walk_tiles(walk, nt, a)), a) for a in args]
     s = torch.empty((G, G), dtype=torch.float32, device=dev)
     n = torch.empty((G, G), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sn_square_wgmma_launch(
-            m.data_ptr(), t.data_ptr(), tiles.data_ptr(), s.data_ptr(),
-            n.data_ptr(), P, G, K, tiles.shape[0], int(symmetric),
-            _MODES[(approx, precise)], code, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"sn_square_wgmma kernel launch failed: "
-            f"{lib.sn_square_wgmma_error_string(rc).decode()} "
-            f"(cudaError {rc})"
-        )
-    WGMMA_LAUNCHES += 1
+        for tiles_ptr, n_blocks, walk_arg in launches:
+            rc = lib.sn_square_wgmma_launch(
+                m.data_ptr(), t.data_ptr(), tiles_ptr, s.data_ptr(),
+                n.data_ptr(), P, G, K, n_blocks, int(symmetric),
+                _MODES[(approx, precise)], code, int(packed), walk, walk_arg,
+                stream,
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"sn_square_wgmma kernel launch failed: "
+                    f"{lib.sn_square_wgmma_error_string(rc).decode()} "
+                    f"(cudaError {rc})"
+                )
+            WGMMA_LAUNCHES += 1
     return s, n
 
 
@@ -442,22 +390,21 @@ def fused_sn_square(
     with ``packed``, two nibble columns per byte, ``pack_nibbles``) and t
     (P, G) f32 from ``clamp_t``.
 
-    On CUDA the kernel walks the upper-triangle tiles and writes each
-    off-diagonal tile's mirror (``symmetric``, the TPU's ``_pallas_sn_sym``
-    / ``_pallas_sn_sym_2p`` / ``_pallas_sn_sym_kb``) or every tile
-    (``_pallas_sn`` / ``_pallas_sn_kb``).  Unpacked presence runs the wgmma
-    kernel (csrc/sn_square_wgmma.cu, 128 x 128 tiles) with every update but
-    'f32gram'; its protein loop has no steps: ``pairs_per_step`` 1 and 2
-    are the same 'lean' launch there, bit-identical by construction.
-    Packed presence runs csrc/sn_square.cu in 64 x 64 tiles, one protein
-    per step.  ``update`` other than 'lean' / 'base' selects a 2p variant
-    and needs two proteins per step: 'pipe' adds each protein's terms under
-    the next protein's products (bit-equal to 'lean'), 'fused' and
-    'mxu_outer' (one launch) count two proteins and add ``j0 + j1`` in one
-    epilogue (these three take P < WGMMA_MAX_PACKED_P), 'counts' adds each
-    pair's f32 count sum and leaves N at 0, and 'f32gram' takes the counts
-    as f32 from the tensor cores (csrc/sn_square_mma.cu, 64 x 64 tiles).
-    ``packed`` needs one protein per step.
+    On CUDA csrc/sn_square_wgmma.cu (128 x 128 tiles) walks the
+    upper-triangle tiles and writes each off-diagonal tile's mirror
+    (``symmetric``, the TPU's ``_pallas_sn_sym`` / ``_pallas_sn_sym_2p`` /
+    ``_pallas_sn_sym_kb``) or every tile (``_pallas_sn`` /
+    ``_pallas_sn_kb``), in one launch.  Its protein loop has no steps:
+    ``pairs_per_step`` 1 and 2 are the same 'lean' launch there,
+    bit-identical by construction.  ``update`` other than 'lean' / 'base'
+    selects a 2p variant and needs two proteins per step: 'pipe' adds each
+    protein's terms under the next protein's products (bit-equal to
+    'lean'), 'fused' and 'mxu_outer' (one launch) count two proteins and add
+    ``j0 + j1`` in one epilogue (these three take P < WGMMA_MAX_PACKED_P),
+    'counts' adds each pair's f32 count sum and leaves N at 0, and
+    'f32gram' (exact f32 counts) runs 'lean'.  ``packed`` runs 'lean' on
+    nibble-packed rows, split into low and high nibbles on chip, and needs
+    one protein per step.
     ``approx`` selects the raw approximate reciprocal, ``precise`` the IEEE
     divide (bit-identical to the plain version), neither the
     Newton-refined reciprocal.  CPU tensors go to
@@ -471,17 +418,8 @@ def fused_sn_square(
         raise ValueError("packed input needs pairs_per_step=1")
     if not _route(m, t, approx, precise, "fused_sn_square"):
         return fused_sn_square_plain(m, t, packed=packed, update=update)
-    if _on_wgmma(packed, update):
-        return _launch_wgmma(m, t, symmetric=symmetric, update=update,
-                             approx=approx, precise=precise)
-    if update == "f32gram":
-        return _launch_mma(m, t, symmetric=symmetric, approx=approx,
-                           precise=precise)
-    tiles = _tile_list(-(-m.shape[1] // TILE), symmetric, m.device)
-    return _launch(
-        m, t, [(_WALK_LIST, tiles, tiles.shape[0], 0)], mirror=symmetric,
-        pp=1, packed=True, approx=approx, precise=precise,
-    )
+    return _launch_wgmma(m, t, symmetric=symmetric, update=update,
+                         packed=packed, approx=approx, precise=precise)
 
 
 def sn_sym_diag(
@@ -490,25 +428,15 @@ def sn_sym_diag(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Counterpart of ``_pallas_sn_sym_diag``: the tiles (i, (i + d) mod nt)
     for d = 0..nt//2, decoded in closed form from the block index (the
-    TPU's affine-mod index maps), (nt//2 + 1) * nt tiles in one launch.
-    Tiles at a forward distance above nt//2 are mirrored; for an even nt
-    both orientations of d = nt/2 are computed.  Same values as
-    ``fused_sn_square``; CPU tensors run the plain version."""
+    TPU's affine-mod index maps), (nt//2 + 1) * nt tiles of 128 in one
+    launch.  A tile at 0 < d is mirrored unless 2 d == nt: for an even nt
+    both orientations of d = nt/2 are computed, and neither mirrors
+    (``walk_tiles``).  Same values as ``fused_sn_square``; CPU tensors run
+    the plain version."""
     if not _route(m, t, approx, precise, "sn_sym_diag"):
         return fused_sn_square_plain(m, t, packed=packed)
-    nt = -(-m.shape[1] // TILE)
-    return _launch(
-        m, t, [(_WALK_DIAG, None, (nt // 2 + 1) * nt, nt)], mirror=True,
-        pp=1, packed=packed, approx=approx, precise=precise,
-    )
-
-
-def _bands(m, t, pp, packed, approx, precise):
-    nt = -(-m.shape[1] // TILE)
-    return _launch(
-        m, t, [(_WALK_BAND, None, nt - r, r) for r in range(nt)],
-        mirror=True, pp=pp, packed=packed, approx=approx, precise=precise,
-    )
+    return _launch_wgmma(m, t, symmetric=True, update="lean", packed=packed,
+                         walk=_WALK_DIAG, approx=approx, precise=precise)
 
 
 def sn_sym_bands(
@@ -516,13 +444,14 @@ def sn_sym_bands(
     approx: bool = False, precise: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Counterpart of ``_pallas_sn_sym_bands``: nt launches, band r over the
-    tiles (r, r..nt-1) with one protein per step, each writing its band and
-    the band's mirror in place into one G x G S/N (the TPU version stitched
-    per-band outputs with dynamic_update_slice).  Same values as
-    ``fused_sn_square``; CPU tensors run the plain version."""
+    tiles (r, r..nt-1) of 128, each writing its band and the band's mirror
+    in place into one G x G S/N (the TPU version stitched per-band outputs
+    with dynamic_update_slice).  Same values as ``fused_sn_square``; CPU
+    tensors run the plain version."""
     if not _route(m, t, approx, precise, "sn_sym_bands"):
         return fused_sn_square_plain(m, t, packed=packed)
-    return _bands(m, t, 1, packed, approx, precise)
+    return _launch_wgmma(m, t, symmetric=True, update="lean", packed=packed,
+                         walk=_WALK_BAND, approx=approx, precise=precise)
 
 
 def sn_sym_bands_2p(
@@ -531,11 +460,13 @@ def sn_sym_bands_2p(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Counterpart of ``_pallas_sn_sym_bands_2p``: ``sn_sym_bands`` with two
     proteins per step, written in place (the counterpart of the TPU
-    version's input_output_aliases).  Same values as ``fused_sn_square``;
-    CPU tensors run the plain version."""
+    version's input_output_aliases).  The kernel's protein loop has no
+    steps, so it is ``sn_sym_bands``' launches.  Same values as
+    ``fused_sn_square``; CPU tensors run the plain version."""
     if not _route(m, t, approx, precise, "sn_sym_bands_2p"):
         return fused_sn_square_plain(m, t)
-    return _bands(m, t, 2, False, approx, precise)
+    return _launch_wgmma(m, t, symmetric=True, update="lean",
+                         walk=_WALK_BAND, approx=approx, precise=precise)
 
 
 def fused_aji(
@@ -554,7 +485,7 @@ def fused_aji(
     m is the (P, G, K) 0/1 uint8/int8 presence tensor and t its (P, G)
     rowsums (any numeric dtype; clamped here).  Returns (aji f32, s f32,
     n int32), each (G, G); aji = s / n is NaN where N == 0 and the diagonal
-    is each genome's self-AJI.  ``fused_aji_plan`` picks the kernel: two
+    is each genome's self-AJI.  ``fused_aji_plan`` picks the plan: two
     proteins per step for symmetric, unpacked K <= MAX_K_SINGLE_BLOCK // 4
     (``variant`` then selects the update: 'lean' / 'base', 'pipe',
     'f32gram', 'fused', 'mxu_outer' or the 'counts' diagnostic; see

@@ -37,11 +37,11 @@ HEADER = "sn_wgmma.cuh"
 CUTS = [
     ("full", []),
     ("noload", [
-        ("    if (lp < P) load_slice((stage + kStages - 2) % kStages);",
-         "    if (lp < 0) load_slice((stage + kStages - 2) % kStages);")]),
+        ("    if (lp < P) load_slice((stage + kSt - 2) % kSt);",
+         "    if (lp < 0) load_slice((stage + kSt - 2) % kSt);")]),
     ("nomma", [
-        ("      wgmma_m64n128k32(d, da + 2 * j, db + 2 * j, (ks | j) != 0);",
-         "      (void)da, (void)db;")]),
+        ("      wgmma_m64n128k32(d, da + 2 * k32, db + 2 * k32, (ks | j) != 0);",
+         "      (void)da, (void)db, (void)k32;")]),
     # every update's epilogue: kLean's column groups, add_terms' (the
     # two-count-set updates) and kCounts' conversion
     ("noepi", [

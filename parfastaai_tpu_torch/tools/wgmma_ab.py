@@ -11,12 +11,14 @@ library of its own, and prints, for every instantiation that both build,
 ptxas's registers and spills and whether the two SASS instruction mixes
 (the count of each opcode) are the same; a kernel that took fewer template
 arguments in one checkout is matched with their value 0 (for
-sn_square_wgmma's update: ``lean``).  Then it times, in the Newton
+sn_square_wgmma's update, packing and walk: ``lean`` on 0/1 bytes over a
+tile list).  Then it times, in the Newton
 mode and in turns (other, this, this, other), sn_rect at the ``--fast``
 block (P=80, 1024 x 4096, K=1280) and the square's ``lean`` update at the
 whole-matrix bench's shape (P=80, G=4096, K=1280, upper-triangle tiles).
-A square C entry from before its ``update`` argument takes 6 ints
-(``--other-square-ints 6``).  Prints the card's name and power limit
+A square C entry takes 10 ints, one from before its ``packed``, ``walk``
+and ``walk_arg`` arguments 7 (``--other-square-ints 7``, the default),
+one from before its ``update`` 6.  Prints the card's name and power limit
 first.
 """
 
@@ -34,12 +36,13 @@ import torch
 
 from ..ops import _build, sn_rect, sn_square
 from .sn_rect_ablation import cuda_ms
+from .sn_square_ablation import N_INTS
 
 SOURCES = ("sn_rect.cu", "sn_square_wgmma.cu")
 KERNEL = re.compile(r"(sn_rect|sn_square_wgmma)_kernelI((?:Li\d+E)+)E")
-# template arguments a key carries: (mode,) and (mode, update), the
-# missing ones 0
-N_ARGS = 2
+# template arguments a key carries: (mode,) and (mode, update, packed,
+# walk), the missing ones 0
+N_ARGS = 4
 
 
 def kernel_key(name: str) -> tuple | None:
@@ -117,7 +120,7 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other_csrc")
     ap.add_argument("--other-square-ints", type=int, default=7,
-                    choices=(6, 7))
+                    choices=(6, 7, N_INTS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU with CUDA")
@@ -137,7 +140,7 @@ def main(argv: list[str] | None = None) -> None:
                       f"{other[src][2].get(key) == this[src][2].get(key)}")
         libs = {}
         for tag, built, n_ints in (("other", other, args.other_square_ints),
-                                   ("this", this, 7)):
+                                   ("this", this, N_INTS)):
             rect = ctypes.CDLL(built["sn_rect.cu"][0])
             rect.sn_rect_launch.argtypes = ([ctypes.c_void_p] * 6
                                             + [ctypes.c_int] * 5
@@ -172,7 +175,7 @@ def main(argv: list[str] | None = None) -> None:
                 raise SystemExit(f"{tag} sn_rect launch: cudaError {rc}")
 
         def square_call(tag):
-            ints = [P, G, K, tiles.shape[0], 1, 0, 0][:libs[tag][2]]
+            ints = [P, G, K, tiles.shape[0], 1, 0, 0, 0, 0, 0][:libs[tag][2]]
             rc = libs[tag][1].sn_square_wgmma_launch(
                 m.data_ptr(), t.data_ptr(), tiles.data_ptr(), s.data_ptr(),
                 n.data_ptr(), *ints, stream)

@@ -227,6 +227,41 @@ def test_staged_none_and_false_are_accepted(staged, dbs, tmp_path):
                    staged=staged).matrix.shape == (40, 40)
 
 
+@pytest.mark.parametrize("value,staged", [
+    ("1", True), ("true", True), ("0", False), ("no", False), ("", False)])
+@pytest.mark.parametrize("fn,engine", [
+    ("aji", "exact"), ("aji", "fast"), ("aji_to_csv", "streamed"),
+    ("aji_to_csv", "streamed-exact")])
+def test_staged_env_is_read_as_the_reference_reads_it(
+        value, staged, fn, engine, dbs, tmp_path, monkeypatch):
+    """With ``staged=None`` PARFASTAAI_STAGED decides: a value that asks for
+    staging raises CONSTRUCT_ERROR before the database is read (a missing
+    DB raises the same) and writes nothing; "0", "no" and an empty value
+    run resident.  An explicit ``staged=False`` overrides the variable."""
+    monkeypatch.setenv("PARFASTAAI_STAGED", value)
+    out = tmp_path / "x.csv"
+
+    def call(db, **kw):
+        args = (str(out), db) if fn == "aji_to_csv" else (db,)
+        return getattr(api, fn)(*args, engine=engine, device="cpu", **kw)
+
+    if staged:
+        for db in (dbs["target"], str(tmp_path / "missing.db")):
+            with pytest.raises(PFAAIError) as e:
+                call(db)
+            assert e.value.code == ErrorCode.CONSTRUCT_ERROR
+            assert "PARFASTAAI_STAGED" in str(e.value)
+            assert not out.exists()
+    else:
+        call(dbs["target"])
+    # staged=False keeps the buckets resident whatever the variable says
+    res = call(dbs["target"], staged=False)
+    if fn == "aji":
+        assert res.matrix.shape == (40, 40)
+    else:
+        assert out.read_bytes().count(b"\n") == 41
+
+
 def test_device_is_named_never_guessed(dbs, tmp_path, monkeypatch):
     """The default device is cuda; without CUDA a call raises and writes
     nothing, and an unknown device name raises too."""

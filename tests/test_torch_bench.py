@@ -81,16 +81,15 @@ def test_cpu_plain_run_prints_one_json_line(capsys, env):
         ("counts", "sn_square_wgmma", 528 * 128 * 128 * 80 * 1280),
         ("pipe", "sn_square_wgmma", 528 * 128 * 128 * 80 * 1280),
         ("mxu_outer", "sn_square_wgmma", 528 * 128 * 128 * 80 * 1280),
-        ("f32gram", "sn_square_mma", 2080 * 64 * 64 * 80 * 1280),
+        ("f32gram", "sn_square_wgmma", 528 * 128 * 128 * 80 * 1280),
     ],
 )
 def test_cuda_run_counts_the_macs_of_the_kernel_that_ran(variant, kernel,
                                                          macs):
     """On the card the bench names the variant's kernel and counts the MACs
-    of that kernel's tiles: 528 triu tiles of 128 on the wgmma kernel
-    (every variant but 'f32gram': 8.858e11), 2080 of 64 on the f32gram
-    kernel (8.724e11); a call that took the time of the card's dense int8
-    peak would read that peak."""
+    of that kernel's tiles: 528 triu tiles of 128 on the wgmma kernel, for
+    every variant ('f32gram' runs lean's body): 8.858e11; a call that took
+    the time of the card's dense int8 peak would read that peak."""
     assert bench.cuda_kernel_and_macs(variant, 4096) == (kernel, macs)
     peak_ms = macs / bench.int8_peak("NVIDIA H100 80GB HBM3") * 1e3
     result = bench._result("m", 1.0, macs, peak_ms, torch.device("cpu"))

@@ -151,6 +151,33 @@ def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
     assert "CONSTRUCT_ERROR" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("value,staged", [
+    ("1", True), ("yes", True), ("0", False), ("False", False), ("", False)])
+@pytest.mark.parametrize("flags", [[], ["--streamed"], ["--fast"]])
+def test_staged_env_is_read_as_the_reference_reads_it(
+        value, staged, flags, dbs, tmp_path, capsys, monkeypatch):
+    """PARFASTAAI_STAGED asks for staged slabs unless it is "0", "false",
+    "no" or empty: then the CLI exits 3 as for --staged, before it opens
+    the database (a DB that does not exist would give another code), and
+    writes no CSV; otherwise the run stays resident and writes the bytes
+    of a run without the variable."""
+    out, plain = tmp_path / "x.csv", tmp_path / "plain.csv"
+    argv = ["--quiet", "--device", "cpu", *flags]
+    monkeypatch.delenv("PARFASTAAI_STAGED", raising=False)
+    assert run([dbs["target"], str(plain), *argv]) == 0
+    monkeypatch.setenv("PARFASTAAI_STAGED", value)
+    if staged:
+        missing = str(tmp_path / "missing.db")
+        for db in (dbs["target"], missing):
+            assert run([db, str(out), *argv]) == 3
+            assert not out.exists()
+            err = capsys.readouterr().err
+            assert "CONSTRUCT_ERROR" in err and "PARFASTAAI_STAGED" in err
+        return
+    assert run([dbs["target"], str(out), *argv]) == 0
+    assert out.read_bytes() == plain.read_bytes()
+
+
 def assert_streamed_close(got: bytes, want: bytes, sep=",") -> None:
     """The f32 streamed engine's stated tolerance between two CSVs: the
     same header and row names as bytes, a cell is the text ``0`` in one

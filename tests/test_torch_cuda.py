@@ -94,8 +94,10 @@ _DIVIDE = {"newton": {}, "approx": {"approx": True},
 
 
 def _launches():
-    return (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
-            sn_square.WGMMA_LAUNCHES)
+    """Launches of csrc/sn_square_wgmma.cu, the one kernel of every square
+    route, and of the rectangular kernel, which no square route may
+    launch."""
+    return sn_square.WGMMA_LAUNCHES, sn_rect.LAUNCHES
 
 
 @pytest.mark.cuda
@@ -116,8 +118,8 @@ def _launches():
 )
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_square_kernel_matches_plain(cuda, P, G, K, kw, mode):
-    """Unpacked walks ('lean' and 'fused') launch csrc/sn_square_wgmma.cu
-    once, packed input csrc/sn_square.cu once."""
+    """Every walk ('lean' and 'fused', packed input too) launches
+    csrc/sn_square_wgmma.cu once and no other kernel."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     packed = kw.get("packed", False)
     update = kw.get("update", "lean")
@@ -126,9 +128,7 @@ def test_sn_square_kernel_matches_plain(cuda, P, G, K, kw, mode):
     s, n = sn_square.fused_sn_square(
         sn_square.pack_nibbles(m) if packed else m, t, **kw, **_DIVIDE[mode]
     )
-    wgmma = not packed
-    assert _launches() == (before[0] + (not wgmma), before[1],
-                           before[2] + wgmma)
+    assert _launches() == (before[0] + 1, before[1])
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
 
 
@@ -163,7 +163,7 @@ def test_sn_square_wgmma_matches_plain(cuda, P, G, K, kw, mode):
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t)
     before = _launches()
     s, n = sn_square.fused_sn_square(m, t, **kw, **_DIVIDE[mode])
-    assert _launches() == (before[0], before[1], before[2] + 1)
+    assert _launches() == (before[0] + 1, before[1])
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
     assert torch.equal(s, s.T) and torch.equal(n, n.T)
 
@@ -187,7 +187,7 @@ def test_sn_square_counts_variant(cuda):
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update="counts")
     before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update="counts")
-    assert _launches() == (before[0], before[1], before[2] + 1)
+    assert _launches() == (before[0] + 1, before[1])
     _assert_matches_plain(s, n, s_ref, n_ref, "precise")
     assert not n.any()
 
@@ -211,7 +211,7 @@ def test_sn_square_counts_bit_equal_in_every_mode(cuda, P, G, K, mode):
     before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update="counts",
                                      **_DIVIDE[mode])
-    assert _launches() == (before[0], before[1], before[2] + 1)
+    assert _launches() == (before[0] + 1, before[1])
     _assert_matches_plain(s, n, s_ref, n_ref, "precise")
     assert torch.equal(s, s.T)
 
@@ -234,18 +234,16 @@ _VARIANT_SHAPES = [(80, 4096, 1280), (3, 300, 256), (4, 130, 128),
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
 def test_sn_square_2p_variant(cuda, P, G, K, variant, like, mode):
     """'pipe', 'fused' and 'mxu_outer' (csrc/sn_square_wgmma.cu's
-    two-count-set bodies) and 'f32gram' (csrc/sn_square_mma.cu) against
-    their plain versions, and bit-equal to the kernel whose values they
-    keep ('lean', or 'fused' and 'mxu_outer' each other's, all on
-    csrc/sn_square_wgmma.cu) in every divide mode; one launch of the
-    variant's kernel and of no other."""
+    two-count-set bodies) and 'f32gram' (its lean body) against their plain
+    versions, and bit-equal to the kernel whose values they keep ('lean',
+    or 'fused' and 'mxu_outer' each other's) in every divide mode; one
+    launch of csrc/sn_square_wgmma.cu and of no other kernel."""
     m, t = _square(cuda, P, G, K, seed=P + G + K)
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
-    mma = variant == "f32gram"
     before = _launches()
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant,
                                      **_DIVIDE[mode])
-    assert _launches() == (before[0], before[1] + mma, before[2] + (not mma))
+    assert _launches() == (before[0] + 1, before[1])
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
     ws, wn = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=like,
                                        **_DIVIDE[mode])
@@ -262,7 +260,7 @@ def test_fused_aji_two_set_variants_launch_the_wgmma_kernel(cuda, variant):
     assert sn_square.fused_aji_plan(5, 300, 256, variant=variant)["tile"] == 128
     before = _launches()
     _, s, n = sn_square.fused_aji(m, t, variant=variant, precise=True)
-    assert _launches() == (before[0], before[1], before[2] + 1)
+    assert _launches() == (before[0] + 1, before[1])
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t, update=variant)
     _assert_matches_plain(s, n, s_ref, n_ref, "precise")
 
@@ -281,19 +279,73 @@ def test_two_set_variants_reject_packed_n_overflow(cuda, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [256, 300])  # nt = 4 (even), 5 (odd)
-@pytest.mark.parametrize(
-    "name", ["sn_sym_diag", "sn_sym_bands", "sn_sym_bands_2p"]
-)
+@pytest.mark.parametrize("G", [256, 300, 512, 640])  # nt = 2, 3, 4, 5
+@pytest.mark.parametrize("name,packed", [
+    ("sn_sym_diag", False), ("sn_sym_diag", True), ("sn_sym_bands", False),
+    ("sn_sym_bands", True), ("sn_sym_bands_2p", False)])
 @pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
-def test_sn_square_alternative_walks(cuda, G, name, mode):
+def test_sn_square_alternative_walks(cuda, G, name, packed, mode):
+    """The diagonal walk (one launch) and the band walks (one launch per
+    band row of 128) on csrc/sn_square_wgmma.cu, packed or not, against the
+    plain version, S and N bit-symmetric, at an even and an odd nt."""
     m, t = _square(cuda, 3, G, 256, seed=G)
     s_ref, n_ref = sn_square.fused_sn_square_plain(m, t)
-    before = sn_square.LAUNCHES
-    s, n = getattr(sn_square, name)(m, t, **_DIVIDE[mode])
-    nt = -(-G // 64)
-    assert sn_square.LAUNCHES == before + (1 if name == "sn_sym_diag" else nt)
+    kw = {"packed": True} if packed else {}
+    before = _launches()
+    s, n = getattr(sn_square, name)(
+        sn_square.pack_nibbles(m) if packed else m, t, **kw, **_DIVIDE[mode])
+    nt = -(-G // 128)
+    assert _launches() == (
+        before[0] + (1 if name == "sn_sym_diag" else nt), before[1])
     _assert_matches_plain(s, n, s_ref, n_ref, mode)
+    assert torch.equal(s, s.T) and torch.equal(n, n.T)
+
+
+# Packed rows at the small shapes: ragged G, one ragged tile, an odd K, one
+# packed slice a protein (the ring wraps at once), K past the TPU's
+# single-block limit.
+_PACKED_SHAPES = [(3, 300, 256), (3, 77, 256), (3, 129, 255), (9, 129, 256),
+                  (2, 130, 34816)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,G,K", _PACKED_SHAPES,
+                         ids=[f"{P}-{G}-{K}" for P, G, K in _PACKED_SHAPES])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("mode", ["newton", "approx", "precise"])
+def test_sn_square_packed_matches_plain(cuda, P, G, K, symmetric, mode):
+    """Nibble-packed rows on csrc/sn_square_wgmma.cu (split into low and
+    high nibbles on chip): one launch, N exact, S bit-equal to the plain
+    version under the IEEE divide and bit-symmetric, and bit-equal to the
+    unpacked launch in every mode."""
+    m, t = _square(cuda, P, G, K, seed=P * G + K)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(m, t)
+    before = _launches()
+    s, n = sn_square.fused_sn_square(sn_square.pack_nibbles(m), t,
+                                     packed=True, symmetric=symmetric,
+                                     **_DIVIDE[mode])
+    assert _launches() == (before[0] + 1, before[1])
+    _assert_matches_plain(s, n, s_ref, n_ref, mode)
+    assert torch.equal(s, s.T) and torch.equal(n, n.T)
+    us, un = sn_square.fused_sn_square(m, t, symmetric=symmetric,
+                                       **_DIVIDE[mode])
+    torch.cuda.synchronize()
+    assert torch.equal(s, us) and torch.equal(n, un)
+
+
+@pytest.mark.cuda
+def test_fused_aji_packed_launches_the_wgmma_kernel(cuda):
+    """fused_aji(packed=True) at an odd K pads one zero column, packs and
+    launches csrc/sn_square_wgmma.cu once, with the default plan's
+    values."""
+    m, t = _square(cuda, 5, 300, 255, seed=3)
+    raw = m.sum(dim=2, dtype=torch.int32)
+    before = _launches()
+    _, s, n = sn_square.fused_aji(m, raw, packed=True, precise=True)
+    assert _launches() == (before[0] + 1, before[1])
+    _, ws, wn = sn_square.fused_aji(m, raw, precise=True)
+    torch.cuda.synchronize()
+    assert torch.equal(s, ws) and torch.equal(n, wn)
 
 
 @pytest.mark.cuda

@@ -54,11 +54,13 @@ def _assert_close(got, want):
         (3, 300, 256, 0.2, {"tile": 128}),
         (3, 300, 256, 0.2, {"tile": 128, "symmetric": False}),
         (3, 300, 255, 0.2, {"tile": 128, "packed": True}),
+        (3, 300, 254, 0.2, {"tile": 128, "packed": True, "symmetric": False,
+                            "precise": True}),
         # the K-blocked route (kb_sym) on the JAX side
         (2, 12, MAX_K_SINGLE_BLOCK + 300, 0.05,
          {"tile": 128, "precise": True}),
     ],
-    ids=["pad", "sym", "full", "packed", "kb"],
+    ids=["pad", "sym", "full", "packed", "packed_full", "kb"],
 )
 def test_fused_aji_matches_jax(P, G, K, density, kw):
     m, t = _presence(P, G, K, density, seed=G + K)
@@ -116,35 +118,30 @@ def test_plan_mode_matches_jax(p, g, k, sym, packed):
     assert set(plan) == set(want)
     assert plan["mode"] == want["mode"]
     nt = plan["nt"]
-    # the route's tile and K slice: the wgmma kernel's for unpacked presence
-    # (the default variant), the __dp4a kernel's for packed
-    tile = 64 if packed else 128
+    # every route's tile and K slice: the wgmma kernel's, packed or not
+    tile = 128
     assert plan["tile"] == tile
     assert plan["gp"] == tile * nt >= g > plan["gp"] - tile
     assert plan["n_tiles"] == (nt * (nt + 1) // 2 if sym else nt * nt)
-    assert plan["pp"] == p  # the wgmma kernel takes no steps; packed takes 1
+    assert plan["pp"] == p  # the wgmma kernel's protein loop has no steps
     kbytes = plan["kp"] // 2 if packed else plan["kp"]
     assert kbytes % tile == 0 and plan["kp"] >= k
-    assert plan["kp"] - k < 2 * tile
+    assert plan["kp"] - k < (2 if packed else 1) * tile
     assert plan["mxu_macs"] == (
         plan["n_tiles"] * tile * tile * plan["pp"] * plan["kp"]
     )
 
 
 def test_plan_rejects_other_tiles():
-    assert sn_square.fused_aji_plan(3, 100, 64, tile=128)["tile"] == 128
-    with pytest.raises(ValueError, match="tile on this route is 128"):
-        sn_square.fused_aji_plan(3, 100, 64, tile=64)
-    assert sn_square.fused_aji_plan(3, 100, 64, tile=64,
-                                    packed=True)["tile"] == 64
-    for variant in ("pipe", "fused", "mxu_outer", "counts"):
+    """Every route runs 128-row tiles: packed rows and 'f32gram' too."""
+    for kw in ({}, {"packed": True}, {"symmetric": False},
+               *({"variant": v} for v in ("pipe", "fused", "mxu_outer",
+                                          "counts", "f32gram"))):
         assert sn_square.fused_aji_plan(3, 100, 64, tile=128,
-                                        variant=variant)["tile"] == 128
-        with pytest.raises(ValueError, match="tile on this route is 128"):
-            sn_square.fused_aji_plan(3, 100, 64, tile=64, variant=variant)
-    for kw in ({"packed": True}, {"variant": "f32gram"}):
-        with pytest.raises(ValueError, match="tile on this route is 64"):
-            sn_square.fused_aji_plan(3, 100, 64, tile=128, **kw)
+                                        **kw)["tile"] == 128
+        for tile in (64, 256):
+            with pytest.raises(ValueError, match="tile on this route is 128"):
+                sn_square.fused_aji_plan(3, 100, 64, tile=tile, **kw)
     with pytest.raises(ValueError, match="unknown variant"):
         sn_square.fused_aji_plan(3, 100, 64, variant="nope")
 
@@ -164,11 +161,17 @@ def test_plan_rejects_other_tiles():
         (3, 300, 200, {}, dict(tile=128, gp=384, nt=3, n_tiles=6, kp=256)),
         (5, 77, 128, {}, dict(tile=128, gp=128, nt=1, n_tiles=1, pp=5,
                               mxu_macs=128 * 128 * 5 * 128)),
-        # packed presence stays on the 64-row kernel, one protein a step
+        # packed presence: the same tiles, kp in presence columns (two a
+        # byte: 640 bytes a row at the bench shape, 128 at K = 200)
         (80, 4096, 1280, {"packed": True},
-         dict(mode="sym", tile=64, nt=64, n_tiles=2080, pp=80, kp=1280,
-              mxu_macs=872415232000)),
-        (3, 300, 200, {"packed": True}, dict(tile=64, nt=5, kp=256)),
+         dict(mode="sym", tile=128, gp=4096, nt=32, n_tiles=528, pp=80,
+              kp=1280, mxu_macs=885837004800)),
+        (80, 4096, 1280, {"packed": True, "symmetric": False},
+         dict(mode="full", tile=128, nt=32, n_tiles=1024, pp=80, kp=1280)),
+        (3, 300, 200, {"packed": True}, dict(tile=128, nt=3, kp=256)),
+        (3, 300, 256, {"packed": True}, dict(tile=128, nt=3, kp=256)),
+        # an odd K gains a zero column: 129 bytes, padded to 256
+        (3, 300, 257, {"packed": True}, dict(tile=128, nt=3, kp=512)),
         # the K-blocked plans at the kb bench's shape
         (16, 1024, 51200, {},
          dict(mode="kb_sym", tile=128, nt=8, n_tiles=36, pp=16, kp=51200,
@@ -181,93 +184,143 @@ def test_plan_rejects_other_tiles():
          dict(mode="kb_sym", tile=128, n_tiles=36)),
         (5, 4096, 1280, {"variant": "base"},
          dict(mode="2p", tile=128, n_tiles=528, pp=5)),
-        # 'f32gram' alone runs 64-row tiles, two proteins a step
-        (5, 4096, 1280, {"variant": "f32gram"},
-         dict(mode="2p", tile=64, nt=64, n_tiles=2080, pp=6, kp=1280,
-              mxu_macs=2080 * 64 * 64 * 6 * 1280)),
-        # the other variants run the wgmma kernel's bodies: 528 triu tiles
-        # of 128 at the bench shape, 8.858e11 MACs at P=80
+        # every variant runs the wgmma kernel's bodies ('f32gram' lean's):
+        # 528 triu tiles of 128 at the bench shape, 8.858e11 MACs at P=80
         *((p, 4096, 1280, {"variant": v},
            dict(mode="2p", tile=128, gp=4096, nt=32, n_tiles=528, pp=p,
                 kp=1280, mxu_macs=528 * 128 * 128 * p * 1280))
-          for v in ("counts", "fused", "pipe", "mxu_outer") for p in (5, 80)),
+          for v in ("counts", "fused", "pipe", "mxu_outer", "f32gram")
+          for p in (5, 80)),
         (3, 300, 200, {"variant": "mxu_outer"},
          dict(tile=128, nt=3, n_tiles=6, kp=256, pp=3)),
     ],
 )
 def test_plan_describes_the_route(p, g, k, kw, want):
     """The plan's tile, tile count and MACs are those of the kernel the
-    same arguments launch: 128-row tiles on the wgmma kernel, 64-row tiles
-    on the others ('f32gram' with two proteins per step)."""
+    same arguments launch: 128-row tiles on the wgmma kernel, whatever the
+    route."""
     plan = sn_square.fused_aji_plan(p, g, k, **kw)
     assert {key: plan[key] for key in want} == want
 
 
+def _recorded_launches(monkeypatch):
+    """Calls that would reach csrc/sn_square_wgmma.cu, recorded instead of
+    launched: the wrappers take CPU tensors as if they lay on the card."""
+    calls = []
+
+    def launch(m, t, **kw):
+        calls.append(kw)
+        return "launched", None
+
+    monkeypatch.setattr(sn_square, "_route", lambda *a: True)
+    monkeypatch.setattr(sn_square, "_launch_wgmma", launch)
+    return calls
+
+
 @pytest.mark.parametrize(
-    "update,packed,want",
-    [("lean", False, True), ("base", False, True), ("pipe", False, True),
-     ("mxu_outer", False, True), ("fused", False, True),
-     ("counts", False, True), ("f32gram", False, False),
-     ("lean", True, False)],
+    "update,packed,code",
+    [("lean", False, 0), ("base", False, 0), ("f32gram", False, 0),
+     ("pipe", False, 1), ("mxu_outer", False, 2), ("fused", False, 2),
+     ("counts", False, 3), ("lean", True, 0)],
 )
-def test_on_wgmma_routes(update, packed, want):
-    """Unpacked presence with every update but 'f32gram' runs
-    csrc/sn_square_wgmma.cu; 'f32gram' and packed input run the other two
-    kernels."""
-    assert sn_square._on_wgmma(packed, update) is want
+def test_on_wgmma_routes(update, packed, code, monkeypatch):
+    """Every route of ``fused_sn_square`` reaches csrc/sn_square_wgmma.cu
+    over the tile list: 'f32gram' with lean's code, packed rows as lean on
+    packed bytes; no other kernel is left to reach."""
+    calls = _recorded_launches(monkeypatch)
+    m, t = _square_inputs(P=2, G=16)
+    pairs = 1 if update in ("lean", "base") else 2
+    for symmetric in (True, False):
+        assert sn_square.fused_sn_square(
+            m, t, symmetric=symmetric, pairs_per_step=pairs, update=update,
+            packed=packed)[0] == "launched"
+    assert [(c["symmetric"], c["packed"]) for c in calls] == [
+        (True, packed), (False, packed)]
+    assert {sn_square._WGMMA_UPDATES[c["update"]] for c in calls} == {code}
+    assert all(c.get("walk", sn_square._WALK_LIST) == sn_square._WALK_LIST
+               for c in calls)
+    assert not hasattr(sn_square, "LAUNCHES")
+    assert not hasattr(sn_square, "MMA_LAUNCHES")
+
+
+@pytest.mark.parametrize("name,walk,packed", [
+    ("sn_sym_diag", 1, False), ("sn_sym_diag", 1, True),
+    ("sn_sym_bands", 2, False), ("sn_sym_bands", 2, True),
+    ("sn_sym_bands_2p", 2, False)])
+def test_walks_route_to_the_wgmma_kernel(name, walk, packed, monkeypatch):
+    """The diagonal and band walks reach csrc/sn_square_wgmma.cu with their
+    walk code, lean and the mirror, packed or not (``sn_sym_bands_2p``, which
+    takes no packed input, is ``sn_sym_bands``' launch: the kernel's protein
+    loop has no steps)."""
+    calls = _recorded_launches(monkeypatch)
+    m, t = _square_inputs(P=2, G=16)
+    kw = {"packed": True} if packed else {}
+    getattr(sn_square, name)(m, t, **kw)
+    (call,) = calls
+    assert call["walk"] == walk and call["update"] == "lean"
+    assert call["symmetric"] and call.get("packed", False) == packed
+
+
+def _csrc(name: str) -> str:
+    return open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
+                             name)).read()
 
 
 def test_wgmma_update_codes_match_the_kernel_sources():
     """The wrapper's update codes are the header's kLean / kPipe / kPair /
-    kCounts (the pair body gives the 'fused' and 'mxu_outer' values);
-    csrc/sn_square.cu has no update left; the packed-N bound is the
-    header's kMaxPackedP, which binds the two-set codes."""
-    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
-    hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
-    dp4a = open(os.path.join(csrc, "sn_square.cu")).read()
-    codes = {"lean": "kLean", "pipe": "kPipe", "fused": "kPair",
-             "mxu_outer": "kPair", "counts": "kCounts"}
+    kCounts (the pair body gives the 'fused' and 'mxu_outer' values,
+    kLean 'base''s and 'f32gram''s), its walk codes the kernel's kWalkList /
+    kWalkDiag / kWalkBand; the packed-N bound is the header's kMaxPackedP,
+    which binds the two-set codes."""
+    hdr = _csrc("sn_wgmma.cuh")
+    square = _csrc("sn_square_wgmma.cu")
+    codes = {"lean": "kLean", "base": "kLean", "f32gram": "kLean",
+             "pipe": "kPipe", "fused": "kPair", "mxu_outer": "kPair",
+             "counts": "kCounts"}
     for name, const in codes.items():
         want = sn_square._WGMMA_UPDATES[name]
         assert f"constexpr int {const} = {want};" in hdr
     assert "constexpr int kCounts = 3;" in hdr
-    assert sn_square._WGMMA_UPDATES["base"] == sn_square._WGMMA_UPDATES["lean"]
-    assert set(sn_square._WGMMA_UPDATES) == {"lean", "base", *codes}
-    for gone in ("kFused", "kCounts", "kUpdate", "kLean"):
-        assert gone not in dp4a, gone
+    assert set(sn_square._WGMMA_UPDATES) == set(codes)
+    walks = {"kWalkList": sn_square._WALK_LIST,
+             "kWalkDiag": sn_square._WALK_DIAG,
+             "kWalkBand": sn_square._WALK_BAND}
+    for const, want in walks.items():
+        assert f"constexpr int {const} = {want};" in square
+    assert sorted(walks.values()) == [0, 1, 2]
     assert (f"constexpr int kMaxPackedP = {sn_square.WGMMA_MAX_PACKED_P};"
             in hdr)
     assert sorted(sn_square._TWO_SET_CODES) == sorted(
         {sn_square._WGMMA_UPDATES[u] for u in ("pipe", "fused", "mxu_outer")})
-    assert sn_square._VARIANTS == sorted(
-        {*sn_square._WGMMA_UPDATES, "f32gram"})
+    assert sn_square._VARIANTS == sorted(sn_square._WGMMA_UPDATES)
 
 
 def test_one_ring_two_count_sets_and_no_dp4a_pipe():
-    """One block body: one ring (its refill, its four wgmma a slice and the
-    wait for its slices each written once), one count set for 'lean' and
-    for 'counts' (each its own loop) and two for the two-set updates;
-    csrc/sn_square.cu keeps nothing of its old 'pipe', 'mxu_outer',
-    'fused' and 'counts' bodies."""
-    csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
-    hdr = open(os.path.join(csrc, "sn_wgmma.cuh")).read()
+    """One block body: one ring (its refill, its wgmma call and the wait for
+    its slices each written once, packed rows or not), one count set for
+    'lean' and for 'counts' (each its own loop) and two for the two-set
+    updates; the __dp4a and f16 kernels are gone, and no source keeps a
+    __dp4a or an mma.sync."""
+    hdr = _csrc("sn_wgmma.cuh")
     # the PTX wrapper's definition and its one call
     assert hdr.count("wgmma_m64n128k32(") == 2
-    for once in ("cp_async_wait<kStages - 3>();",
-                 "load_slice((stage + kStages - 2) % kStages);",
+    for once in ("cp_async_wait<kSt - 3>();",
+                 "load_slice((stage + kSt - 2) % kSt);",
                  "    int ca[4 * kNT], cb[4 * kNT];",
                  "auto mma_slice = ",
-                 "auto fill_ring = "):
+                 "auto fill_ring = ",
+                 "      unpack_chunks(smem + stage * kTileBytes + lphys,"):
         assert hdr.count(once) == 1, once
     assert hdr.count("    int cnt[4 * kNT];") == 2
-    square = open(os.path.join(csrc, "sn_square_wgmma.cu")).read()
-    assert square.count("sn_wgmma_tile<kMode, kUpdate>(") == 1
-    assert "smem_bytes(kUpdate)" in square
-    dp4a = open(os.path.join(csrc, "sn_square.cu")).read()
-    for gone in ("kPipe", "kMxuOuter", "cnt_prev", "mxu_outer_update",
-                 "tf32_hi", "outer_tile_mma", "mma.sync.aligned", "kOuterLd",
-                 "kFused", "kCounts", "__fadd_rn(j0, j1)"):
-        assert gone not in dp4a, gone
+    square = _csrc("sn_square_wgmma.cu")
+    assert square.count("sn_wgmma_tile<kMode, kUpdate, kPacked != 0>(") == 1
+    assert "smem_bytes(kUpdate, kPacked)" in square
+    csrc = os.path.dirname(_build._HDRS[0])
+    assert sorted(os.listdir(csrc)) == [
+        "sn_rect.cu", "sn_square_wgmma.cu", "sn_wgmma.cuh"]
+    for name in os.listdir(csrc):
+        for gone in ("__dp4a", "mma.sync", "IDP"):
+            assert gone not in _csrc(name), (name, gone)
 
 
 def test_wgmma_two_set_updates_limit_p():
@@ -390,13 +443,35 @@ def test_wgmma_loader_covers_each_staged_chunk_once():
 
 
 def test_wgmma_accumulator_cells_cover_the_tile_once():
-    """Direct cells of one block: every cell of the 128 x 128 tile once."""
+    """Direct cells of one block: every cell of the 128 x 128 tile once; a
+    mirrored block also stores each cell's transpose."""
     tile = sn_square.WGMMA_TILE
     cells = [cell for tid in range(sn_square.WGMMA_THREADS)
              for i in range(tile // 2)
-             for cell in sn_square.stored_cells(tid, i, 2, 2, True)]
+             for cell in sn_square.stored_cells(tid, i, 2, 2, False)]
     assert sorted(cells) == [(r, c) for r in range(2 * tile, 3 * tile)
                              for c in range(2 * tile, 3 * tile)]
+    assert sn_square.stored_cells(5, 7, 0, 1, True) == [
+        cell := sn_square.stored_cells(5, 7, 0, 1, False)[0], cell[::-1]]
+
+
+def _store_hits(G: int, launches) -> np.ndarray:
+    """How often the kernel stores each cell of the G x G square over
+    ``launches``, each the ``walk_tiles`` of one launch (cells past G
+    masked)."""
+    tile = sn_square.WGMMA_TILE
+    hits = np.zeros((G, G), np.int32)
+    for tiles in launches:
+        for rt, ct, mirrored in tiles:
+            for tid in range(sn_square.WGMMA_THREADS):
+                for i in range(tile // 2):
+                    direct, *mirror = sn_square.stored_cells(
+                        tid, i, rt, ct, mirrored)
+                    if direct[0] < G and direct[1] < G:
+                        hits[direct] += 1
+                        for cell in mirror:
+                            hits[cell] += 1
+    return hits
 
 
 @pytest.mark.parametrize("G", [77, 128, 129, 300])
@@ -405,20 +480,33 @@ def test_wgmma_stored_cells_cover_the_square_once(G, symmetric):
     """Over the tile list, the cells the kernel stores (direct and, off the
     diagonal tiles of the triu walk, mirrored; cells past G masked) are
     every cell of the G x G square exactly once."""
-    tile = sn_square.WGMMA_TILE
-    nt = -(-G // tile)
-    hits = np.zeros((G, G), np.int32)
-    for rt, ct in sn_square._tile_list(nt, symmetric,
-                                       torch.device("cpu")).tolist():
-        for tid in range(sn_square.WGMMA_THREADS):
-            for i in range(tile // 2):
-                direct, *mirror = sn_square.stored_cells(tid, i, rt, ct,
-                                                         symmetric)
-                if direct[0] < G and direct[1] < G:
-                    hits[direct] += 1
-                    for cell in mirror:
-                        hits[cell] += 1
-    assert (hits == 1).all()
+    nt = -(-G // sn_square.WGMMA_TILE)
+    tiles = sn_square.walk_tiles(sn_square._WALK_LIST, nt, mirror=symmetric)
+    assert [(r, c) for r, c, _ in tiles] == [
+        tuple(x) for x in sn_square._tile_list(
+            nt, symmetric, torch.device("cpu")).tolist()]
+    assert (_store_hits(G, [tiles]) == 1).all()
+
+
+@pytest.mark.parametrize("G", [256, 300, 512, 640])  # nt = 2, 3, 4, 5
+@pytest.mark.parametrize("walk", ["diag", "bands"])
+def test_walk_stored_cells_cover_the_square_once(G, walk):
+    """The wrapped diagonals (one launch of (nt // 2 + 1) nt tiles; for an
+    even nt both orientations of d = nt / 2, neither mirrored) and the band
+    rows (nt launches of nt - r tiles) store every cell of the G x G square
+    exactly once, at an even and an odd nt."""
+    nt = -(-G // sn_square.WGMMA_TILE)
+    if walk == "diag":
+        launches = [sn_square.walk_tiles(sn_square._WALK_DIAG, nt, nt)]
+        assert len(launches[0]) == (nt // 2 + 1) * nt
+        unmirrored = [(r, c) for r, c, mirrored in launches[0]
+                      if not mirrored and r != c]
+        assert len(unmirrored) == (nt if nt % 2 == 0 else 0)
+    else:
+        launches = [sn_square.walk_tiles(sn_square._WALK_BAND, nt, r)
+                    for r in range(nt)]
+        assert [len(x) for x in launches] == list(range(nt, 0, -1))
+    assert (_store_hits(G, launches) == 1).all()
 
 
 def test_wgmma_constants_match_the_kernel_source():
@@ -435,13 +523,17 @@ def test_wgmma_constants_match_the_kernel_source():
     assert (sn_square.WGMMA_TILE, sn_square.WGMMA_THREADS,
             sn_square.WGMMA_K_SLICE) == (sn_rect.TILE, sn_rect.THREADS,
                                          sn_rect.K_SLICE)
-    for source, call in (("sn_square_wgmma.cu", "<kMode, kUpdate>("),
+    for source, call in (("sn_square_wgmma.cu",
+                          "<kMode, kUpdate, kPacked != 0>("),
                          ("sn_rect.cu", "<kMode>(")):
         src = open(os.path.join(csrc, source)).read()
         assert '#include "sn_wgmma.cuh"' in src
         assert src.count("sn_wgmma_tile" + call) == 1
         # one body: no second copy of the ring or of its constants
-        assert "wgmma_m64n128k32(" not in src and "constexpr" not in src
+        assert "wgmma_m64n128k32(" not in src and "cp_async_wait" not in src
+        for const in ("kTile", "kThreads", "kSliceBytes", "kStages",
+                      "kPackedStages", "kRows", "kTileBytes", "kNT"):
+            assert f"constexpr int {const} " not in src, (source, const)
     names = {os.path.basename(path) for path in _build._SRCS + _build._HDRS}
     assert {"sn_square_wgmma.cu", "sn_wgmma.cuh", "sn_rect.cu"} <= names
 
@@ -463,6 +555,69 @@ def test_pack_nibbles_matches_jax(K):
     got = sn_square.pack_nibbles(torch.from_numpy(m))
     assert tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy().view(np.int8), want)
+
+
+def _emulate_packed_counts(mp: np.ndarray) -> np.ndarray:
+    """(G, G) int counts of one protein's packed rows mp (G <= 128, packed
+    bytes) as csrc/sn_wgmma.cuh's kPacked body forms them: per slice of
+    128 packed bytes, both sides staged by the loader's threads at the
+    swizzled offsets of ``sn_rect.staged_offset``; each thread splits its
+    own chunks, the low nibbles in place and the high ones at the same
+    offsets of a second buffer; the eight k32 products read both buffers
+    through the 128-byte swizzle (the four of the low nibbles, then the
+    four of the high), the first of a protein overwriting the counts."""
+    G, kb = mp.shape
+    ks_bytes, tile, step = 128, 128, 32
+    rows = np.zeros((tile, -(-kb // ks_bytes) * ks_bytes), np.uint8)
+    rows[:G, :kb] = mp
+    # physical byte of logical (row, k) in a staged side: the swizzle
+    r_idx, k_idx = np.meshgrid(np.arange(tile), np.arange(ks_bytes),
+                               indexing="ij")
+    phys = r_idx * ks_bytes + ((k_idx // 16) ^ (r_idx % 8)) * 16 + k_idx % 16
+    cnt = np.full((tile, tile), -5, np.int64)  # what the set held before
+    for ks in range(rows.shape[1] // ks_bytes):
+        lo = np.zeros(tile * ks_bytes, np.uint8)
+        for tid in range(sn_square.WGMMA_THREADS):  # one side's 128 rows
+            for r, c in sn_rect.loader_chunks(tid):
+                off = sn_rect.staged_offset(r, c)
+                lo[off:off + 16] = rows[r, ks * ks_bytes + 16 * c:][:16]
+        hi = np.zeros_like(lo)
+        for tid in range(sn_square.WGMMA_THREADS):
+            for r, c in sn_rect.loader_chunks(tid):
+                off = sn_rect.staged_offset(r, c)
+                hi[off:off + 16] = (lo[off:off + 16] >> 4) & 0x0F
+                lo[off:off + 16] &= 0x0F
+        for j in range(2 * ks_bytes // step):
+            half = (lo if j < ks_bytes // step else hi)[phys].astype(np.int64)
+            k32 = j % (ks_bytes // step)
+            a = half[:, step * k32:step * (k32 + 1)]
+            cnt = cnt + a @ a.T if (ks | j) != 0 else a @ a.T
+    return cnt[:G, :G]
+
+
+@pytest.mark.parametrize("K", [256, 255, 130, 900])
+def test_packed_split_emulation_equals_plain(K):
+    """The packed body's split into low and high nibbles at the swizzled
+    offsets, its eight k32 products a slice and lean's transform, emulated
+    in numpy, are bit-equal to ``fused_sn_square_plain(packed=True)`` and to
+    the unpacked plain version, at one and several slices a protein and an
+    odd K."""
+    m, t = _presence(3, 70, K, 0.4, seed=K)
+    mt, tt = torch.from_numpy(m), sn_rect.clamp_t(torch.from_numpy(t))
+    mp = sn_square.pack_nibbles(mt)
+    s_ref, n_ref = sn_square.fused_sn_square_plain(mp, tt, packed=True)
+    s = torch.zeros_like(s_ref)
+    n = torch.zeros_like(n_ref)
+    for p in range(m.shape[0]):
+        cnt = torch.from_numpy(_emulate_packed_counts(mp[p].numpy()))
+        np.testing.assert_array_equal(
+            cnt.numpy(), m[p].astype(np.int64) @ m[p].T.astype(np.int64))
+        cf = cnt.to(torch.float32)
+        s += cf / (tt[p][:, None] + tt[p][None, :] - cf)
+        n += cnt.clamp(max=1).to(torch.int32)
+    assert torch.equal(s, s_ref) and torch.equal(n, n_ref)
+    u_s, u_n = sn_square.fused_sn_square_plain(mt, tt)
+    assert torch.equal(s, u_s) and torch.equal(n, u_n)
 
 
 def _square_inputs(P=5, G=70, K=128, seed=5):
@@ -575,14 +730,12 @@ def test_plain_variant_is_bit_equal(variant, like, P):
 @pytest.mark.parametrize("variant", _VARIANTS_2P)
 def test_2p_variant_on_cpu_launches_nothing(variant):
     m, t = _square_inputs(P=3, G=40)
-    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
-              sn_square.WGMMA_LAUNCHES)
+    before = sn_square.WGMMA_LAUNCHES
     s, n = sn_square.fused_sn_square(m, t, pairs_per_step=2, update=variant)
     want = sn_square.fused_sn_square_plain(m, t, update=variant)
     assert torch.equal(s, want[0]) and torch.equal(n, want[1])
     sn_square.fused_aji(m, t, variant=variant)
-    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
-            sn_square.WGMMA_LAUNCHES) == before
+    assert sn_square.WGMMA_LAUNCHES == before
 
 
 @pytest.mark.parametrize("variant", _VARIANTS_2P)
@@ -593,24 +746,30 @@ def test_2p_variant_needs_two_per_step(variant):
 
 
 @pytest.mark.parametrize(
-    "fn,jax_fn",
+    "fn,jax_fn,packed",
     [
-        (sn_square.sn_sym_diag, jpi._pallas_sn_sym_diag),
-        (sn_square.sn_sym_bands, jpi._pallas_sn_sym_bands),
-        (sn_square.sn_sym_bands_2p, jpi._pallas_sn_sym_bands_2p),
+        (sn_square.sn_sym_diag, jpi._pallas_sn_sym_diag, False),
+        (sn_square.sn_sym_bands, jpi._pallas_sn_sym_bands, False),
+        (sn_square.sn_sym_bands_2p, jpi._pallas_sn_sym_bands_2p, False),
+        (sn_square.sn_sym_diag, jpi._pallas_sn_sym_diag, True),
+        (sn_square.sn_sym_bands, jpi._pallas_sn_sym_bands, True),
     ],
-    ids=["diag", "bands", "bands_2p"],
+    ids=["diag", "bands", "bands_2p", "diag_packed", "bands_packed"],
 )
-def test_alternative_walks_match_jax(fn, jax_fn):
+def test_alternative_walks_match_jax(fn, jax_fn, packed):
     """Kernels 8-10's wrappers against their TPU kernels (interpret mode,
-    nt = 3 tiles of 128), on CPU tensors, where they launch nothing."""
+    nt = 3 tiles of 128), unpacked and nibble-packed, on CPU tensors, where
+    they launch nothing."""
     m, t = _presence(3, 384, 128, 0.25, seed=8)
+    kw = {"packed": True} if packed else {}
     with pltpu.force_tpu_interpret_mode():
-        ws, wn = jax_fn(jnp.asarray(m), jnp.asarray(t), tile=128, precise=True)
-    before = sn_square.LAUNCHES
-    s, n = fn(torch.from_numpy(m), sn_rect.clamp_t(torch.from_numpy(t)),
-              precise=True)
-    assert sn_square.LAUNCHES == before
+        ws, wn = jax_fn(jnp.asarray(m), jnp.asarray(t), tile=128,
+                        precise=True, **kw)
+    before = sn_square.WGMMA_LAUNCHES
+    mt = torch.from_numpy(m)
+    s, n = fn(sn_square.pack_nibbles(mt) if packed else mt,
+              sn_rect.clamp_t(torch.from_numpy(t)), precise=True, **kw)
+    assert sn_square.WGMMA_LAUNCHES == before
     np.testing.assert_array_equal(n.numpy(), np.asarray(wn))
     np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=RTOL, atol=0)
 
@@ -618,21 +777,28 @@ def test_alternative_walks_match_jax(fn, jax_fn):
 def test_wrappers_on_cpu_launch_nothing():
     m, t = _square_inputs(P=3, G=40)
     ref = sn_square.fused_sn_square_plain(m, t)
-    before = (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
-              sn_square.WGMMA_LAUNCHES)
+    mp = sn_square.pack_nibbles(m)
+    before = sn_square.WGMMA_LAUNCHES
     for kw in ({}, {"symmetric": False}, {"pairs_per_step": 2},
                {"pairs_per_step": 2, "update": "base"},
                {"approx": True}, {"precise": True}):
         s, n = sn_square.fused_sn_square(m, t, **kw)
         assert torch.equal(s, ref[0]) and torch.equal(n, ref[1])
+    for symmetric in (True, False):
+        s, n = sn_square.fused_sn_square(mp, t, packed=True,
+                                         symmetric=symmetric)
+        assert torch.equal(s, ref[0]) and torch.equal(n, ref[1])
     for fn in (sn_square.sn_sym_diag, sn_square.sn_sym_bands,
                sn_square.sn_sym_bands_2p):
         s, n = fn(m, t)
         assert torch.equal(s, ref[0]) and torch.equal(n, ref[1])
+    for fn in (sn_square.sn_sym_diag, sn_square.sn_sym_bands):
+        s, n = fn(mp, t, packed=True)
+        assert torch.equal(s, ref[0]) and torch.equal(n, ref[1])
     sn_square.fused_aji(m, t)
     sn_square.fused_aji(m, t, symmetric=False)
-    assert (sn_square.LAUNCHES, sn_square.MMA_LAUNCHES,
-            sn_square.WGMMA_LAUNCHES) == before
+    sn_square.fused_aji(m, t, packed=True)
+    assert sn_square.WGMMA_LAUNCHES == before
 
 
 def test_wrappers_reject_bad_operands():
@@ -698,12 +864,14 @@ def test_ablation_cuts_match_the_sources(tool, source):
     mod = importlib.import_module(f"parfastaai_tpu_torch.tools.{tool}")
     assert mod.build_variants is sn_rect_ablation.build_variants
     if tool == "sn_square_ablation":
-        # it binds the C entry with its 5 pointers and 7 ints (the update
-        # last), as _build does, and times each update of the body
+        # it binds the C entry with its 5 pointers and 10 ints (update,
+        # packed, walk and walk_arg last), as _build does, and times each
+        # update of the body and lean on packed rows
         args = len(_build_argtypes("sn_square_wgmma_launch"))
-        assert (mod.N_POINTERS, mod.N_INTS) == (5, 7) and args == 5 + 7 + 1
-        with pytest.raises(SystemExit):
-            mod.main(["--update", "f32gram"])
+        assert (mod.N_POINTERS, mod.N_INTS) == (5, 10) and args == 5 + 10 + 1
+        assert mod.UPDATES == sorted({*sn_square._WGMMA_UPDATES, "packed"})
+        with pytest.raises(SystemExit, match="2"):
+            mod.main(["--update", "nope"])
     cuts = sn_rect_ablation.CUTS
     csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
     hdr = open(os.path.join(csrc, sn_rect_ablation.HEADER)).read()
@@ -745,10 +913,14 @@ def test_wgmma_ab_reads_ptxas_and_sass():
         "ptxas info    : Used 248 registers, used 1 barriers",
     ])
     assert wgmma_ab.ptxas_report(log) == {
-        ("sn_square_wgmma", 0, 1): (253, 8, 4),
-        ("sn_rect", 2, 0): (248, 0, 0)}
+        ("sn_square_wgmma", 0, 1, 0, 0): (253, 8, 4),
+        ("sn_rect", 2, 0, 0, 0): (248, 0, 0)}
     assert wgmma_ab.kernel_key("_ZN51_sn_square_wgmma_kernelILi2EEEvPKh") == (
-        "sn_square_wgmma", 2, 0)
+        "sn_square_wgmma", 2, 0, 0, 0)
+    # this checkout's keys: (mode, update, packed, walk)
+    assert wgmma_ab.kernel_key(
+        "_ZN51_sn_square_wgmma_kernelILi1ELi0ELi1ELi2EEEvPKh") == (
+        "sn_square_wgmma", 1, 0, 1, 2)
     sass = "\n".join([
         "\t\tFunction : _ZN43_GLOBAL__N__sn_rect_cu_3cd395cf14sn_rect_kernel"
         "ILi2EEEvPKhS2_",
@@ -765,5 +937,6 @@ def test_wgmma_ab_reads_ptxas_and_sass():
         "2ELb0ELi0EEEv",
         "        /*0000*/                   IDP.4A.U8.U8 R1, R2, R3, R1 ;",
     ])
-    assert wgmma_ab.sass_mix(sass) == {("sn_rect", 2, 0): collections.Counter(
-        {"IMAD.MOV.U32": 1, "BRA": 1, "IGMMA.64x128x32.S8.S8": 2})}
+    assert wgmma_ab.sass_mix(sass) == {
+        ("sn_rect", 2, 0, 0, 0): collections.Counter(
+            {"IMAD.MOV.U32": 1, "BRA": 1, "IGMMA.64x128x32.S8.S8": 2})}
