@@ -86,7 +86,27 @@ Run from the repository root:
    output on exact f64 computed on the host (numpy): both accumulate IEEE
    f64 in ascending protein order, so this is equality, not a tolerance.
    Its wall, genome pairs per second and stage split are printed.
-5. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
+5. Runs staged presence slabs on the card at two sizes, each under a
+   device budget lowered through PARFASTAAI_HBM_BYTES.  Leg A, the CLI on
+   the 4096-genome database of step 2 under a budget of a third of its
+   bucketed presence and slabs of a sixth of that budget
+   (PARFASTAAI_SLAB_BYTES): ``--fast --staged``, ``--streamed`` and the
+   default call (auto-routed into the banded exact engine), the last two
+   staged by the budget alone; each CSV is held against the resident CSV
+   of steps 2-4 (the default call's bytes equal, the f32 ones equal or
+   within rtol 1e-6 with the text ``0`` in the same cells), with launch
+   counters reset just before and read just after each call (sn_rect > 0
+   in the first two, no hand-written kernel in the third).  Leg B, the TPU
+   record's shape in memory (80 proteins, 4096 genomes, 51200 presence
+   columns, made with numpy from the seed) under its budget of 14.9 GiB:
+   ``engine.compute_streamed`` in 1024 x 1024 blocks, auto-staged, held
+   against the same presence run resident on the card to the same
+   tolerance; then sn_rect at the run's chunk shape against its plain
+   version.  Each prints its walls, stage split, uploaded bytes over the
+   bucketed presence, the slab store's peak against its cap (which it may
+   pass by one slab at most) and ``torch.cuda.max_memory_allocated``
+   beside the budget.
+6. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
    sn_square_wgmma and no other kernel, and once with each
@@ -97,7 +117,7 @@ Run from the repository root:
    same workload (launch counters reset just before and read just after:
    sn_square_wgmma once, no other kernel), against the default plan's
    result.
-6. Prints the card's name and power limit, one JSON line of kernel results
+7. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, and prints no result line, when CUDA is not available,
@@ -211,6 +231,17 @@ EXACT_SMALL_G = 1024
 # the symmetric walk, and the rows held against the plain version.
 STREAMED_BLOCK = 256
 STREAMED_PLAIN_ROWS = 256
+# Staged slabs.  Leg A: the CLI on the E2E database under a device budget
+# of a third of its bucketed presence and slabs of a sixth of that budget
+# (the 256 MiB floor of the default slab size would exceed the budget).
+STAGED_BUDGET_SHARE = 3
+STAGED_SLAB_SHARE = 6
+# Leg B: the TPU record's shape in memory (80 proteins, 4096 genomes, 51200
+# presence columns, ~400 tetramers per genome and protein) under the
+# record's budget of 14.9 GiB, in blocks of 1024 x 1024.
+LEG_B = dict(P=80, G=4096, K=51200, tetras=400)
+LEG_B_BUDGET = int(14.9 * 2**30)
+LEG_B_BLOCK = 1024
 
 
 def fail(msg: str) -> None:
@@ -982,12 +1013,12 @@ def device_busy_ms(trace_path: str) -> tuple[float, int, int]:
     return busy / 1e3, len(spans), len(events)
 
 
-def streamed_phase(dev, want_band: np.ndarray) -> int:
+def streamed_phase(dev, want_band: np.ndarray, keep_dir: str) -> int:
     """The f32 streamed engine on the card through the CLI: the full-width
     call, whose first rows are held against ``want_band`` (exact f64), then
     the byte comparisons, the plain version, --profile and the library API
-    at EXACT_SMALL_G genomes.  Returns the full-width call's sn_rect
-    launches."""
+    at EXACT_SMALL_G genomes.  Moves the full-width CSV into ``keep_dir``
+    as streamed.csv.  Returns the full-width call's sn_rect launches."""
     import torch
 
     from parfastaai_tpu_torch import api, engine
@@ -1074,6 +1105,7 @@ def streamed_phase(dev, want_band: np.ndarray) -> int:
         full_profiled, _, _ = profiled(db, "full_profiled", ["--streamed"])
         if read_bytes(full_profiled) != read_bytes(out):
             fail(f"G={G}: --profile changed the CSV's bytes")
+        os.replace(out, os.path.join(keep_dir, "streamed.csv"))
 
         # the mirror, resume, --profile and the API, for bytes
         small = synth_db(EXACT_SMALL_G)
@@ -1164,10 +1196,11 @@ def streamed_phase(dev, want_band: np.ndarray) -> int:
     return launches
 
 
-def exact_phase(want_band: np.ndarray) -> None:
+def exact_phase(want_band: np.ndarray, keep_dir: str) -> None:
     """The exact path on the card: byte comparisons of its routes at
     EXACT_SMALL_G genomes, then the CLI's default call at the E2E size,
-    whose first rows must equal ``want_band`` as text."""
+    whose first rows must equal ``want_band`` as text, and whose CSV moves
+    into ``keep_dir`` as default.csv."""
     from parfastaai_tpu_torch.io.csv_writer import format_matrix
 
     out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_exact_")
@@ -1231,6 +1264,7 @@ def exact_phase(want_band: np.ndarray) -> None:
         if differ:
             fail(f"default call: rows {differ[:5]} of the CSV differ from the "
                  "host's exact f64")
+        os.replace(out, os.path.join(keep_dir, "default.csv"))
         phases = cli_phases(text)
         pairs = G * (G - 1) // 2
         print(
@@ -1252,7 +1286,9 @@ def exact_phase(want_band: np.ndarray) -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def e2e_phase(dev) -> dict:
+def e2e_phase(dev, keep_dir: str) -> dict:
+    """The --fast CLI call at the E2E size, its first rows against exact
+    f64; its CSV moves into ``keep_dir`` as fast.csv."""
     from parfastaai_tpu_torch import cli
     from parfastaai_tpu_torch.ops import sn_rect
 
@@ -1288,9 +1324,262 @@ def e2e_phase(dev) -> dict:
             )
         )
         band = band_check(db, out, dev)
+        os.replace(out, os.path.join(keep_dir, "fast.csv"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"launches": launches, "band": band}
+
+
+def csv_agreement(got_path: str, want_path: str, exact: bool) -> str:
+    """Holds the CSV at ``got_path`` against the one at ``want_path``:
+    the same bytes where ``exact``; else the same bytes, or the f32
+    engines' tolerance (the same header and row names, the text ``0`` in
+    the same cells, values within RTOL_E2E_AJI).  Returns what held."""
+    got, want = read_bytes(got_path), read_bytes(want_path)
+    if got == want:
+        return f"byte-identical ({len(got)} bytes)"
+    if exact:
+        fail(f"{got_path}: not the bytes of {want_path}")
+    g_lines, w_lines = got.split(b"\n"), want.split(b"\n")
+    if g_lines[0] != w_lines[0] or len(g_lines) != len(w_lines):
+        fail(f"{got_path}: header or line count differs from {want_path}")
+    rows = worst = 0
+    for g, w in zip(g_lines[1:-1], w_lines[1:-1]):
+        if g == w:
+            continue
+        rows += 1
+        g_name, g_vals = g.split(b",", 1)
+        w_name, w_vals = w.split(b",", 1)
+        gt, wt = (np.array(x.split(b",")) for x in (g_vals, w_vals))
+        if g_name != w_name or gt.shape != wt.shape or not np.array_equal(
+                gt == b"0", wt == b"0"):
+            fail(f"{got_path}: row {g_name!r} differs from {want_path} in "
+                 "its name, width or zero cells")
+        gf, wf = gt.astype(np.float64), wt.astype(np.float64)
+        err = np.abs(gf - wf) / np.where(wf == 0, 1.0, np.abs(wf))
+        worst = max(worst, float(err.max()))
+    if worst > RTOL_E2E_AJI:
+        fail(f"{got_path}: AJI {worst:.3e} from {want_path} (rtol "
+             f"{RTOL_E2E_AJI})")
+    return (f"{rows} of {len(g_lines) - 2} rows differ in bytes, max rel "
+            f"err {worst:.3e} (rtol {RTOL_E2E_AJI}), zero cells equal")
+
+
+SLAB_LINE = re.compile(
+    r"staged slabs\s*: (\d+) uploads, (\d+) hits, uploaded (\d+) B "
+    r"\(([0-9.]+) x the bucketed presence\), peak held (\d+) B of a "
+    r"(\d+) B cap")
+
+
+def staged_cli_leg(keep_dir: str) -> int:
+    """Leg A: three CLI calls on the E2E database under a device budget of
+    a third of its bucketed presence (PARFASTAAI_HBM_BYTES) and slabs of a
+    sixth of that budget (PARFASTAAI_SLAB_BYTES), each CSV held against
+    the resident call's in ``keep_dir``.  Returns the sn_rect launches of
+    the --streamed call."""
+    import torch
+
+    from parfastaai_tpu_torch import engine
+    from parfastaai_tpu_torch.etl.database import SCPDatabase, bucket_bounds
+
+    db = synth_db()
+    db_ = SCPDatabase(db)
+    try:
+        presence = db_.load_presence()
+    finally:
+        db_.close()
+    pres_bytes = engine.presence_device_bytes(presence)
+    budget = pres_bytes // STAGED_BUDGET_SHARE
+    slab_bytes = budget // STAGED_SLAB_SHARE
+    env = {"PARFASTAAI_HBM_BYTES": str(budget),
+           "PARFASTAAI_SLAB_BYTES": str(slab_bytes)}
+    n_buckets = len(bucket_bounds(presence.widths)[1])
+    del presence
+    print(f"staged leg A: bucketed presence {pres_bytes} B in {n_buckets} "
+          f"bucket(s), PARFASTAAI_HBM_BYTES={budget}, "
+          f"PARFASTAAI_SLAB_BYTES={slab_bytes}")
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_staged_")
+    launches = {}
+    try:
+        for name, flags, want, phase, hand_kernels in (
+            ("fast", ["--fast", "--staged"], "fast.csv", "JAC + AJI", True),
+            ("streamed", ["--streamed"], "streamed.csv",
+             "Streamed AJI + CSV", True),
+            ("default", [], "default.csv", "Banded exact + CSV", False),
+        ):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            reset_launches()
+            out, text, _, wall = cli_call(out_dir, db, f"staged_{name}", flags,
+                                          env)
+            ran = read_launches()
+            peak_alloc = torch.cuda.max_memory_allocated()
+            slab = SLAB_LINE.search(text)
+            if slab is None:
+                print(text)
+                fail(f"staged {name}: the CLI printed no staged slabs line")
+            n_up, hits, up, ratio, peak, cap = slab.groups()
+            if int(cap) != int(budget * 0.75) or int(up) <= 0:
+                fail(f"staged {name}: cap {cap} B, uploaded {up} B")
+            if int(peak) > int(cap) + slab_bytes:
+                fail(f"staged {name}: the store held {peak} B, over its cap "
+                     f"plus one slab")
+            if hand_kernels != (ran["sn_rect"] > 0) or ran["sn_square_wgmma"]:
+                fail(f"staged {name}: launches {ran}")
+            if name == "default" and "routing through the banded" not in text:
+                fail("staged default call: not routed to the banded engine")
+            agree = csv_agreement(out, os.path.join(keep_dir, want),
+                                  exact=name == "default")
+            os.remove(out)
+            launches[name] = ran["sn_rect"]
+            phases = cli_phases(text)
+            print(
+                f"staged leg A {' '.join(flags) or '(default)'} G="
+                f"{E2E['n_genomes']}: wall {wall:.3f} s, {phase} "
+                f"{phases[phase]:.1f} ms, sn_rect launches {ran['sn_rect']}; "
+                f"{n_up} uploads, {hits} hits, uploaded {up} B = {ratio} x "
+                f"the bucketed presence; store peak {peak} B, cap {cap} B, "
+                f"budget {budget} B; max_memory_allocated "
+                f"{peak_alloc} B ({before} B allocated before); against the "
+                f"resident CSV: {agree}; split ms (stages overlap): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+            )
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return launches["streamed"]
+
+
+def record_presence():
+    """Leg B's presence, made with numpy from SEED: LEG_B's P proteins, G
+    genomes and K columns of compacted tetramers, LEG_B['tetras'] draws
+    per genome and protein (duplicates fall together)."""
+    from parfastaai_tpu_torch.etl.database import PresenceData
+    from parfastaai_tpu_torch.types import DBMetaData
+
+    P, G, K, n = LEG_B["P"], LEG_B["G"], LEG_B["K"], LEG_B["tetras"]
+    rng = np.random.default_rng(SEED)
+    m = np.zeros((P, G, K), np.uint8)
+    t = np.zeros((P, G), np.int32)
+    rows = np.arange(G)[:, None]
+    for p in range(P):
+        cols = np.sort(rng.integers(0, K, size=(G, n)), axis=1)
+        m[p][rows, cols] = 1
+        t[p] = 1 + np.count_nonzero(np.diff(cols, axis=1), axis=1)
+    meta = DBMetaData(protein_set=tuple(f"P{p}" for p in range(P)),
+                      genome_set=tuple(f"g{i:05d}" for i in range(G)))
+    return PresenceData(meta=meta, m=m, t=t, widths=np.full(P, K, np.int32),
+                        tetramer_ids=[np.arange(K, dtype=np.int32)] * P)
+
+
+def staged_record_leg(dev) -> dict:
+    """Leg B: the TPU record's shape in memory (LEG_B) under the record's
+    budget (LEG_B_BUDGET): compute_streamed, auto-staged, in blocks of
+    LEG_B_BLOCK, against the same presence run resident on the card; then
+    sn_rect at the run's chunk shape against its plain version."""
+    import dataclasses
+
+    import torch
+
+    from parfastaai_tpu_torch import engine
+    from parfastaai_tpu_torch.ops import sn_rect
+
+    t0 = time.perf_counter()
+    presence = record_presence()
+    G = presence.m.shape[1]
+    names = presence.meta.genome_set
+    ids = np.arange(G, dtype=np.int32)
+    pres_bytes = engine.presence_device_bytes(presence)
+    plan = engine._bucket_plan(presence)
+    print(f"staged leg B: presence P={LEG_B['P']} G={G} K={LEG_B['K']} made "
+          f"in {time.perf_counter() - t0:.1f} s, {presence.m.nbytes} B on "
+          f"the host, {pres_bytes} B bucketed")
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_record_")
+    saved = {k: os.environ.pop(k, None)
+             for k in ("PARFASTAAI_HBM_BYTES", "PARFASTAAI_SLAB_BYTES")}
+    runs = {}
+    try:
+        os.environ["PARFASTAAI_HBM_BYTES"] = str(LEG_B_BUDGET)
+        if not engine._use_staged(presence, dev):
+            fail("leg B: the presence fits the budget; nothing to stage")
+        chunks = list(engine._split_plan(plan, LEG_B_BLOCK, dev))
+        for name, staged in (("staged", None), ("resident", False)):
+            pres = dataclasses.replace(presence)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch._C._host_emptyCache()  # the page-locked blocks of before
+            torch.cuda.reset_peak_memory_stats()
+            out = os.path.join(out_dir, f"{name}.csv")
+            phases: dict = {}
+            reset_launches()
+            t1 = time.perf_counter()
+            engine.compute_streamed(
+                pres, ids, ids, out, names, names, dev, band=LEG_B_BLOCK,
+                col_chunk=LEG_B_BLOCK, phases=phases, staged=staged)
+            wall = time.perf_counter() - t1
+            ran = read_launches()
+            if ran["sn_rect"] == 0 or ran["sn_square_wgmma"]:
+                fail(f"leg B {name}: launches {ran}")
+            runs[name] = dict(out=out, wall=wall, launches=ran["sn_rect"],
+                              phases=phases,
+                              peak_alloc=torch.cuda.max_memory_allocated(),
+                              stats=engine.slab_stats(pres, dev))
+            del pres
+        st = runs["staged"]["stats"]
+        if st is None or runs["resident"]["stats"] is not None:
+            fail("leg B: the staged run kept no slab store, or the "
+                 "resident run made one")
+        biggest = max(len(idx) * LEG_B_BLOCK * kb for _, _, idx, kb in chunks)
+        if st["peak"] > st["cap"] + biggest:
+            fail(f"leg B: the store held {st['peak']} B, over its cap "
+                 f"{st['cap']} B plus one slab ({biggest} B)")
+        agree = csv_agreement(runs["staged"]["out"], runs["resident"]["out"],
+                              exact=False)
+        for name, r in runs.items():
+            print(
+                f"staged leg B {name}: wall {r['wall']:.3f} s, sn_rect "
+                f"launches {r['launches']}, max_memory_allocated "
+                f"{r['peak_alloc']} B, budget {LEG_B_BUDGET} B; split ms "
+                "(stages overlap): " + ", ".join(
+                    f"{k} {v * 1e3:.1f}" for k, v in r["phases"].items()))
+        print(f"staged leg B: {len(chunks)} chunks a block, {st['slabs']} "
+              f"uploads of slabs up to {biggest} B, {st['hits']} hits, "
+              f"uploaded {st['uploaded']} B = "
+              f"{st['uploaded'] / pres_bytes:.3f} x the bucketed presence, "
+              f"store peak {st['peak']} B of a {st['cap']} B cap; against "
+              f"the resident run: {agree}")
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del presence
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
+    # sn_rect at the run's first chunk shape against its plain version
+    _, _, idx, kb = chunks[0]
+    P, A = len(idx), LEG_B_BLOCK
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ma, mb, ta, tb = random_block(gen, dev, P, A, A, kb)
+    s_ref, n_ref = sn_rect.fused_sn_block_plain(ma, mb, ta, tb)
+    errs = {}
+    for mode, kw in MODES:
+        s, n = sn_rect.fused_sn_block(ma, mb, ta, tb, **kw)
+        errs[mode] = check(f"sn_rect staged chunk P={P} A=B={A} K={kb}", s,
+                           n, s_ref, n_ref, mode)
+    ms = cuda_ms(lambda: sn_rect.fused_sn_block(ma, mb, ta, tb), 5)
+    plain_ms = cuda_ms(lambda: sn_rect.fused_sn_block_plain(ma, mb, ta, tb), 3)
+    b = rect_bound(P, A, A, kb)
+    print(f"sn_rect staged chunk P={P} A=B={A} K={kb}: kernel {ms:.3f} ms "
+          f"({P * A * A * kb / ms / 1e9:.3f} TMAC/s), plain {plain_ms:.3f} "
+          f"ms, bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
+    del ma, mb, ta, tb, s_ref, n_ref, s, n
+    torch.cuda.empty_cache()
+    return {"launches": runs["staged"]["launches"],
+            "chunk": {"shape": [P, A, A, kb], "max_abs_err": errs["newton"],
+                      "ms": ms, "plain_ms": plain_ms, **b,
+                      "library_ms": None}}
 
 
 def host_library_phase() -> None:
@@ -1415,9 +1704,15 @@ def main() -> None:
     sass_phase()
     kern = kernel_phase(dev)
     square = square_phase(dev)
-    e2e = e2e_phase(dev)
-    streamed_launches = streamed_phase(dev, e2e["band"])
-    exact_phase(e2e["band"])
+    keep_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_resident_")
+    try:
+        e2e = e2e_phase(dev, keep_dir)
+        streamed_launches = streamed_phase(dev, e2e["band"], keep_dir)
+        exact_phase(e2e["band"], keep_dir)
+        staged_launches = staged_cli_leg(keep_dir)
+    finally:
+        shutil.rmtree(keep_dir, ignore_errors=True)
+    record = staged_record_leg(dev)
     whole, whole_variants, packed_launches = bench_phase(dev)
     # every entry module of the port is loaded by now, the library API too
     leaked = sorted(m for m in sys.modules
@@ -1430,9 +1725,14 @@ def main() -> None:
 
     print(card_line())
     results = {
-        # launches: the --fast CLI run's; the --streamed CLI run's beside it
+        # launches: the --fast CLI run's; the --streamed CLI run's, its
+        # staged twin's (leg A) and leg B's beside it
         "sn_rect": {"launches": e2e["launches"],
                     "launches_streamed": streamed_launches,
+                    "launches_staged": staged_launches,
+                    "launches_staged_record": record["launches"],
+                    # leg B's chunk shape (P, A, B, K), the kb kernel shape
+                    "staged_chunk": record["chunk"],
                     "max_abs_err": kern[("main", "newton")],
                     "ms": kern[("main", "ms")],
                     "plain_ms": kern[("main", "plain_ms")],

@@ -20,9 +20,11 @@ moves to another device)::
 Engines: ``exact`` (default: bit-for-bit f64 parity with the reference),
 ``fast`` (fused f32 on the device, ~1e-7), and through :func:`aji_to_csv`
 alone ``streamed`` (f32 row bands straight to the CSV) and
-``streamed-exact`` (the banded exact engine).  ``engine="sharded"``, a
-``mesh`` and ``staged=True`` name engines that this package does not run
-yet and raise PFAAIError(CONSTRUCT_ERROR).
+``streamed-exact`` (the banded exact engine).  ``staged`` stages the
+presence slabs of the last three (``True`` forces it, ``False`` forbids
+it, ``None`` leaves it to PARFASTAAI_STAGED and the device budget), as in
+the JAX package.  ``engine="sharded"`` and a ``mesh`` name engines that
+this package does not run yet and raise PFAAIError(CONSTRUCT_ERROR).
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ from .engine import (
     compute_fast,
     compute_streamed,
     compute_streamed_exact,
-    staged_override,
 )
 from .etl.database import PresenceData, QueryTargetDatabase, SCPDatabase
 from .io.csv_writer import aji_matrix, write_aji_csv
@@ -98,16 +99,12 @@ def _open(
     return db, (all_vs_all_axes if axes_only else all_vs_all)(db.meta)
 
 
-def _reject_unported(
-    engine: str, mesh: tuple[int, int] | None, staged: bool | None
-) -> None:
+def _reject_unported(engine: str, mesh: tuple[int, int] | None) -> None:
     """CONSTRUCT_ERROR for what ``parfastaai_tpu.api`` runs and this
-    package does not yet: the sharded engine, a device mesh, staged slabs."""
+    package does not yet: the sharded engine and a device mesh."""
     for asked, what in (
         (engine == "sharded", "engine='sharded' (the multi-GPU engine)"),
         (bool(mesh), "mesh (the multi-GPU engines)"),
-        (bool(staged_override(staged)),
-         "staged=True or PARFASTAAI_STAGED (the staged slab engine)"),
     ):
         if asked:
             raise PFAAIError(
@@ -124,12 +121,14 @@ def _compute(
     approx: bool,
     precise: bool,
     device: torch.device,
+    staged: bool | None = None,
 ) -> JacResult:
     if engine == "exact":
         return compute(presence, pairs, device)
     if engine == "fast":
         return compute_fast(
-            presence, pairs, device, approx=approx, precise=precise
+            presence, pairs, device, approx=approx, precise=precise,
+            staged=staged,
         )
     raise PFAAIError(
         ErrorCode.CONSTRUCT_ERROR,
@@ -164,10 +163,11 @@ def aji(
       mesh: device-mesh shape; not run by this package yet (raises).
       approx / precise: fused-kernel divide selection (CLI ``--approx`` /
         ``--precise``); only meaningful with ``engine="fast"``.
-      staged: presence-slab staging; ``True`` is not run by this package
-        yet (raises), ``False`` keeps the buckets resident, ``None`` reads
-        PARFASTAAI_STAGED as the reference does ("0", "false", "no" or
-        unset: resident; any other value: staging, which raises).
+      staged: presence-slab staging for presence larger than the device
+        budget (CLI ``--staged``); only meaningful with ``engine="fast"``:
+        ``True`` forces it, ``False`` keeps the buckets resident, ``None``
+        reads PARFASTAAI_STAGED as the reference does ("0", "false", "no"
+        or unset: decide from the budget; any other value: stage).
       compat_qt_t_swap: replicate the reference's swapped T-column read in
         two-database mode (modes.query_target; default True = reference
         parity).
@@ -177,14 +177,14 @@ def aji(
     databases, unknown query genomes, or overlapping two-DB genome sets:
     the same error taxonomy (and error codes) as the CLI.
     """
-    _reject_unported(engine, mesh, staged)
+    _reject_unported(engine, mesh)
     dev = resolve_device(device)
     db, pairs = _open(db_path, query_db, query_subset, compat_qt_t_swap)
     try:
         presence = db.load_presence()
     finally:
         db.close()
-    result = _compute(presence, pairs, engine, approx, precise, dev)
+    result = _compute(presence, pairs, engine, approx, precise, dev, staged)
     return AJIResult(
         matrix=aji_matrix(pairs, result.aji),
         row_names=pairs.query_names,
@@ -219,7 +219,7 @@ def aji_to_csv(
     ``--streamed``), and ``"streamed-exact"``, the banded f64 engine (CLI
     ``--streamed --exact``), byte-identical to ``engine="exact"`` output at
     any genome count.  Both support resume-from-partial-file
-    (``resume=True``)."""
+    (``resume=True``) and ``staged`` as :func:`aji` reads it."""
     if engine == "streamed-exact" and (approx or precise):
         # The CLI's --exact guard: the banded exact engine is f64 by
         # definition; a quiet plain f64 pass would misreport what was
@@ -244,7 +244,7 @@ def aji_to_csv(
         )
         res.to_csv(out_path, separator)
         return
-    _reject_unported(engine, mesh, staged)
+    _reject_unported(engine, mesh)
     dev = resolve_device(device)
     db, pairs = _open(
         db_path, query_db, query_subset, compat_qt_t_swap, axes_only=True
@@ -258,6 +258,7 @@ def aji_to_csv(
         resume=resume,
         row_denom_ids=pairs.row_denom_ids,
         col_denom_ids=pairs.col_denom_ids,
+        staged=staged,
     )
     args = (
         presence,

@@ -9,10 +9,14 @@ streamed engine (``--streamed``) and on the banded exact engine
 validation, error codes and phase timers.  Above the host budget of the
 dense exact path (PARFASTAAI_EXACT_HOST_BYTES, default 4 GiB) the default
 call routes itself through the banded exact engine and writes the same
-bytes.  ``--profile DIR`` writes a Chrome trace of the compute phase (a
-``torch.profiler`` run) into DIR.  Flags whose engines the port does not
-run yet (``--staged``, ``--mesh``, and PARFASTAAI_STAGED set to ask for
-staging) exit with CONSTRUCT_ERROR (3) and write no CSV.
+bytes.  ``--staged`` (with ``--fast`` or ``--streamed``) and
+PARFASTAAI_STAGED stage presence slabs instead of keeping the width
+buckets on the device, as does presence above the device budget
+(PARFASTAAI_HBM_BYTES, else 75% of the card's memory); a staged run
+prints what its slab store uploaded.  ``--profile DIR`` writes a Chrome
+trace of the compute phase (a ``torch.profiler`` run) into DIR.
+``--mesh``, whose engines the port does not run yet, exits with
+CONSTRUCT_ERROR (3) and writes no CSV.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from .engine import (
     compute_fast,
     compute_streamed,
     compute_streamed_exact,
-    staged_override,
+    presence_device_bytes,
+    slab_stats,
 )
 from .etl.database import QueryTargetDatabase, SCPDatabase
 from .etl.derive import derive_qsub, derive_qt, derive_single
@@ -46,7 +51,6 @@ from .modes import (
 from .types import ErrorCode, PFAAIError
 from .utils.timing import phase_timer
 
-_NOT_PORTED = ("staged", "mesh")
 # The one file ``--profile DIR`` writes into DIR.
 PROFILE_TRACE = "parfastaai_trace.json"
 
@@ -154,7 +158,13 @@ def build_parser() -> argparse.ArgumentParser:
             "With --streamed: banded exact engine, bit-parity f64 CSV in "
             "memory that does not grow with the genome count",
         ),
-        ("--staged", "Presence-slab staging (not in the port yet)"),
+        (
+            "--staged",
+            "With --fast or --streamed: stage presence slabs through an "
+            "LRU on the device instead of keeping the width buckets "
+            "resident (automatic above the device budget, "
+            "PARFASTAAI_HBM_BYTES)",
+        ),
         (
             "--resume",
             "With --streamed (and on the auto-routed banded exact engine): "
@@ -217,8 +227,8 @@ def _print_args_box(args) -> None:
 
 
 def _validate(args) -> None:
-    """The flag checks of ``parfastaai_tpu.cli.run``, in its order, then the
-    flags the port does not run yet."""
+    """The flag checks of ``parfastaai_tpu.cli.run``, in its order, then
+    ``--mesh``, which the port does not run yet."""
     if args.exact and not args.streamed:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -261,18 +271,10 @@ def _validate(args) -> None:
             "--approx/--precise select the fused kernel's divide and "
             "require --fast or --streamed",
         )
-    if not args.staged and staged_override(None):
+    if args.mesh:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
-            f"PARFASTAAI_STAGED={os.environ['PARFASTAAI_STAGED']!r} asks for "
-            "staged slabs: the PyTorch port does not run this yet "
-            "(parfastaai_tpu.cli does)",
-        )
-    not_run = [name for name in _NOT_PORTED if getattr(args, name)]
-    if not_run:
-        raise PFAAIError(
-            ErrorCode.CONSTRUCT_ERROR,
-            f"--{not_run[0]}: the PyTorch port does not run this yet "
+            "--mesh: the PyTorch port does not run this yet "
             "(parfastaai_tpu.cli does)",
         )
 
@@ -342,6 +344,20 @@ def _print_phases(phases: dict, verbose: bool) -> None:
             print(f"  {label:<17}: {seconds * 1e3:.1f} ms")
 
 
+def _print_slabs(presence, device, verbose: bool) -> None:
+    """What a staged run's slab store moved and held; nothing for a
+    resident run."""
+    stats = slab_stats(presence, device)
+    if verbose and stats is not None:
+        ratio = stats["uploaded"] / max(1, presence_device_bytes(presence))
+        print(
+            f"  staged slabs     : {stats['slabs']} uploads, "
+            f"{stats['hits']} hits, uploaded {stats['uploaded']} B "
+            f"({ratio:.3f} x the bucketed presence), peak held "
+            f"{stats['peak']} B of a {stats['cap']} B cap"
+        )
+
+
 def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
     """The banded exact engine's one call, for ``--streamed --exact`` and
     for the auto-routed default path alike (``pairs`` is the StreamAxes)."""
@@ -362,8 +378,10 @@ def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
             row_denom_ids=pairs.row_denom_ids,
             col_denom_ids=pairs.col_denom_ids,
             phases=phases,
+            staged=args.staged or None,
         )
     _print_phases(phases, verbose)
+    _print_slabs(presence, device, verbose)
     if verbose:
         print(
             "  (the stages above overlap: they do not sum to the phase's "
@@ -397,8 +415,10 @@ def _streamed_run(args, presence, pairs, device, verbose: bool) -> None:
             row_denom_ids=pairs.row_denom_ids,
             col_denom_ids=pairs.col_denom_ids,
             phases=phases,
+            staged=args.staged or None,
         )
     _print_phases(phases, verbose)
+    _print_slabs(presence, device, verbose)
     if verbose:
         print(
             "  (the stages above overlap: they do not sum to the phase's "
@@ -485,10 +505,12 @@ def run(argv: list[str] | None = None) -> int:
                     result = compute_fast(
                         presence, pairs, device, approx=args.approx,
                         precise=args.precise, phases=phases,
+                        staged=args.staged or None,
                     )
                 else:
                     result = compute(presence, pairs, device, phases=phases)
         _print_phases(phases, verbose)
+        _print_slabs(presence, device, verbose)
         with phase_timer("CSV write          ", enabled=verbose):
             write_aji_csv(
                 args.path_to_output_file, pairs, result.aji, args.separator

@@ -25,6 +25,13 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   and appends them to the CSV; memory that does not grow with the square
   of the genome count.
 
+Above the device budget (``_use_staged``: PARFASTAAI_HBM_BYTES, else 75% of
+the card's memory), or where ``staged`` / PARFASTAAI_STAGED asks for it,
+the last three take their blocks from staged slabs instead of resident
+buckets: an LRU of (proteins x genomes x K) slabs on the device
+(``_slab_store``), gathered on the host and uploaded on demand
+(``_staged_block_engine``, ``_staged_count_engine``).
+
 Every function computes on the device it is given.  ``phases``, where
 accepted, is a dict that collects seconds per sub-phase.  ``compute`` and
 ``compute_fast`` synchronise the device at each phase boundary, which
@@ -34,11 +41,13 @@ their device phases from CUDA events after the last block.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import sys
 import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -282,23 +291,155 @@ def _device_budget(device: torch.device) -> int | None:
     return None
 
 
-def _resident_buckets(
-    presence: PresenceData, device: torch.device, phases: dict | None = None
-) -> list[tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
-    """``to_device_buckets`` behind the device-budget check that the fused
-    and the integer-count block engines share.  Raises
-    PFAAIError(CONSTRUCT_ERROR) when the buckets exceed the budget and so
-    need the staged slab engine, which this package does not run yet."""
+def _use_staged(
+    presence: PresenceData, device: torch.device, staged: bool | None = None
+) -> bool:
+    """Staged slabs or resident buckets (parfastaai_tpu.engine._use_staged):
+    ``staged`` or PARFASTAAI_STAGED when either decides
+    (``staged_override``), else staged exactly when the width-bucketed
+    presence exceeds the device budget.  The CPU reports no budget, so a
+    CPU run stages only when asked or under PARFASTAAI_HBM_BYTES."""
+    override = staged_override(staged)
+    if override is not None:
+        return override
     budget = _device_budget(device)
-    if budget is not None and presence_device_bytes(presence) > budget:
-        raise PFAAIError(
-            ErrorCode.CONSTRUCT_ERROR,
-            f"the width-bucketed presence ({presence_device_bytes(presence)} "
-            f"bytes) exceeds the device budget ({budget} bytes) and needs "
-            "the staged slab engine, which the PyTorch port does not run "
-            "yet (PARFASTAAI_HBM_BYTES sets the budget)",
-        )
-    return to_device_buckets(presence, device, phases)
+    return budget is not None and presence_device_bytes(presence) > budget
+
+
+def _slab_target_bytes(device: torch.device) -> int:
+    """Upper bound on one staged slab's bytes: PARFASTAAI_SLAB_BYTES, else
+    a sixth of the device budget within [256 MiB, 2 GiB], 2 GiB without a
+    budget (parfastaai_tpu.engine._slab_target_bytes).  A block's row and
+    column slab sets then fit the store's cap together with the slabs of
+    the block before, which the card may still be reading."""
+    env = os.environ.get("PARFASTAAI_SLAB_BYTES")
+    if env:
+        return int(float(env))
+    budget = _device_budget(device)
+    if budget is None:
+        return 2 << 30
+    return min(2 << 30, max(256 << 20, budget // 6))
+
+
+def _split_plan(plan, n_ids: int, device: torch.device):
+    """Each width bucket's proteins cut into chunks whose slab of ``n_ids``
+    genomes stays under ``_slab_target_bytes``: yields (bucket_i,
+    p_chunk_i, protein_idx, kb) in bucket order, chunks in protein order
+    (parfastaai_tpu.engine._split_plan).  The chunk length is a floor, so
+    no chunk of ``np.array_split`` overshoots the target."""
+    target = _slab_target_bytes(device)
+    for bi, (idx, kb) in enumerate(plan):
+        chunk_len = max(1, target // max(1, n_ids * kb))
+        n_pc = max(1, -(-len(idx) // chunk_len))
+        for pci, idx_c in enumerate(np.array_split(idx, n_pc)):
+            if len(idx_c):
+                yield bi, pci, idx_c, kb
+
+
+def _bucket_plan(presence: PresenceData) -> list[tuple[np.ndarray, int]]:
+    """[(protein_idx, kb)] of the width buckets, in bucket order, without
+    copying any presence (``etl.database.bucket_bounds``)."""
+    order, bounds = bucket_bounds(presence.widths)
+    return [(order[k:i], kb) for k, i, kb in bounds]
+
+
+class _SlabStore:
+    """LRU of presence slabs on one device, shared by the staged block and
+    count engines (parfastaai_tpu.engine._slab_store).
+
+    ``fetch(idx, kb, ids)`` returns the (len(idx), len(ids), kb) int8 slab
+    of proteins ``idx`` and genomes ``ids``, zero-padded from the tensor's
+    width to ``kb``.  A slab is keyed by what it holds, (kb, idx, ids): the
+    reference keys it by (bucket, protein chunk, ids), and since the
+    chunks depend on the block width, a second call on the same presence
+    with another width is served slabs of the first call's proteins there.
+
+    On a miss the store evicts least recently used slabs until the new one
+    fits 0.75 of the device budget (4 GiB without one), but never the most
+    recent slab, which is the other live slab of the current block, and
+    only then uploads: the rows and the bucket's own K columns are
+    gathered straight into page-locked memory (no full-width or full-G
+    copy) and copied on the current stream, the stream of the kernels, so
+    a dropped slab's memory is reused only by work queued after the
+    kernels that read it.
+
+    ``uploaded`` counts the bytes copied to the device, ``peak`` the most
+    bytes the store held, ``slabs`` the uploads and ``hits`` the fetches
+    served from the store."""
+
+    def __init__(self, presence: PresenceData, device: torch.device):
+        self._m = presence.m
+        self._device = device
+        self._slabs: OrderedDict = OrderedDict()
+        self.held = self.peak = self.uploaded = self.slabs = self.hits = 0
+
+    def cap(self) -> int:
+        """0.75 of the device budget as it stands (4 GiB without one)."""
+        budget = _device_budget(self._device)
+        return int((budget if budget is not None else 4 << 30) * 0.75)
+
+    def fetch(self, idx: np.ndarray, kb: int, ids: np.ndarray) -> torch.Tensor:
+        idx = np.asarray(idx, np.int64)
+        ids = np.asarray(ids, np.int64)
+        key = (kb, idx.tobytes(), ids.tobytes())
+        hit = self._slabs.get(key)
+        if hit is not None:
+            self._slabs.move_to_end(key)
+            self.hits += 1
+            return hit
+        nb = len(idx) * len(ids) * kb
+        cap = self.cap()
+        while self.held + nb > cap and len(self._slabs) > 1:
+            _, old = self._slabs.popitem(last=False)
+            self.held -= old.numel()
+        slab = self._upload(idx, kb, ids)
+        self._slabs[key] = slab
+        self.held += nb
+        self.peak = max(self.peak, self.held)
+        self.uploaded += nb
+        self.slabs += 1
+        return slab
+
+    def _upload(
+        self, idx: np.ndarray, kb: int, ids: np.ndarray
+    ) -> torch.Tensor:
+        shape = (len(idx), len(ids), kb)
+        cuda = self._device.type == "cuda"
+        host = torch.empty(shape, dtype=torch.int8, pin_memory=cuda)
+        out = host.numpy().view(np.uint8)
+        kw = min(kb, self._m.shape[2])
+        for j, p in enumerate(idx):
+            out[j, :, :kw] = self._m[p][ids, :kw]
+            out[j, :, kw:] = 0
+        if not cuda:
+            return host.to(self._device)
+        return host.to(self._device, non_blocking=True)
+
+    def stats(self) -> dict:
+        return {"uploaded": self.uploaded, "peak": self.peak,
+                "held": self.held, "cap": self.cap(), "slabs": self.slabs,
+                "hits": self.hits}
+
+
+def _slab_store(presence: PresenceData, device: torch.device) -> _SlabStore:
+    """The presence's slab store on ``device``, made at first use and kept
+    on the presence object, so later calls reuse its slabs."""
+    stores = getattr(presence, "_torch_slab_stores", None)
+    if stores is None:
+        stores = {}
+        presence._torch_slab_stores = stores
+    key = str(device)
+    if key not in stores:
+        stores[key] = _SlabStore(presence, device)
+    return stores[key]
+
+
+def slab_stats(presence: PresenceData, device: torch.device) -> dict | None:
+    """The counters of the presence's slab store on ``device`` (bytes
+    uploaded, peak and held bytes, the cap, uploads and hits), or None
+    where nothing was staged."""
+    store = getattr(presence, "_torch_slab_stores", {}).get(str(device))
+    return None if store is None else store.stats()
 
 
 def _selector(
@@ -329,8 +470,9 @@ def _bucket_block_engine(
     """``block_sn(rids, cids, drids, dcids) -> (s, n)`` device tensors for
     one output block, summed over the width buckets in bucket order.  The
     index arguments are host arrays: genome ids of the rows and columns and
-    the T columns of their denominators.  Raises as ``_resident_buckets``
-    does.
+    the T columns of their denominators.  Every width bucket stays on the
+    device (``to_device_buckets``); ``_staged_block_engine`` is its twin
+    for presence above the device budget.
 
     ``clock`` times the block's ``gather`` and ``kernel`` stages.  The
     default synchronises the device at each stage boundary and fills
@@ -338,7 +480,7 @@ def _bucket_block_engine(
     passes its own ``_StageClock(..., sync=False)``, with which ``block_sn``
     enqueues its work and returns without waiting for the device.  The
     values are the same either way."""
-    buckets = _resident_buckets(presence, device, phases)
+    buckets = to_device_buckets(presence, device, phases)
     G = presence.m.shape[1]
     if clock is None:
         clock = _StageClock(device, phases, sync=True)
@@ -364,6 +506,80 @@ def _bucket_block_engine(
     return block_sn
 
 
+def _staged_block_engine(
+    presence: PresenceData,
+    approx: bool,
+    precise: bool,
+    device: torch.device,
+    phases: dict | None = None,
+    clock: _StageClock | None = None,
+):
+    """``_bucket_block_engine``'s contract for presence above the device
+    budget (parfastaai_tpu.engine._staged_block_engine): no bucket is
+    uploaded whole.  Per block, each chunk of ``_split_plan`` (at the
+    block's larger side) fetches its row and column slabs from the
+    ``_slab_store``, uploads its T columns clamped (``clamp_t``) and runs
+    the rectangular kernel.  The chunks of a bucket are summed in chunk
+    order and the bucket sums in bucket order: a bucket cut into one
+    chunk, or into chunks of one protein each, gives the resident
+    engine's values bit for bit; other cuts change the f32 order of S
+    within a bucket (~1e-7), and N not at all.
+
+    ``clock`` laps ``slab upload`` (the host gather, page-locking and the
+    copies of a chunk's slabs and T) and ``kernel``, as the resident
+    engine laps its stages."""
+    fetch = _slab_store(presence, device).fetch
+    plan = _bucket_plan(presence)
+    t = presence.t
+    if clock is None:
+        clock = _StageClock(device, phases, sync=True)
+
+    def block_sn(rids, cids, drids, dcids):
+        rids, cids = np.asarray(rids), np.asarray(cids)
+        drids, dcids = np.asarray(drids), np.asarray(dcids)
+        clock.start()
+        s = n = None
+        chunks = _split_plan(plan, max(len(rids), len(cids)), device)
+        for _, bucket in itertools.groupby(chunks, key=lambda c: c[0]):
+            s_b = n_b = None
+            for _, _, idx, kb in bucket:
+                ma, mb = fetch(idx, kb, rids), fetch(idx, kb, cids)
+                ta = clamp_t(_to_device(t[np.ix_(idx, drids)], device))
+                tb = clamp_t(_to_device(t[np.ix_(idx, dcids)], device))
+                clock.lap("slab upload")
+                s_c, n_c = fused_sn_block(
+                    ma, mb, ta, tb, approx=approx, precise=precise
+                )
+                s_b = s_c if s_b is None else s_b + s_c
+                n_b = n_c if n_b is None else n_b + n_c
+                clock.lap("kernel")
+            s = s_b if s is None else s + s_b
+            n = n_b if n is None else n + n_b
+        return s, n
+
+    return block_sn
+
+
+def _choose_block_engine(
+    presence: PresenceData,
+    approx: bool,
+    precise: bool,
+    device: torch.device,
+    phases: dict | None = None,
+    clock: _StageClock | None = None,
+    staged: bool | None = None,
+):
+    """The resident block engine, or the staged one where ``_use_staged``
+    says so (parfastaai_tpu.engine._choose_block_engine); both keep one
+    ``block_sn`` contract."""
+    engine = (
+        _staged_block_engine
+        if _use_staged(presence, device, staged)
+        else _bucket_block_engine
+    )
+    return engine(presence, approx, precise, device, phases, clock)
+
+
 def _mask_aji(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """One streamed block finished on its device: AJI = S / N in f32 (an
     IEEE divide on the card and on the CPU alike; N to f32 is exact) with
@@ -384,9 +600,10 @@ def _bucket_count_engine(
     written straight into the rows of the block that its proteins own, so
     the block is in ascending protein order, the order of the f64 finish
     that byte parity rides on, and one copy carries it to the host.  Blocks
-    have their exact shape: nothing is padded here.  Raises as
-    ``_resident_buckets`` does."""
-    buckets = _resident_buckets(presence, device, phases)
+    have their exact shape: nothing is padded here.  Every width bucket
+    stays on the device; ``_staged_count_engine`` is its twin for presence
+    above the device budget."""
+    buckets = to_device_buckets(presence, device, phases)
     out_dtype = _count_wire_dtype(presence)
     P, G = presence.t.shape
 
@@ -405,6 +622,58 @@ def _bucket_count_engine(
     return block_counts
 
 
+def _staged_count_engine(presence: PresenceData, device: torch.device):
+    """``_bucket_count_engine``'s contract from the ``_slab_store``
+    (parfastaai_tpu.engine._staged_count_engine): per chunk of
+    ``_split_plan`` (at the block's larger side), the row and column slabs
+    are fetched and each protein's Gram is written into the block's row of
+    that protein.  Counts are integers, so the block does not depend on
+    the split."""
+    fetch = _slab_store(presence, device).fetch
+    plan = _bucket_plan(presence)
+    out_dtype = _count_wire_dtype(presence)
+    P = presence.t.shape[0]
+
+    def block_counts(rids: np.ndarray, cids: np.ndarray) -> torch.Tensor:
+        out = torch.empty(
+            (P, len(rids), len(cids)), dtype=out_dtype, device=device
+        )
+        for _, _, idx, kb in _split_plan(
+            plan, max(len(rids), len(cids)), device
+        ):
+            ma, mb = fetch(idx, kb, rids), fetch(idx, kb, cids)
+            for j, p in enumerate(idx):
+                out[int(p)] = int_gram(ma[j], mb[j])
+        return out
+
+    return block_counts
+
+
+def _staged_col_group(
+    presence: PresenceData,
+    device: torch.device,
+    band: int,
+    col_chunk: int,
+    n_chunks: int,
+    staged: bool | None,
+) -> int:
+    """Column chunks per group of ``_banded_sn``'s column-group-major walk
+    (parfastaai_tpu.engine._staged_col_group): as many as fit, with one
+    row band's slabs, into 0.8 of the slab store's cap (0.75 of the
+    budget).  Resident runs get ``n_chunks``: one group, the row-major
+    walk."""
+    if n_chunks <= 1 or not _use_staged(presence, device, staged):
+        return max(1, n_chunks)
+    g = max(1, presence.m.shape[1])
+    per_genome = presence_device_bytes(presence) / g
+    budget = _device_budget(device)
+    cap = (budget if budget is not None else 4 << 30) * 0.75
+    avail = cap - band * per_genome
+    if avail <= 0 or per_genome <= 0:
+        return 1
+    return max(1, min(n_chunks, int(avail * 0.8 / (per_genome * col_chunk))))
+
+
 def _banded_sn(
     presence: PresenceData,
     row_ids: np.ndarray,
@@ -417,15 +686,22 @@ def _banded_sn(
     band: int = 1024,
     col_chunk: int = 4096,
     phases: dict | None = None,
+    staged: bool | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Full (len(row_ids), len(col_ids)) S/N matrices on the host, computed
-    in band x col_chunk device blocks.
+    in band x col_chunk device blocks (``_choose_block_engine``).
 
     Short last bands and chunks are padded with genome 0 and sliced off.
     Symmetric problems (rows == cols with the same denominators) skip the
     blocks wholly below the diagonal and fill them from the transpose:
     counts and the denominator sums are symmetric, so each cell is the
-    same f32 value."""
+    same f32 value.
+
+    Staged runs walk column-group-major (parfastaai_tpu.engine._banded_sn):
+    every row band of a group of column chunks (``_staged_col_group``)
+    before the next group, so a column slab is uploaded once per group,
+    not once per band.  Blocks land at their (r0, c0), so the order
+    changes no value."""
     row_ids = np.asarray(row_ids, np.int64)
     col_ids = np.asarray(col_ids, np.int64)
     row_denom_ids = np.asarray(row_denom_ids, np.int64)
@@ -434,7 +710,9 @@ def _banded_sn(
     n = np.zeros((len(row_ids), len(col_ids)), dtype=np.int32)
     if len(row_ids) == 0 or len(col_ids) == 0:
         return s, n
-    block_sn = _bucket_block_engine(presence, approx, precise, device, phases)
+    block_sn = _choose_block_engine(
+        presence, approx, precise, device, phases, staged=staged
+    )
     band = min(band, len(row_ids))
     col_chunk = min(col_chunk, len(col_ids))
     symmetric = (
@@ -447,24 +725,30 @@ def _banded_sn(
         part = ids[start : start + width]
         return np.pad(part, (0, width - len(part)))
 
-    for r0 in range(0, len(row_ids), band):
-        nr = min(band, len(row_ids) - r0)
-        rids = padded(row_ids, r0, band)
-        drids = padded(row_denom_ids, r0, band)
-        for c0 in range(0, len(col_ids), col_chunk):
-            if symmetric and c0 + col_chunk <= r0:
-                continue  # wholly below the diagonal: transpose fill
-            nc = min(col_chunk, len(col_ids) - c0)
-            s_b, n_b = block_sn(
-                rids,
-                padded(col_ids, c0, col_chunk),
-                drids,
-                padded(col_denom_ids, c0, col_chunk),
-            )
-            t0 = time.perf_counter()
-            s[r0 : r0 + nr, c0 : c0 + nc] = s_b[:nr, :nc].cpu().numpy()
-            n[r0 : r0 + nr, c0 : c0 + nc] = n_b[:nr, :nc].cpu().numpy()
-            _add(phases, "D2H", time.perf_counter() - t0)
+    col_starts = list(range(0, len(col_ids), col_chunk))
+    group_n = _staged_col_group(
+        presence, device, band, col_chunk, len(col_starts), staged
+    )
+    for g0 in range(0, len(col_starts), group_n):
+        group = col_starts[g0 : g0 + group_n]
+        for r0 in range(0, len(row_ids), band):
+            nr = min(band, len(row_ids) - r0)
+            rids = padded(row_ids, r0, band)
+            drids = padded(row_denom_ids, r0, band)
+            for c0 in group:
+                if symmetric and c0 + col_chunk <= r0:
+                    continue  # wholly below the diagonal: transpose fill
+                nc = min(col_chunk, len(col_ids) - c0)
+                s_b, n_b = block_sn(
+                    rids,
+                    padded(col_ids, c0, col_chunk),
+                    drids,
+                    padded(col_denom_ids, c0, col_chunk),
+                )
+                t0 = time.perf_counter()
+                s[r0 : r0 + nr, c0 : c0 + nc] = s_b[:nr, :nc].cpu().numpy()
+                n[r0 : r0 + nr, c0 : c0 + nc] = n_b[:nr, :nc].cpu().numpy()
+                _add(phases, "D2H", time.perf_counter() - t0)
     if symmetric:
         t0 = time.perf_counter()
         for r0 in range(0, len(row_ids), band):
@@ -530,6 +814,7 @@ def compute_fast(
     approx: bool = False,
     precise: bool = False,
     phases: dict | None = None,
+    staged: bool | None = None,
 ) -> JacResult:
     """Fused f32 path through the rectangular kernel.
 
@@ -540,9 +825,10 @@ def compute_fast(
     |Q| x G rectangle, which covers both of its slot parts; two-database
     mode runs the |Q| x |T| rectangle with the denominators gathered
     through PairSpace.row_denom_ids / col_denom_ids.  Any other pair space
-    takes exact counts and the f64 finish."""
+    takes exact counts and the f64 finish.  ``staged``: the three block
+    walks' slab staging (``_use_staged``)."""
     G = presence.m.shape[1]
-    fast = dict(approx=approx, precise=precise, phases=phases)
+    fast = dict(approx=approx, precise=precise, phases=phases, staged=staged)
     if np.array_equal(pairs.denom_a, pairs.db_a) and np.array_equal(
         pairs.denom_b, pairs.db_b
     ):
@@ -704,6 +990,7 @@ def compute_streamed_exact(
     row_denom_ids: np.ndarray | None = None,
     col_denom_ids: np.ndarray | None = None,
     phases: dict | None = None,
+    staged: bool | None = None,
 ) -> None:
     """Banded exact engine: bit-parity f64 AJI straight to the CSV
     (parfastaai_tpu.engine.compute_streamed_exact on one device).
@@ -716,7 +1003,10 @@ def compute_streamed_exact(
     (``jaccard_finish_block``, the operation order of ``compute``'s finish)
     and appends the CSV rows of each completed band.  Memory is
     O(P * band * col_chunk) on the host and on the device beside the
-    resident presence, whatever G is.
+    resident presence, whatever G is.  Where ``_use_staged`` says so
+    (``staged``, PARFASTAAI_STAGED, or presence above the device budget)
+    the counts come from staged slabs (``_staged_count_engine``) instead
+    of resident buckets, with the same bytes out.
 
     The CSV is byte-identical to ``compute`` + ``write_aji_csv`` in every
     mode: the same f64 values and formatter; pairs that share no protein
@@ -746,10 +1036,11 @@ def compute_streamed_exact(
 
     ``phases`` collects seconds under ``host bucketize`` and ``H2D`` (the
     presence upload), ``Gram`` and ``D2H`` (device seconds from CUDA event
-    pairs), ``host finish`` and ``CSV write`` (the worker's busy seconds),
-    ``producer wait`` (main thread blocked on a full queue or on a host
-    buffer) and ``worker wait`` (worker blocked on a copy or on an empty
-    queue).  The stages overlap, so they do not sum to the wall.
+    pairs; staged: the slabs' uploads too), ``host finish`` and ``CSV
+    write`` (the worker's busy seconds), ``producer wait`` (main thread
+    blocked on a full queue or on a host buffer) and ``worker wait``
+    (worker blocked on a copy or on an empty queue).  The stages overlap,
+    so they do not sum to the wall.
     """
     row_ids = np.asarray(row_ids, dtype=np.int32)
     col_ids = np.asarray(col_ids, dtype=np.int32)
@@ -765,7 +1056,10 @@ def compute_streamed_exact(
     )
     band = max(1, min(band, len(row_ids)))
     col_chunk = max(1, min(col_chunk, len(col_ids)))
-    block_counts = _bucket_count_engine(presence, device, phases)
+    if _use_staged(presence, device, staged):
+        block_counts = _staged_count_engine(presence, device)
+    else:
+        block_counts = _bucket_count_engine(presence, device, phases)
     t = presence.t
     P = t.shape[0]
 
@@ -970,6 +1264,7 @@ def compute_streamed(
     row_denom_ids: np.ndarray | None = None,
     col_denom_ids: np.ndarray | None = None,
     phases: dict | None = None,
+    staged: bool | None = None,
 ) -> None:
     """The f32 streamed engine: AJI straight to the CSV in row bands
     (parfastaai_tpu.engine.compute_streamed on one device).
@@ -1023,19 +1318,25 @@ def compute_streamed(
     symmetric run goes without it.
 
     ``phases`` collects seconds under ``host bucketize`` and ``H2D`` (the
-    presence upload), ``gather``, ``kernel``, ``AJI mask`` and ``D2H``
-    (device seconds from CUDA event pairs, read after the last block),
+    presence upload), ``gather`` (staged: ``slab upload``), ``kernel``,
+    ``AJI mask`` and ``D2H`` (device seconds from CUDA event pairs, read
+    after the last block),
     ``host assembly`` and ``CSV write`` (the writer's busy seconds),
     ``producer wait`` (main thread blocked on a full queue or on a host
     buffer) and ``writer wait`` (writer blocked on a copy or on an empty
     queue).  The stages overlap, so they do not sum to the wall.
 
+    Staged slabs (``staged``, PARFASTAAI_STAGED, or presence above the
+    device budget: ``_use_staged``): blocks come from the staged block
+    engine, and the column walk runs right to left in every other band
+    (the reference's snake order), so the column slabs of a band's last
+    chunks, still in the slab store, open the next band.  The writer
+    places each chunk at its c0, so the bytes do not depend on the order.
+
     Not here, each with the part of the reference it stands for: the host
     numpy block for small problems (``_take_host``: relay dispatch model,
-    not ported), ``staged`` with the snake order of the column walk (the
-    staged slab engine: until it lands, presence above the device budget
-    raises CONSTRUCT_ERROR through ``_resident_buckets``), and ``mesh``
-    with every multi-process branch (the multi-GPU engine).
+    not ported) and ``mesh`` with every multi-process branch (the multi-GPU
+    engine).
     """
     if approx and device.type != "cuda":
         raise PFAAIError(
@@ -1059,8 +1360,9 @@ def compute_streamed(
     band = max(1, min(band, len(row_ids)))
     col_chunk = max(1, min(col_chunk, len(col_ids)))
     clock = _StageClock(device, phases, sync=False)
-    block_sn = _bucket_block_engine(
-        presence, approx, precise, device, phases, clock
+    staged_active = _use_staged(presence, device, staged)
+    block_sn = _choose_block_engine(
+        presence, approx, precise, device, phases, clock, staged_active
     )
 
     def block_aji(rids, cids, drids, dcids) -> torch.Tensor:
@@ -1191,10 +1493,12 @@ def compute_streamed(
             if not rows_done:
                 fp.write(header)
             writer.start()
-            for r0 in range(rows_done, len(row_ids), band):
+            c0s = list(range(0, len(col_ids), col_chunk))
+            for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
                 rids = row_ids[r0 : r0 + band]
                 drids = row_denom_ids[r0 : r0 + band]
-                for c0 in range(0, len(col_ids), col_chunk):
+                snake = staged_active and bi % 2 == 1
+                for c0 in reversed(c0s) if snake else c0s:
                     if sym and c0 + col_chunk <= r0:
                         continue  # below the diagonal: the writer mirrors it
                     cids = col_ids[c0 : c0 + col_chunk]

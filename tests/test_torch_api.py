@@ -4,8 +4,10 @@ databases: ``aji`` with the exact engine bit-equal (matrix, pairs, CSV
 bytes) and with the fast engine within 1e-6, ``aji_to_csv`` with the
 banded exact engine byte-equal and with the f32 streamed engine to its
 stated tolerance (the same header and row names as bytes, the text ``0``
-in the same cells, values within rtol 1e-6), the same error codes, and
-CONSTRUCT_ERROR for the engines this package does not run yet."""
+in the same cells, values within rtol 1e-6), ``staged`` and
+PARFASTAAI_STAGED against the JAX package's staged runs, the same error
+codes, and CONSTRUCT_ERROR for the engines this package does not run
+yet."""
 
 import os
 import sqlite3
@@ -194,14 +196,10 @@ def test_missing_database_code_matches_jax(tmp_path):
 UNPORTED = {
     "sharded": ("aji", dict(engine="sharded")),
     "mesh": ("aji", dict(engine="fast", mesh=(2, 1))),
-    "staged": ("aji", dict(engine="fast", staged=True)),
     "to_csv_sharded": ("aji_to_csv", dict(engine="sharded")),
     "streamed_mesh": ("aji_to_csv", dict(engine="streamed", mesh=(2, 1))),
-    "streamed_staged": ("aji_to_csv", dict(engine="streamed", staged=True)),
     "streamed_exact_mesh": (
         "aji_to_csv", dict(engine="streamed-exact", mesh=(2, 1))),
-    "streamed_exact_staged": (
-        "aji_to_csv", dict(engine="streamed-exact", staged=True)),
 }
 
 
@@ -215,6 +213,87 @@ def test_unported_engines_raise_construct_error(case, dbs, tmp_path):
     assert e.value.code == ErrorCode.CONSTRUCT_ERROR
     assert "does not run this yet" in str(e.value)
     assert not out.exists()
+
+
+def _both(fn, engine, dbs, tmp_path, **kw):
+    """(port, JAX) results of one call of ``fn`` with ``engine`` through
+    both APIs, the JAX side on its device leg (where it stages): the
+    AJIResult of ``aji``, the CSV bytes of ``aji_to_csv``."""
+    out = {}
+    for name, module, extra in (("jax", jax_api, {}),
+                                ("port", api, {"device": "cpu"})):
+        path = tmp_path / f"{name}.csv"
+        args = (str(path), dbs["target"]) if fn == "aji_to_csv" else (
+            dbs["target"],)
+        os.environ["PARFASTAAI_FORCE_DEVICE"] = "1"
+        try:
+            res = getattr(module, fn)(*args, engine=engine, **extra, **kw)
+        finally:
+            del os.environ["PARFASTAAI_FORCE_DEVICE"]
+        out[name] = path.read_bytes() if fn == "aji_to_csv" else res
+    return out["port"], out["jax"]
+
+
+def _assert_parity(engine, got, want) -> None:
+    """The stated tolerance of ``engine`` between port and JAX results."""
+    if engine == "fast":
+        np.testing.assert_array_equal(got.pairs.n, want.pairs.n)
+        np.testing.assert_allclose(got.pairs.s, want.pairs.s, rtol=1e-6,
+                                   atol=0)
+    elif engine == "exact":
+        np.testing.assert_array_equal(got.matrix, want.matrix)
+    elif engine == "streamed-exact":
+        assert got == want
+    else:
+        g_head, g_names, g = _table(got)
+        w_head, w_names, w = _table(want)
+        assert g_head == w_head and g_names == w_names and g.shape == w.shape
+        np.testing.assert_array_equal(g == "0", w == "0")
+        np.testing.assert_allclose(g.astype(np.float64),
+                                   w.astype(np.float64), rtol=1e-6, atol=0)
+
+
+def _resident(fn, engine, dbs, tmp_path, **kw):
+    """The port's ``staged=False`` result of the same call."""
+    out = tmp_path / "resident.csv"
+    args = (str(out), dbs["target"]) if fn == "aji_to_csv" else (dbs["target"],)
+    res = getattr(api, fn)(*args, engine=engine, device="cpu", staged=False,
+                           **kw)
+    return out.read_bytes() if fn == "aji_to_csv" else res
+
+
+def _same(fn, got, want) -> None:
+    if fn == "aji":
+        np.testing.assert_array_equal(got.matrix, want.matrix)
+        np.testing.assert_array_equal(got.pairs.s, want.pairs.s)
+    else:
+        assert got == want
+
+
+STAGED = {
+    "fast": ("aji", "fast", {}),
+    "fast_qsub": ("aji", "fast", {"query_subset": QUERIES}),
+    "fast_qt": ("aji", "fast", "qt"),
+    "streamed": ("aji_to_csv", "streamed", {"band": 7, "col_chunk": 5}),
+    "streamed_qt": ("aji_to_csv", "streamed", "qt"),
+    "streamed_exact": (
+        "aji_to_csv", "streamed-exact", {"band": 7, "col_chunk": 5}),
+    "streamed_exact_qsub": (
+        "aji_to_csv", "streamed-exact", {"query_subset": QUERIES}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_matches_jax_and_resident(case, dbs, tmp_path):
+    """``staged=True`` runs the staged slab engines: the JAX package's
+    staged result to each engine's stated tolerance, and the bytes of
+    ``staged=False`` (no bucket is split into chunks at this size)."""
+    fn, engine, kw = STAGED[case]
+    if kw == "qt":
+        kw = {"query_db": dbs["query"]}
+    got, want = _both(fn, engine, dbs, tmp_path, staged=True, **kw)
+    _assert_parity(engine, got, want)
+    _same(fn, got, _resident(fn, engine, dbs, tmp_path, **kw))
 
 
 @pytest.mark.parametrize("staged", [None, False])
@@ -234,32 +313,23 @@ def test_staged_none_and_false_are_accepted(staged, dbs, tmp_path):
     ("aji_to_csv", "streamed-exact")])
 def test_staged_env_is_read_as_the_reference_reads_it(
         value, staged, fn, engine, dbs, tmp_path, monkeypatch):
-    """With ``staged=None`` PARFASTAAI_STAGED decides: a value that asks for
-    staging raises CONSTRUCT_ERROR before the database is read (a missing
-    DB raises the same) and writes nothing; "0", "no" and an empty value
-    run resident.  An explicit ``staged=False`` overrides the variable."""
+    """With ``staged=None`` PARFASTAAI_STAGED decides ("0", "no" and an
+    empty value: resident; any other value: staged slabs on the banded
+    engines, while ``exact`` uploads the whole tensor, as in the JAX
+    package), and the result is the JAX package's under the same variable
+    to the engine's stated tolerance.  An explicit ``staged=False``
+    overrides the variable; at this size the two give the same bytes."""
+    from parfastaai_tpu_torch import engine as port_engine
+
     monkeypatch.setenv("PARFASTAAI_STAGED", value)
-    out = tmp_path / "x.csv"
-
-    def call(db, **kw):
-        args = (str(out), db) if fn == "aji_to_csv" else (db,)
-        return getattr(api, fn)(*args, engine=engine, device="cpu", **kw)
-
-    if staged:
-        for db in (dbs["target"], str(tmp_path / "missing.db")):
-            with pytest.raises(PFAAIError) as e:
-                call(db)
-            assert e.value.code == ErrorCode.CONSTRUCT_ERROR
-            assert "PARFASTAAI_STAGED" in str(e.value)
-            assert not out.exists()
-    else:
-        call(dbs["target"])
-    # staged=False keeps the buckets resident whatever the variable says
-    res = call(dbs["target"], staged=False)
-    if fn == "aji":
-        assert res.matrix.shape == (40, 40)
-    else:
-        assert out.read_bytes().count(b"\n") == 41
+    stores = []
+    real = port_engine._slab_store
+    monkeypatch.setattr(port_engine, "_slab_store",
+                        lambda *a: stores.append(1) or real(*a))
+    got, want = _both(fn, engine, dbs, tmp_path)
+    _assert_parity(engine, got, want)
+    assert bool(stores) == (staged and engine != "exact")
+    _same(fn, got, _resident(fn, engine, dbs, tmp_path))
 
 
 def test_device_is_named_never_guessed(dbs, tmp_path, monkeypatch):

@@ -3,8 +3,9 @@ small synthetic databases: byte-identical default CSVs in all three modes,
 on the dense path and on the banded exact engine (auto-routed under a low
 PARFASTAAI_EXACT_HOST_BYTES, and ``--streamed --exact`` with ``--resume``),
 ``--fast`` within 1e-6, ``--streamed`` (the f32 streamed engine) to its
-stated tolerance, ``--profile`` on every route, the same error codes, exit
-code 3 for every flag the port does not run yet, and no jax in a port
+stated tolerance, ``--staged`` and PARFASTAAI_STAGED against the JAX
+CLI's staged runs, ``--profile`` on every route, the same error codes,
+exit code 3 for every flag the port does not run yet, and no jax in a port
 run."""
 
 import json
@@ -20,6 +21,7 @@ import torch
 from parfastaai_tpu.cli import run as jax_run
 from parfastaai_tpu.tools.synth_db import generate
 from parfastaai_tpu_torch.cli import run
+from parfastaai_tpu_torch.types import ErrorCode, PFAAIError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -127,16 +129,16 @@ def test_error_codes_match_jax(dbs, tmp_path):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--streamed", "--staged"],
         ["--streamed", "--mesh", "2"],
-        ["--streamed", "--fast", "--staged"],
         ["--exact"],
         ["--exact", "--resume"],
         ["--streamed", "--exact", "--precise"],
-        ["--streamed", "--exact", "--staged"],
         ["--streamed", "--exact", "--mesh", "2"],
-        ["--fast", "--staged"],
         ["--staged"],
+        ["--staged", "--mesh", "2"],
+        ["--staged", "--exact"],
+        ["--staged", "--resume"],
+        ["--staged", "--precise"],
         ["--mesh", "2"],
         ["--mesh", "0,1"],
         ["--profile", "trace_dir", "--mesh", "2"],
@@ -151,31 +153,73 @@ def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
     assert "CONSTRUCT_ERROR" in capsys.readouterr().err
 
 
+def _staged_cli_runs(argv, dbs, tmp_path, capfd) -> tuple[bytes, bytes, str]:
+    """(port CSV, JAX CSV, what the port printed) of one run of each CLI
+    with ``argv``; the JAX CLI on its device leg, where it stages too."""
+    want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+    os.environ["PARFASTAAI_FORCE_DEVICE"] = "1"
+    try:
+        assert jax_run([dbs["target"], str(want), "--quiet", *argv]) == 0
+    finally:
+        del os.environ["PARFASTAAI_FORCE_DEVICE"]
+    capfd.readouterr()
+    assert run([dbs["target"], str(got), "--device", "cpu", *argv]) == 0
+    return got.read_bytes(), want.read_bytes(), capfd.readouterr().out
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--streamed", "--staged"],
+        ["--streamed", "--fast", "--staged"],
+        ["--streamed", "--exact", "--staged"],
+        ["--fast", "--staged"],
+    ],
+    ids=["streamed", "streamed_fast", "streamed_exact", "fast"],
+)
+def test_staged_flags_match_jax(flags, dbs, tmp_path, capfd):
+    """--staged runs the staged slab engines, says what they uploaded, and
+    writes the JAX CLI's staged CSV: the same bytes on the banded exact
+    engine, the stated tolerance on the f32 ones.  Here no bucket is split
+    into chunks, so the f32 bytes are those of the resident run too."""
+    got, want, text = _staged_cli_runs(
+        [*flags, "--band", "7", "--col-chunk", "5"], dbs, tmp_path, capfd)
+    assert "staged slabs" in text and "uploaded" in text
+    resident = tmp_path / "resident.csv"
+    assert run([dbs["target"], str(resident), "--quiet", "--device", "cpu",
+                *[f for f in flags if f != "--staged"], "--band", "7",
+                "--col-chunk", "5"]) == 0
+    assert got == resident.read_bytes()
+    if "--exact" in flags:
+        assert got == want
+    else:
+        assert_streamed_close(got, want)
+
+
 @pytest.mark.parametrize("value,staged", [
     ("1", True), ("yes", True), ("0", False), ("False", False), ("", False)])
 @pytest.mark.parametrize("flags", [[], ["--streamed"], ["--fast"]])
 def test_staged_env_is_read_as_the_reference_reads_it(
-        value, staged, flags, dbs, tmp_path, capsys, monkeypatch):
+        value, staged, flags, dbs, tmp_path, capfd, monkeypatch):
     """PARFASTAAI_STAGED asks for staged slabs unless it is "0", "false",
-    "no" or empty: then the CLI exits 3 as for --staged, before it opens
-    the database (a DB that does not exist would give another code), and
-    writes no CSV; otherwise the run stays resident and writes the bytes
-    of a run without the variable."""
-    out, plain = tmp_path / "x.csv", tmp_path / "plain.csv"
-    argv = ["--quiet", "--device", "cpu", *flags]
+    "no" or empty.  Where it asks, the banded engines stage (the dense
+    default path uploads the whole tensor, as in the JAX package) and the
+    CSV is the JAX CLI's under the same variable: its bytes on the exact
+    path, the stated tolerance on the f32 ones.  Either way the port
+    writes the bytes of a run without the variable (no bucket is split at
+    this size)."""
+    plain = tmp_path / "plain.csv"
     monkeypatch.delenv("PARFASTAAI_STAGED", raising=False)
-    assert run([dbs["target"], str(plain), *argv]) == 0
+    assert run([dbs["target"], str(plain), "--quiet", "--device", "cpu",
+                *flags]) == 0
     monkeypatch.setenv("PARFASTAAI_STAGED", value)
-    if staged:
-        missing = str(tmp_path / "missing.db")
-        for db in (dbs["target"], missing):
-            assert run([db, str(out), *argv]) == 3
-            assert not out.exists()
-            err = capsys.readouterr().err
-            assert "CONSTRUCT_ERROR" in err and "PARFASTAAI_STAGED" in err
-        return
-    assert run([dbs["target"], str(out), *argv]) == 0
-    assert out.read_bytes() == plain.read_bytes()
+    got, want, text = _staged_cli_runs(flags, dbs, tmp_path, capfd)
+    assert ("staged slabs" in text) == (staged and bool(flags))
+    assert got == plain.read_bytes()
+    if flags:
+        assert_streamed_close(got, want)
+    else:
+        assert got == want
 
 
 def assert_streamed_close(got: bytes, want: bytes, sep=",") -> None:
@@ -300,13 +344,23 @@ def test_profile_writes_a_trace_and_the_same_csv(route, dbs, tmp_path, monkeypat
 
 
 def test_profile_of_a_failing_run_closes_the_profiler(dbs, tmp_path, monkeypatch):
-    """A run that fails under --profile exits with its own code, and the
-    next profiled run works: the profiler was closed."""
-    monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "1")
+    """A run that fails under --profile (here its block engine, mid-run)
+    exits with its own code, and the next profiled run works: the profiler
+    was closed."""
+    from parfastaai_tpu_torch import engine
+
+    real = engine._bucket_block_engine
+
+    def failing(*args, **kwargs):
+        def block_sn(*ids):
+            raise PFAAIError(ErrorCode.CONSTRUCT_ERROR, "injected block fault")
+        return block_sn
+
+    monkeypatch.setattr(engine, "_bucket_block_engine", failing)
     out = tmp_path / "x.csv"
     args = [dbs["target"], str(out), "--quiet", "--device", "cpu", "--streamed"]
     assert run([*args, "--profile", str(tmp_path / "t1")]) == 3
-    monkeypatch.delenv("PARFASTAAI_HBM_BYTES")
+    monkeypatch.setattr(engine, "_bucket_block_engine", real)
     assert run([*args, "--profile", str(tmp_path / "t2")]) == 0
     assert (tmp_path / "t2").is_dir() and out.exists()
 

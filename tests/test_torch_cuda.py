@@ -591,6 +591,123 @@ def test_streamed_main_thread_never_waits_for_the_card(cuda, tmp_path, monkeypat
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slab_proteins", [None, 1, 2])
+@pytest.mark.parametrize("band,col_chunk", [(64, 48), (7, 150)])
+def test_staged_streamed_on_cuda_equals_cpu_under_precise(
+    cuda, tmp_path, monkeypatch, slab_proteins, band, col_chunk
+):
+    """The staged streamed engine on the card, under a budget whose slab
+    store holds about two slabs: the bytes of its CPU run under
+    ``precise``, whatever the split; with buckets left whole or cut into
+    one protein a slab, the bytes of the resident run on the card too; one
+    kernel launch per block and chunk."""
+    from parfastaai_tpu_torch import engine
+
+    meta, presence = _bucketed_presence()
+    G = 150
+    ids = np.arange(G, dtype=np.int32)
+    kw = dict(band=band, col_chunk=col_chunk, precise=True)
+    resident = _run_streamed(presence, meta.genome_set, ids, ids,
+                             tmp_path / "resident.csv", cuda, **kw)
+    monkeypatch.setenv("PARFASTAAI_HBM_BYTES", str(3 * 384 * 2 * 64 * 2))
+    if slab_proteins:
+        monkeypatch.setenv("PARFASTAAI_SLAB_BYTES",
+                           str(slab_proteins * max(band, col_chunk) * 384))
+    want = _run_streamed(_bucketed_presence()[1], meta.genome_set, ids, ids,
+                         tmp_path / "cpu.csv", torch.device("cpu"),
+                         staged=True, **kw)
+    _, fresh = _bucketed_presence()
+    before = sn_rect.LAUNCHES
+    got = _run_streamed(fresh, meta.genome_set, ids, ids,
+                        tmp_path / "cuda.csv", cuda, staged=True, **kw)
+    assert got == want
+    if slab_proteins in (None, 1):
+        assert got == resident
+    stats = engine.slab_stats(fresh, cuda)
+    assert stats["uploaded"] > engine.presence_device_bytes(fresh)
+    b, c = min(band, G), min(col_chunk, G)
+    chunks = lambda n: len(list(engine._split_plan(  # noqa: E731
+        engine._bucket_plan(fresh), n, cuda)))
+    launches = sum(chunks(max(min(b, G - r0), min(c, G - c0)))
+                   for r0 in range(0, G, b) for c0 in range(0, G, c)
+                   if not c0 + c <= r0)
+    assert sn_rect.LAUNCHES - before == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["all", "qsub"])
+def test_staged_exact_and_fast_on_cuda(cuda, synth_db, tmp_path, monkeypatch,
+                                       mode):
+    """Staged through the CLI on the card: ``--streamed --exact --staged``
+    writes the dense CPU bytes, ``--fast --staged`` and ``--streamed
+    --staged`` the resident card run's bytes (no bucket is cut at this
+    size)."""
+    from parfastaai_tpu_torch.cli import run
+
+    extra = []
+    if mode == "qsub":
+        qfile = tmp_path / "queries.txt"
+        qfile.write_text("".join(
+            f"synthetic_genome_{i:05d}.fna.gz\n" for i in (30, 2, 17, 39, 8)))
+        extra = ["-q", str(qfile)]
+    dense = tmp_path / "dense.csv"
+    assert run([synth_db, str(dense), "--device", "cpu", "--quiet", *extra]) == 0
+    for flags in (["--streamed", "--exact"], ["--fast"], ["--streamed"]):
+        base = ["--device", "cuda", "--quiet", "--band", "16",
+                "--col-chunk", "12", *extra, *flags]
+        resident, staged = tmp_path / "resident.csv", tmp_path / "staged.csv"
+        assert run([synth_db, str(resident), *base]) == 0
+        monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "20000")
+        assert run([synth_db, str(staged), *base, "--staged"]) == 0
+        monkeypatch.delenv("PARFASTAAI_HBM_BYTES")
+        assert staged.read_bytes() == resident.read_bytes()
+        if "--exact" in flags:
+            assert staged.read_bytes() == dense.read_bytes()
+
+
+@pytest.mark.cuda
+def test_staged_main_thread_never_waits_for_the_card(cuda, tmp_path,
+                                                     monkeypatch):
+    """The staged streamed engine keeps the resident one's rule: between
+    the first and the last block the main thread calls nothing that waits
+    for the device.  (The slab store takes ``.numpy()`` views of its own
+    page-locked host buffers, which wait for nothing, so that call is not
+    watched here.)"""
+    import threading
+
+    from parfastaai_tpu_torch import engine
+
+    meta, presence = _bucketed_presence()
+    monkeypatch.setenv("PARFASTAAI_HBM_BYTES", str(150 * 384 * 5 // 2))
+    log = []
+
+    def spy(owner, name, label=None):
+        real = getattr(owner, name)
+
+        def wrapped(*a, **k):
+            if threading.current_thread() is threading.main_thread():
+                log.append(label or name)
+            return real(*a, **k)
+
+        monkeypatch.setattr(owner, name, wrapped)
+
+    spy(torch.cuda, "synchronize")
+    spy(torch.cuda.Stream, "synchronize", "stream.synchronize")
+    spy(torch.cuda.Event, "synchronize", "event.synchronize")
+    for name in ("cpu", "item", "tolist"):
+        spy(torch.Tensor, name)
+    spy(engine, "fused_sn_block", "block")
+    ids = np.arange(150, dtype=np.int32)
+    _run_streamed(presence, meta.genome_set, ids, ids, tmp_path / "x.csv",
+                  cuda, band=16, col_chunk=32)
+    assert engine.slab_stats(presence, cuda)["slabs"] > 0
+    first = log.index("block")
+    last = len(log) - 1 - log[::-1].index("block")
+    assert log.count("block") > 40
+    assert set(log[first:last + 1]) == {"block"}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["hook", "formatter"])
 def test_streamed_writer_fault_returns_every_pinned_buffer(
     cuda, tmp_path, monkeypatch, fault

@@ -17,7 +17,6 @@ from parfastaai_tpu.modes import all_vs_all, query_subset, query_target
 from parfastaai_tpu.tools.synth_db import generate
 from parfastaai_tpu_torch import engine
 from parfastaai_tpu_torch.ops import sn_rect
-from parfastaai_tpu_torch.types import ErrorCode, PFAAIError
 
 CPU = torch.device("cpu")
 
@@ -144,11 +143,17 @@ def test_banded_sn_pads_and_mirrors(dbs):
 
 
 def test_staged_size_raises(dbs, monkeypatch):
-    """Presence above the device budget needs the staged engine, which the
-    port does not run: CONSTRUCT_ERROR, not a quiet other path."""
-    presence, pairs = _mode("all", dbs)
-    monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "1")
-    with pytest.raises(PFAAIError) as e:
-        engine.compute_fast(presence, pairs, CPU)
-    assert e.value.code == ErrorCode.CONSTRUCT_ERROR
-    assert "staged" in str(e.value)
+    """Presence above the device budget (1 byte) goes to the staged slab
+    engine, with no word from the caller, and gives the resident run's
+    S and N bit for bit in every mode (no bucket is split into chunks at
+    this size)."""
+    for mode in MODES:
+        presence, pairs = _mode(mode, dbs)
+        monkeypatch.delenv("PARFASTAAI_HBM_BYTES", raising=False)
+        want = engine.compute_fast(presence, pairs, CPU)
+        assert engine.slab_stats(presence, CPU) is None
+        monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "1")
+        got = engine.compute_fast(presence, pairs, CPU)
+        assert engine.slab_stats(presence, CPU)["uploaded"] > 0
+        np.testing.assert_array_equal(got.n, want.n)
+        np.testing.assert_array_equal(got.s, want.s)

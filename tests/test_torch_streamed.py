@@ -12,6 +12,7 @@ Within the port the CSV's bytes do not depend on band, chunk, mirror or
 resume, and a failure on either side of the pipeline reaches the caller
 and leaves no thread behind."""
 
+import dataclasses
 import sqlite3
 import threading
 
@@ -474,12 +475,17 @@ def test_approx_needs_the_cuda_kernel(single, tmp_path):
 
 
 def test_device_budget_raises_before_the_csv(single, tmp_path, monkeypatch):
+    """A budget of 1 byte stages the blocks' slabs, with no word from the
+    caller, and the CSV keeps the resident run's bytes (no bucket is split
+    into chunks at this size)."""
     meta, presence = single
+    axes = modes.all_vs_all_axes(meta)
+    want = _streamed(tmp_path, presence, axes, "resident", band=7,
+                     col_chunk=5)
+    fresh = dataclasses.replace(presence)
     monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "1")
-    with pytest.raises(PFAAIError) as e:
-        _streamed(tmp_path, presence, modes.all_vs_all_axes(meta))
-    assert e.value.code == ErrorCode.CONSTRUCT_ERROR and "staged" in str(e.value)
-    assert not (tmp_path / "port.csv").exists()
+    assert _streamed(tmp_path, fresh, axes, band=7, col_chunk=5) == want
+    assert engine.slab_stats(fresh, CPU)["uploaded"] > 0
 
 
 def test_no_kernel_launch_on_the_cpu(single, tmp_path):
