@@ -56,6 +56,23 @@ Run from the repository root:
    per genome, seed 0), with every kernel launch counter reset just before
    and read just after.  A band of 64 rows of the result is then checked
    against exact integer counts finished in f64 on the host (numpy).
+2a. Runs the multi-GPU engine (``--mesh``, ``engine.compute_sharded``)
+   on the database of step 2, after printing the GPU count
+   (``torch.cuda.device_count()``) and the backend of its two-process
+   leg.  Leg (a): ``--mesh 1,1 --device cuda`` in process, launch
+   counters reset just before and read just after (sn_rect once, the
+   whole square, no other kernel), its first 64 rows against exact f64
+   (``band_check``) and its agreement with step 2's CSV printed.  Leg
+   (b): ``--mesh 2,1`` and ``--mesh 1,2`` through the CLI in two
+   processes each (PARFASTAAI_COORDINATOR on a local port; NCCL with two
+   cards or more, else gloo with both ranks on cuda:0; every rank with a
+   timeout), each rank reporting its own launch counts (sn_rect once, no
+   other kernel): only rank 0 writes, 2,1's CSV has 1,1's bytes, 1,2's
+   first 64 rows are within 1e-6 of exact f64, and rank 0's phases (ETL,
+   Presence broadcast, JAC + AJI with its H2D / kernel / scp all-reduce /
+   row gather split, CSV write) and the wall are printed.  Then the
+   bench's mesh mode in process: the (1, 1) mesh step against the direct
+   leg (sn_rect alone, 81 launches each).
 3. Runs the f32 streamed engine on the card through the CLI
    (``--streamed --device cuda``): at full width on the database of step 2
    with the default band and chunk, launch counters reset just before and
@@ -119,6 +136,11 @@ Run from the repository root:
    result.
 7. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --mesh-only`` runs step 2 and step 2a alone (for
+a machine with several GPUs, whose legs then run on NCCL, four processes
+too with four GPUs or more, and the bench's mesh mode in one process per
+GPU), then prints the mesh phase's report and the result line.
 
 Exits non-zero, and prints no result line, when CUDA is not available,
 when the native host library does not build, when any phase fails, or when
@@ -1330,6 +1352,214 @@ def e2e_phase(dev, keep_dir: str) -> dict:
     return {"launches": launches, "band": band}
 
 
+# One rank of a multi-process CLI run: the CLI's own entry, then this
+# process's launch counters (they start at 0 with the process).
+MESH_RANK = (
+    "import sys\n"
+    "from parfastaai_tpu_torch import cli\n"
+    "from parfastaai_tpu_torch.ops import sn_rect, sn_square\n"
+    "rc = cli.run(sys.argv[1:])\n"
+    "print(f'LAUNCHES sn_rect={sn_rect.LAUNCHES} '\n"
+    "      f'sn_square_wgmma={sn_square.WGMMA_LAUNCHES}', flush=True)\n"
+    "sys.exit(rc)\n"
+)
+MESH_RANK_TIMEOUT = 300
+LAUNCH_VARS = ("PARFASTAAI_COORDINATOR", "MASTER_ADDR", "RANK", "WORLD_SIZE",
+               "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(what: str, argv: list, n: int, env: dict | None = None):
+    """``argv`` (rank i's output paths through ``{rank}``) in ``n``
+    processes of one group (PARFASTAAI_COORDINATOR on a free local port):
+    [stdout] in rank order, and the wall from launch to the last exit.
+    Fails on a non-zero exit or a rank that outlives MESH_RANK_TIMEOUT
+    (every rank is then killed)."""
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [a.replace("{rank}", str(i)) for a in argv],
+            env={**base, **(env or {}), "PYTHONPATH": root,
+                 "PARFASTAAI_COORDINATOR": f"127.0.0.1:{port}",
+                 "PARFASTAAI_NUM_PROCESSES": str(n),
+                 "PARFASTAAI_PROCESS_ID": str(i)},
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        for i in range(n)
+    ]
+    done = []
+    try:
+        for p in procs:
+            done.append(p.communicate(timeout=MESH_RANK_TIMEOUT))
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: a rank ran past {MESH_RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for i, (p, (out, err)) in enumerate(zip(procs, done)):
+        if p.returncode != 0:
+            print(out, err)
+            fail(f"{what}: rank {i} exited {p.returncode}")
+    return [out for out, _ in done], wall
+
+
+def mesh_ranks(db: str, out_dir: str, spec: str, n: int):
+    """``--mesh spec --device cuda`` through the CLI in ``n`` processes,
+    each with an output path of its own: [(CSV path, stdout, {kernel:
+    launches})] in rank order, and the wall of the slowest."""
+    out = os.path.join(out_dir, f"mesh{spec.replace(',', 'x')}_rank{{rank}}.csv")
+    outs, wall = launch_ranks(
+        f"--mesh {spec}",
+        [sys.executable, "-c", MESH_RANK, db, out, "--mesh", spec, "--device",
+         "cuda"], n)
+    ranks = []
+    for i, text in enumerate(outs):
+        counts = re.search(r"LAUNCHES sn_rect=(\d+) sn_square_wgmma=(\d+)",
+                           text)
+        if counts is None:
+            fail(f"--mesh {spec}: rank {i} reported no launch counts")
+        ranks.append((out.replace("{rank}", str(i)), text,
+                      {"sn_rect": int(counts.group(1)),
+                       "sn_square_wgmma": int(counts.group(2))}))
+    return ranks, wall
+
+
+def rows_against(csv_path: str, want_band: np.ndarray) -> float:
+    """The largest relative error of the CSV's first BAND_ROWS rows against
+    ``want_band`` (exact f64); fails outside RTOL_E2E_AJI."""
+    with open(csv_path) as fp:
+        fp.readline()
+        got = np.array([[float(v) for v in fp.readline().split(",")[1:]]
+                        for _ in range(BAND_ROWS)])
+    if got.shape != want_band.shape or not np.all(np.isfinite(got)):
+        fail(f"{csv_path}: first rows of shape {got.shape}, or not finite")
+    err = np.abs(got - want_band) / np.where(want_band == 0, 1.0,
+                                             np.abs(want_band))
+    if err.max() > RTOL_E2E_AJI:
+        fail(f"{csv_path}: AJI {err.max():.3e} from exact f64 (rtol "
+             f"{RTOL_E2E_AJI})")
+    return float(err.max())
+
+
+MESH_SPLIT = ("Presence ETL", "Presence broadcast", "JAC + AJI", "H2D",
+              "kernel", "scp all-reduce", "row gather", "CSV write")
+
+
+def mesh_phase(dev, want_band: np.ndarray, keep_dir: str) -> dict:
+    """The multi-GPU engine (``--mesh``, ``engine.compute_sharded``) on the
+    card at the E2E size.  Leg (a): ``--mesh 1,1`` in this process, one
+    sn_rect launch (the whole square) and no other kernel, its first rows
+    against exact f64 (``band_check``) and its agreement with the --fast
+    CSV.  Leg (b): ``--mesh 2,1`` and ``--mesh 1,2`` in two processes each
+    (NCCL with two cards or more, else gloo with both ranks on cuda:0),
+    and with four cards or more ``4,1`` and ``2,2`` in four: one sn_rect
+    launch a rank, only rank 0 writes, a row split's bytes equal 1,1's (a
+    row split moves cells between ranks, not their arithmetic), a protein
+    split's first rows within RTOL_E2E_AJI of exact f64.  Then the bench's
+    mesh mode, in this process ((1, 1) and the direct leg) and, with two
+    cards or more, in one process per card.  Returns launches, walls and
+    the bench's lines."""
+    import torch
+
+    from parfastaai_tpu_torch import bench
+
+    n_gpu = torch.cuda.device_count()
+    backend = "nccl" if n_gpu >= 2 else "gloo"
+    print(f"mesh: {n_gpu} GPU(s) (torch.cuda.device_count()); multi-process "
+          f"backend {backend}"
+          + ("" if backend == "nccl" else ", every rank on cuda:0"))
+    db = synth_db()
+    G = E2E["n_genomes"]
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_mesh_")
+    report = {"gpus": n_gpu, "backend": backend}
+    legs = [("2,1", 2), ("1,2", 2)]
+    if n_gpu >= 4:
+        legs += [("4,1", 4), ("2,2", 4)]
+    try:
+        reset_launches()
+        one, text, _, wall = cli_call(out_dir, db, "mesh1x1", ["--mesh", "1,1"])
+        ran = read_launches()
+        print(text)
+        if ran != {"sn_square_wgmma": 0, "sn_rect": 1}:
+            fail(f"--mesh 1,1 launched {ran}, reckoned sn_rect once alone")
+        band_check(db, one, dev)
+        agree = csv_agreement(one, os.path.join(keep_dir, "fast.csv"), False)
+        phases = cli_phases(text)
+        print(f"mesh 1,1 G={G}: wall {wall:.3f} s, sn_rect launches 1; "
+              f"against --fast: {agree}; split ms: "
+              + ", ".join(f"{k} {phases.get(k, 0.0):.1f}" for k in MESH_SPLIT))
+        report["1,1"] = {"launches": [1], "wall_s": wall,
+                         "jac_ms": phases["JAC + AJI"]}
+        for spec, n in legs:
+            ranks, wall = mesh_ranks(db, out_dir, spec, n)
+            primary_text = ranks[0][1]
+            print(primary_text)
+            if f"backend {backend}, rank 0 on cuda:0" not in primary_text:
+                fail(f"--mesh {spec}: not the {backend} backend with rank 0 "
+                     "on cuda:0")
+            launches = [r[2]["sn_rect"] for r in ranks]
+            if launches != [1] * n or any(r[2]["sn_square_wgmma"]
+                                          for r in ranks):
+                fail(f"--mesh {spec}: launches {[r[2] for r in ranks]}, "
+                     "reckoned sn_rect once a rank alone")
+            if any(os.path.exists(r[0]) for r in ranks[1:]):
+                fail(f"--mesh {spec}: a rank other than 0 wrote a CSV")
+            if spec.endswith(",1"):
+                if read_bytes(ranks[0][0]) != read_bytes(one):
+                    fail(f"--mesh {spec} on {n} processes: not the bytes of "
+                         "--mesh 1,1")
+                held = "byte-identical to --mesh 1,1"
+            else:
+                held = (f"rows 0..{BAND_ROWS - 1} within "
+                        f"{rows_against(ranks[0][0], want_band):.3e} of exact "
+                        f"f64 (rtol {RTOL_E2E_AJI})")
+            os.remove(ranks[0][0])
+            phases = cli_phases(primary_text)
+            print(f"mesh {spec} G={G} on {n} processes ({backend}): wall "
+                  f"{wall:.3f} s (from launch to the last exit), sn_rect "
+                  f"launches per rank {launches}, only rank 0 wrote, {held}; "
+                  "rank 0 split ms: "
+                  + ", ".join(f"{k} {phases.get(k, 0.0):.1f}"
+                              for k in MESH_SPLIT))
+            report[spec] = {"launches": launches, "wall_s": wall,
+                            "jac_ms": phases["JAC + AJI"],
+                            "broadcast_ms": phases["Presence broadcast"]}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    # the bench's mesh mode in this process: the (1, 1) mesh step against
+    # the direct leg, BENCH_CALLS launches each
+    reset_launches()
+    report["bench"] = [bench.main({"PARFASTAAI_BENCH_MODE": "mesh"})]
+    ran = read_launches()
+    if ran != {"sn_square_wgmma": 0, "sn_rect": 2 * BENCH_CALLS}:
+        fail(f"the bench's mesh mode launched {ran}, reckoned sn_rect "
+             f"{2 * BENCH_CALLS} times alone")
+    report["bench_mesh_launches"] = ran["sn_rect"]
+    if n_gpu >= 2:
+        outs, wall = launch_ranks(
+            "the bench's mesh mode", [sys.executable, "-m",
+                                      "parfastaai_tpu_torch.bench"],
+            n_gpu, {"PARFASTAAI_BENCH_MODE": "mesh"})
+        print(outs[0].strip())
+        print(f"bench mesh mode on {n_gpu} processes: {wall:.1f} s")
+        report["bench"].append(json.loads(outs[0].strip().splitlines()[-1]))
+    return report
+
+
 def csv_agreement(got_path: str, want_path: str, exact: bool) -> str:
     """Holds the CSV at ``got_path`` against the one at ``want_path``:
     the same bytes where ``exact``; else the same bytes, or the f32
@@ -1663,6 +1893,9 @@ def sass_phase() -> None:
 def main() -> None:
     import torch
 
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    if sys.argv[1:] and not mesh_only:
+        fail(f"usage: {sys.argv[0]} [--mesh-only]")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     dev = torch.device("cuda")
@@ -1701,12 +1934,27 @@ def main() -> None:
             fail(f"ptxas: {line.strip()}")
 
     host_library_phase()
+    if mesh_only:
+        keep_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_resident_")
+        try:
+            mesh = mesh_phase(dev, e2e_phase(dev, keep_dir)["band"], keep_dir)
+        finally:
+            shutil.rmtree(keep_dir, ignore_errors=True)
+        print(card_line())
+        print(json.dumps({"mesh": mesh}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     sass_phase()
     kern = kernel_phase(dev)
     square = square_phase(dev)
     keep_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_resident_")
     try:
         e2e = e2e_phase(dev, keep_dir)
+        mesh = mesh_phase(dev, e2e["band"], keep_dir)
         streamed_launches = streamed_phase(dev, e2e["band"], keep_dir)
         exact_phase(e2e["band"], keep_dir)
         staged_launches = staged_cli_leg(keep_dir)
@@ -1726,11 +1974,18 @@ def main() -> None:
     print(card_line())
     results = {
         # launches: the --fast CLI run's; the --streamed CLI run's, its
-        # staged twin's (leg A) and leg B's beside it
+        # staged twin's (leg A), leg B's and the --mesh runs' beside it
         "sn_rect": {"launches": e2e["launches"],
                     "launches_streamed": streamed_launches,
                     "launches_staged": staged_launches,
                     "launches_staged_record": record["launches"],
+                    # per rank of each --mesh run (two processes for 2,1
+                    # and 1,2), and the GPU count and backend they had
+                    "launches_mesh": {spec: mesh[spec]["launches"]
+                                      for spec in mesh if "," in spec},
+                    "launches_bench_mesh": mesh["bench_mesh_launches"],
+                    "mesh_gpus": mesh["gpus"],
+                    "mesh_backend": mesh["backend"],
                     # leg B's chunk shape (P, A, B, K), the kb kernel shape
                     "staged_chunk": record["chunk"],
                     "max_abs_err": kern[("main", "newton")],

@@ -23,8 +23,14 @@ alone ``streamed`` (f32 row bands straight to the CSV) and
 ``streamed-exact`` (the banded exact engine).  ``staged`` stages the
 presence slabs of the last three (``True`` forces it, ``False`` forbids
 it, ``None`` leaves it to PARFASTAAI_STAGED and the device budget), as in
-the JAX package.  ``engine="sharded"`` and a ``mesh`` name engines that
-this package does not run yet and raise PFAAIError(CONSTRUCT_ERROR).
+the JAX package.  ``engine="sharded"`` is the fused f32 path over a
+(rows, scp) mesh of processes, one device each (``mesh``; default: every
+process of the group on one row each, ``(world size, 1)``): in a
+multi-process run (``parallel.distributed.init_distributed`` first) every
+process makes the same call and gets the whole result.  As in the JAX
+package, ``mesh`` is ignored by ``exact`` and ``fast``; with the streamed
+engines it raises PFAAIError(CONSTRUCT_ERROR), since their mesh branches
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from .device import resolve_device
 from .engine import (
     compute,
     compute_fast,
+    compute_sharded,
     compute_streamed,
     compute_streamed_exact,
 )
@@ -101,23 +108,21 @@ def _open(
 
 def _reject_unported(engine: str, mesh: tuple[int, int] | None) -> None:
     """CONSTRUCT_ERROR for what ``parfastaai_tpu.api`` runs and this
-    package does not yet: the sharded engine and a device mesh."""
-    for asked, what in (
-        (engine == "sharded", "engine='sharded' (the multi-GPU engine)"),
-        (bool(mesh), "mesh (the multi-GPU engines)"),
-    ):
-        if asked:
-            raise PFAAIError(
-                ErrorCode.CONSTRUCT_ERROR,
-                f"{what}: the PyTorch port does not run this yet "
-                "(parfastaai_tpu.api does)",
-            )
+    package does not yet: a mesh under the streamed engines."""
+    if mesh:
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR,
+            f"mesh with engine={engine!r}: the PyTorch port does not run "
+            "this yet (the streamed engines' mesh branches are the "
+            "multi-GPU engine's second slice; parfastaai_tpu.api runs it)",
+        )
 
 
 def _compute(
     presence: PresenceData,
     pairs: PairSpace,
     engine: str,
+    mesh: tuple[int, int] | None,
     approx: bool,
     precise: bool,
     device: torch.device,
@@ -130,6 +135,9 @@ def _compute(
             presence, pairs, device, approx=approx, precise=precise,
             staged=staged,
         )
+    if engine == "sharded":
+        n_rows, n_scp = mesh if mesh else (None, 1)
+        return compute_sharded(presence, pairs, device, n_rows, n_scp)
     raise PFAAIError(
         ErrorCode.CONSTRUCT_ERROR,
         f"Unknown engine {engine!r} (expected exact | fast | sharded)",
@@ -157,10 +165,12 @@ def aji(
       query_subset: query-subset mode: genome names that must exist in the
         database (CLI ``-q``); mutually exclusive with ``query_db``.
       engine: ``exact`` (bit-parity f64, default) | ``fast`` (fused device
-        f32).  At genome counts where holding per-pair results in memory is
+        f32) | ``sharded`` (fused f32 over a mesh of processes).  At genome
+        counts where holding per-pair results in memory is
         itself the problem, use :func:`aji_to_csv` with
         ``engine="streamed"`` / ``"streamed-exact"`` instead.
-      mesh: device-mesh shape; not run by this package yet (raises).
+      mesh: (rows, scp) mesh shape for ``engine="sharded"``; one process
+        per mesh device (the ``exact`` and ``fast`` engines ignore it).
       approx / precise: fused-kernel divide selection (CLI ``--approx`` /
         ``--precise``); only meaningful with ``engine="fast"``.
       staged: presence-slab staging for presence larger than the device
@@ -177,14 +187,15 @@ def aji(
     databases, unknown query genomes, or overlapping two-DB genome sets:
     the same error taxonomy (and error codes) as the CLI.
     """
-    _reject_unported(engine, mesh)
     dev = resolve_device(device)
     db, pairs = _open(db_path, query_db, query_subset, compat_qt_t_swap)
     try:
         presence = db.load_presence()
     finally:
         db.close()
-    result = _compute(presence, pairs, engine, approx, precise, dev, staged)
+    result = _compute(
+        presence, pairs, engine, mesh, approx, precise, dev, staged
+    )
     return AJIResult(
         matrix=aji_matrix(pairs, result.aji),
         row_names=pairs.query_names,

@@ -15,8 +15,19 @@ buckets on the device, as does presence above the device budget
 (PARFASTAAI_HBM_BYTES, else 75% of the card's memory); a staged run
 prints what its slab store uploaded.  ``--profile DIR`` writes a Chrome
 trace of the compute phase (a ``torch.profiler`` run) into DIR.
-``--mesh``, whose engines the port does not run yet, exits with
-CONSTRUCT_ERROR (3) and writes no CSV.
+
+``--mesh ROWS[,SCP]`` runs ``engine.compute_sharded`` over a mesh of
+processes, one device each (parallel/): launch ROWS x SCP processes with
+PARFASTAAI_COORDINATOR / PARFASTAAI_NUM_PROCESSES / PARFASTAAI_PROCESS_ID
+or torchrun; ``--mesh 1`` runs in one process.  In a multi-process run
+process 0 alone opens the database, reads the query list and writes every
+output file (the CSV, ``--dump-jac``, ``--dump-e``, the ``--profile``
+trace); metadata, queries and presence reach the other ranks by broadcast,
+and a failure there reaches them in their place.  ``--mesh`` with
+``--streamed`` (``--exact`` or ``--staged`` too), a multi-process
+``--streamed`` run and a multi-process default call routed to the banded
+exact engine exit with CONSTRUCT_ERROR (3) and write no CSV: those engines'
+mesh and multi-process branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from .device import resolve_device
 from .engine import (
     compute,
     compute_fast,
+    compute_sharded,
     compute_streamed,
     compute_streamed_exact,
     presence_device_bytes,
@@ -48,6 +60,7 @@ from .modes import (
     query_target,
     query_target_axes,
 )
+from .parallel import distributed
 from .types import ErrorCode, PFAAIError
 from .utils.timing import phase_timer
 
@@ -184,7 +197,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--mesh", default="", metavar="ROWS[,SCP]",
-        help="Device mesh (not in the port yet)",
+        help=(
+            "Fused f32 path over a mesh of ROWS x SCP processes, one "
+            "device each: ROWS-way genome-band data parallelism x SCP-way "
+            "protein sharding"
+        ),
     )
     p.add_argument(
         "--profile", default="", metavar="DIR",
@@ -226,9 +243,21 @@ def _print_args_box(args) -> None:
     print(" └" + "─" * w + "┘")
 
 
-def _validate(args) -> None:
-    """The flag checks of ``parfastaai_tpu.cli.run``, in its order, then
-    ``--mesh``, which the port does not run yet."""
+# What a message names where the port refuses a multi-GPU run that waits
+# for the streamed engines' mesh and multi-process branches.
+MESH_NOT_PORTED = (
+    "the PyTorch port does not run this yet: the streamed and banded exact "
+    "engines' mesh and multi-process branches are the multi-GPU engine's "
+    "second slice (parfastaai_tpu.cli runs them)"
+)
+
+
+def _validate(args) -> tuple[int, int] | None:
+    """The flag checks of ``parfastaai_tpu.cli.run``, in its order, on
+    every rank before any collective; then what the port refuses: the
+    streamed engines with ``--mesh`` or on several processes, and a mesh
+    larger than the process group.  Returns ``--mesh``'s (rows, scp), or
+    None without it."""
     if args.exact and not args.streamed:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -253,6 +282,7 @@ def _validate(args) -> None:
             "--staged with --mesh requires --streamed (the staged-mesh "
             "slab engine is a streamed-path engine)",
         )
+    mesh = None
     if args.mesh:
         try:
             parts = [int(x) for x in args.mesh.split(",")]
@@ -265,23 +295,51 @@ def _validate(args) -> None:
                 "--mesh expects ROWS or ROWS,SCP (positive integers), "
                 f"got {args.mesh!r}",
             )
+        mesh = (parts[0], parts[1] if len(parts) > 1 else 1)
     if (args.approx or args.precise) and not (args.fast or args.streamed):
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
             "--approx/--precise select the fused kernel's divide and "
             "require --fast or --streamed",
         )
-    if args.mesh:
+    world = distributed.world_size()
+    if args.streamed and (mesh or world > 1):
+        what = "--mesh" if mesh else f"a run of {world} processes"
+        raise PFAAIError(
+            ErrorCode.CONSTRUCT_ERROR, f"--streamed with {what}: {MESH_NOT_PORTED}"
+        )
+    if mesh and mesh[0] * mesh[1] > world:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
-            "--mesh: the PyTorch port does not run this yet "
-            "(parfastaai_tpu.cli does)",
+            f"--mesh {args.mesh}: Need {mesh[0] * mesh[1]} devices, have "
+            f"{world} (one process per mesh device)",
         )
+    return mesh
 
 
-def _pair_space(args, meta, two_db: bool):
-    """(pairs, query names or None, banded_auto) of the run's mode, decided
-    from the metadata alone as ``parfastaai_tpu.cli.run`` decides it.
+def _from_primary(read):
+    """``read()`` on process 0 alone (the database and the query list may
+    exist only on its disk), and its result on every rank.  A failure
+    there travels in the result's place, so every rank raises the same
+    PFAAIError instead of waiting in a collective that process 0 never
+    joins.  One process: ``read()``, its failure as the JAX CLI's code."""
+    value = err = None
+    if distributed.is_primary():
+        try:
+            value = read()
+        except Exception as e:  # noqa: BLE001 — every failure must reach
+            # the other ranks (a raw sqlite3 error too)
+            err = _as_pfaai_error(e)
+    value = distributed.broadcast_pyobj(err if err is not None else value)
+    if isinstance(value, PFAAIError):
+        raise value
+    return value
+
+
+def _pair_space(args, meta, two_db: bool, queries):
+    """(pairs, banded_auto) of the run's mode, decided from the metadata
+    and the query names (``-q``) alone as ``parfastaai_tpu.cli.run``
+    decides it.
 
     ``banded_auto``: the default exact path's dense host footprint would
     exceed the budget, so the run goes through the banded exact engine
@@ -290,18 +348,13 @@ def _pair_space(args, meta, two_db: bool):
     engine (``--streamed --exact`` or ``banded_auto``) ``pairs`` is the
     mode's O(rows + cols) StreamAxes, with the validation of its PairSpace
     and no O(n_pairs) table; otherwise it is the PairSpace."""
-    exact_default = not (args.fast or args.streamed)
+    exact_default = not (args.fast or args.streamed or args.mesh)
     n_prot = len(meta.protein_set)
     n_tgt = len(meta.genome_set)
     compat = not args.no_compat_qt_t_swap
-    queries = None
     if two_db:
         n_pairs_est = len(meta.query_genome_set) * n_tgt
-    elif args.query_subset:
-        try:
-            queries = load_query_genomes(args.query_subset)
-        except Exception as e:  # noqa: BLE001 — same codes as the JAX CLI
-            raise _as_pfaai_error(e) from e
+    elif queries is not None:
         nq = len(queries)
         n_pairs_est = nq * (n_tgt - nq) + nq * (nq - 1) // 2
     else:
@@ -320,7 +373,7 @@ def _pair_space(args, meta, two_db: bool):
         pairs = mode_fn(meta, queries)
     else:
         pairs = all_vs_all_axes(meta) if use_axes else all_vs_all(meta)
-    return pairs, queries, banded_auto
+    return pairs, banded_auto
 
 
 def _dump_e(args, db, two_db: bool, queries, verbose: bool) -> None:
@@ -453,14 +506,37 @@ def _profiled(trace_dir: str, device):
 
 def run(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    verbose = not args.quiet
+    owns_group = distributed.backend() is None
+    # Before any device is touched; every rank of a multi-process launch
+    # runs this same command.
+    distributed.init_distributed(args.device)
+    try:
+        return _run(args, distributed.world_size() > 1)
+    finally:
+        if owns_group:
+            distributed.close()
+
+
+def _run(args, multiproc: bool) -> int:
+    primary = distributed.is_primary()
+    # One writer, one reporter: the other ranks compute and join the
+    # collectives, and never touch the output files.
+    verbose = not args.quiet and primary
     if verbose:
         _print_args_box(args)
     try:
-        _validate(args)
+        mesh = _validate(args)
         device = resolve_device(args.device)
+        if verbose and multiproc:
+            print(
+                f"distributed: {distributed.world_size()} processes, backend "
+                f"{distributed.backend()}, rank 0 on {device}"
+            )
         two_db = bool(args.query_db) and args.query_db != args.path_to_input_db
-        try:
+        db = None
+
+        def open_db():
+            nonlocal db
             with phase_timer("DB open + metadata ", enabled=verbose):
                 if two_db:
                     db = QueryTargetDatabase(
@@ -468,20 +544,38 @@ def run(argv: list[str] | None = None) -> int:
                     )
                 else:
                     db = SCPDatabase(args.path_to_input_db)
-                meta = db.meta
-        except Exception as e:  # noqa: BLE001 — same codes as the JAX CLI
-            raise _as_pfaai_error(e) from e
+                return db.meta
+
         try:
-            pairs, queries, banded_auto = _pair_space(args, meta, two_db)
-            try:
-                with phase_timer("Presence ETL       ", enabled=verbose):
-                    presence = db.load_presence(verbose=verbose)
-            except Exception as e:  # noqa: BLE001 — see DB open above
-                raise _as_pfaai_error(e) from e
-            if args.dump_e:
+            meta = _from_primary(open_db)
+            queries = None
+            if args.query_subset and not two_db:
+                queries = _from_primary(
+                    lambda: load_query_genomes(args.query_subset)
+                )
+            pairs, banded_auto = _pair_space(args, meta, two_db, queries)
+            if banded_auto and multiproc:
+                raise PFAAIError(
+                    ErrorCode.CONSTRUCT_ERROR,
+                    "the default call routes to the banded exact engine "
+                    f"above the host budget: {MESH_NOT_PORTED}",
+                )
+            presence = err = None
+            if primary:
+                try:
+                    with phase_timer("Presence ETL       ", enabled=verbose):
+                        presence = db.load_presence(verbose=verbose)
+                except Exception as e:  # noqa: BLE001 — see _from_primary
+                    err = _as_pfaai_error(e)
+            with phase_timer(
+                "Presence broadcast ", enabled=verbose and multiproc
+            ):
+                presence = distributed.broadcast_presence(presence, error=err)
+            if args.dump_e and primary:
                 _dump_e(args, db, two_db, queries, verbose)
         finally:
-            db.close()
+            if db is not None:
+                db.close()
         if banded_auto and verbose:
             # Dense exact would exceed the host budget: the same f64
             # values and CSV bytes through the banded exact engine.
@@ -492,8 +586,9 @@ def run(argv: list[str] | None = None) -> int:
                 "PARFASTAAI_EXACT_HOST_BYTES overrides)"
             )
         phases: dict[str, float] = {}
-        # --profile covers the compute phase of whichever route runs.
-        with _profiled(args.profile, device):
+        # --profile covers the compute phase of whichever route runs, on
+        # process 0 alone (one writer of the trace, as of the CSV).
+        with _profiled(args.profile if primary else "", device):
             if args.streamed and not args.exact:
                 _streamed_run(args, presence, pairs, device, verbose)
                 return 0
@@ -501,7 +596,13 @@ def run(argv: list[str] | None = None) -> int:
                 _banded_exact_run(args, presence, pairs, device, verbose)
                 return 0
             with phase_timer("JAC + AJI          ", enabled=verbose):
-                if args.fast:
+                if mesh:
+                    # the reference's f32 mesh route: --fast's divide
+                    # flags do not reach it
+                    result = compute_sharded(
+                        presence, pairs, device, *mesh, phases=phases
+                    )
+                elif args.fast:
                     result = compute_fast(
                         presence, pairs, device, approx=args.approx,
                         precise=args.precise, phases=phases,
@@ -511,6 +612,8 @@ def run(argv: list[str] | None = None) -> int:
                     result = compute(presence, pairs, device, phases=phases)
         _print_phases(phases, verbose)
         _print_slabs(presence, device, verbose)
+        if not primary:
+            return 0
         with phase_timer("CSV write          ", enabled=verbose):
             write_aji_csv(
                 args.path_to_output_file, pairs, result.aji, args.separator

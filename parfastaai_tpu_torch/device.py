@@ -8,12 +8,15 @@ from __future__ import annotations
 
 import torch
 
+from .parallel import distributed
 from .types import ErrorCode, PFAAIError
 
 
 def resolve_device(name: str) -> torch.device:
     """``"cuda"`` when CUDA is available, ``"cpu"`` when asked for; anything
-    else raises PFAAIError(CONSTRUCT_ERROR)."""
+    else raises PFAAIError(CONSTRUCT_ERROR).  In a multi-process run
+    (``parallel.distributed``) a rank's CUDA device is
+    ``cuda:rank_device_index()``, made the current one."""
     if name == "cpu":
         return torch.device("cpu")
     if name != "cuda":
@@ -26,4 +29,8 @@ def resolve_device(name: str) -> torch.device:
             "--device cuda: CUDA is not available on this machine "
             "(pass --device cpu to run on the CPU)",
         )
+    if distributed.world_size() > 1:
+        index = distributed.rank_device_index()
+        torch.cuda.set_device(index)
+        return torch.device("cuda", index)
     return torch.device("cuda")

@@ -24,6 +24,11 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   memory on a side stream while a writer thread assembles earlier bands
   and appends them to the CSV; memory that does not grow with the square
   of the genome count.
+* ``compute_sharded`` (``--mesh``, the API's ``engine="sharded"``): the
+  fused f32 path over a (rows, scp) mesh of ranks, one device each
+  (parallel/mesh.py): each rank runs the rectangular kernel on its row
+  band and protein shard of the whole presence tensor; the shards' sums
+  meet in an all-reduce, the bands in a gather on every rank.
 
 Above the device budget (``_use_staged``: PARFASTAAI_HBM_BYTES, else 75% of
 the card's memory), or where ``staged`` / PARFASTAAI_STAGED asks for it,
@@ -876,6 +881,87 @@ def compute_fast(
     return _result(pairs, s, n)
 
 
+def compute_sharded(
+    presence: PresenceData,
+    pairs: PairSpace,
+    device: torch.device,
+    n_rows: int | None = None,
+    n_scp: int = 1,
+    phases: dict | None = None,
+) -> JacResult:
+    """Fused f32 path over an (n_rows, n_scp) mesh of ranks
+    (parallel/mesh.py; parfastaai_tpu.engine.compute_sharded).
+
+    Genome row bands go to the mesh's rows, contiguous protein shards to
+    its scp axis, summed by an all-reduce.  G and P are padded to mesh
+    multiples with zero genomes and empty proteins (inert: a zero row's
+    counts are 0).  Two-database pair spaces (either compat setting) and
+    any rows x cols product run the rectangular program with the
+    denominator T columns gathered through PairSpace.row_denom_ids /
+    col_denom_ids, so the compat T-swap holds here too; the rest gathers
+    its pairs from the G x G square.  No width buckets: the full presence
+    tensor, proteins ascending within each shard.  ``n_rows`` None: the
+    world size over ``n_scp``.  Every rank of the process group calls it
+    and gets the whole result.  ``phases`` collects ``H2D``, ``kernel``,
+    ``scp all-reduce`` and ``row gather`` seconds."""
+    from .parallel import distributed
+    from .parallel.mesh import (
+        gather_rows,
+        make_mesh,
+        sharded_fused_sn,
+        sharded_fused_sn_rect,
+    )
+
+    if n_rows is None:
+        n_rows = max(1, distributed.world_size() // n_scp)
+    mesh = make_mesh(n_rows, n_scp)
+
+    def gathered(s_b, n_b, rows: int):
+        t0 = time.perf_counter()
+        s_mat = gather_rows(mesh, s_b)[:rows]
+        n_mat = gather_rows(mesh, n_b)[:rows]
+        _add(phases, "row gather", time.perf_counter() - t0)
+        return s_mat, n_mat
+
+    if not (
+        np.array_equal(pairs.denom_a, pairs.db_a)
+        and np.array_equal(pairs.denom_b, pairs.db_b)
+    ) or _is_rect_pairs(pairs):
+        if not _is_rect_pairs(pairs):
+            raise ValueError(
+                "compute_sharded: pair space is neither a single-id-space "
+                "layout nor a rows x cols product"
+            )
+        ma = np.ascontiguousarray(presence.m[:, pairs.row_db_ids])
+        mb = np.ascontiguousarray(presence.m[:, pairs.col_db_ids])
+        ta = np.ascontiguousarray(presence.t[:, pairs.row_denom_ids])
+        tb = np.ascontiguousarray(presence.t[:, pairs.col_denom_ids])
+        P, A = ta.shape
+        pp = -(-P // n_scp) * n_scp
+        ap = -(-A // n_rows) * n_rows
+        if (pp, ap) != (P, A):
+            ma = np.pad(ma, ((0, pp - P), (0, ap - A), (0, 0)))
+            ta = np.pad(ta, ((0, pp - P), (0, ap - A)))
+            mb = np.pad(mb, ((0, pp - P), (0, 0), (0, 0)))
+            tb = np.pad(tb, ((0, pp - P), (0, 0)))
+        s_mat, n_mat = gathered(
+            *sharded_fused_sn_rect(mesh, ma, mb, ta, tb, device, phases), A
+        )
+        return _result(pairs, s_mat.reshape(-1), n_mat.reshape(-1))
+
+    P, G, _ = presence.m.shape
+    pp = -(-P // n_scp) * n_scp
+    gp = -(-G // n_rows) * n_rows
+    m, t = presence.m, presence.t
+    if (pp, gp) != (P, G):
+        m = np.pad(m, ((0, pp - P), (0, gp - G), (0, 0)))
+        t = np.pad(t, ((0, pp - P), (0, gp - G)))
+    s_mat, n_mat = gathered(*sharded_fused_sn(mesh, m, t, device, phases), G)
+    return _result(
+        pairs, s_mat[pairs.db_a, pairs.db_b], n_mat[pairs.db_a, pairs.db_b]
+    )
+
+
 class _Download:
     """One device block on its way to the host (see ``_BlockDownloads``)."""
 
@@ -1335,8 +1421,9 @@ def compute_streamed(
 
     Not here, each with the part of the reference it stands for: the host
     numpy block for small problems (``_take_host``: relay dispatch model,
-    not ported) and ``mesh`` with every multi-process branch (the multi-GPU
-    engine).
+    not ported) and ``mesh`` with every multi-process branch (the streamed
+    engines' part of the multi-GPU engine, not ported yet; the mesh runs
+    through ``compute_sharded``).
     """
     if approx and device.type != "cuda":
         raise PFAAIError(

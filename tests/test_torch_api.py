@@ -6,8 +6,8 @@ banded exact engine byte-equal and with the f32 streamed engine to its
 stated tolerance (the same header and row names as bytes, the text ``0``
 in the same cells, values within rtol 1e-6), ``staged`` and
 PARFASTAAI_STAGED against the JAX package's staged runs, the same error
-codes, and CONSTRUCT_ERROR for the engines this package does not run
-yet."""
+codes, and CONSTRUCT_ERROR for a mesh under the streamed engines, which
+this package does not run yet."""
 
 import os
 import sqlite3
@@ -193,10 +193,9 @@ def test_missing_database_code_matches_jax(tmp_path):
     assert getattr(got.value, "code", None) == getattr(want.value, "code", None)
 
 
+# engine="sharded" and a mesh under exact / fast run since the mesh was
+# ported (tests/test_torch_mesh.py::test_api_sharded_matches_jax)
 UNPORTED = {
-    "sharded": ("aji", dict(engine="sharded")),
-    "mesh": ("aji", dict(engine="fast", mesh=(2, 1))),
-    "to_csv_sharded": ("aji_to_csv", dict(engine="sharded")),
     "streamed_mesh": ("aji_to_csv", dict(engine="streamed", mesh=(2, 1))),
     "streamed_exact_mesh": (
         "aji_to_csv", dict(engine="streamed-exact", mesh=(2, 1))),

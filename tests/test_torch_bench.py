@@ -124,3 +124,78 @@ def test_int8_peaks():
     assert bench.int8_peak("NVIDIA H100 80GB HBM3") == 989.5e12
     assert bench.int8_peak("NVIDIA H100 PCIe") == 756.5e12
     assert bench.int8_peak("NVIDIA A100-SXM4-80GB") is None
+
+
+MESH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "direct_ms",
+    "direct_pairs_per_sec", "mesh_vs_direct_1gpu", "shapes", "device_kind",
+}
+MESH_ENV = {"PARFASTAAI_BENCH_MODE": "mesh", "PARFASTAAI_BENCH_DEVICE": "cpu",
+            "PARFASTAAI_BENCH_G": "64", "PARFASTAAI_BENCH_STEPS": "1",
+            "PARFASTAAI_BENCH_REPS": "1"}
+
+
+@pytest.mark.parametrize(
+    "world,g,want",
+    [(1, 4096, [(1, 1)]),
+     (2, 4096, [(1, 1), (2, 1)]),
+     (3, 4096, [(1, 1), (2, 1)]),
+     (4, 4096, [(1, 1), (2, 1), (4, 1), (2, 2)]),
+     (8, 4096, [(1, 1), (2, 1), (4, 1), (8, 1), (4, 2)]),
+     (4, 6, [(1, 1), (2, 1), (2, 2)])],
+)
+def test_mesh_shapes_as_bench_py_sweeps_them(world, g, want):
+    assert bench.mesh_shapes(world, g) == want
+
+
+def test_mesh_mode_one_process(capsys):
+    """One process: the (1, 1) mesh and the direct leg, one JSON line."""
+    result = bench.main(MESH_ENV)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == result
+    assert set(result) == MESH_KEYS
+    assert [e["mesh"] for e in result["shapes"]] == ["1x1"]
+    assert result["shapes"][0]["efficiency_vs_1gpu"] == 1.0
+    assert result["value"] == result["shapes"][0]["pairs_per_sec"] > 0
+    assert result["direct_pairs_per_sec"] > 0
+    assert "1 process(es)" in result["metric"]
+
+
+def test_mesh_mode_two_processes(tmp_path):
+    """Two gloo processes: process 0 prints the sweep (1x1, 2x1), the
+    other prints nothing; both exit 0."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("PARFASTAAI_COORDINATOR", "MASTER_ADDR", "RANK",
+                         "WORLD_SIZE", "LOCAL_RANK")}
+    procs = [subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m",
+         "parfastaai_tpu_torch.bench"],
+        env={**base, **MESH_ENV, "PYTHONPATH": repo, "OMP_NUM_THREADS": "1",
+             "PARFASTAAI_COORDINATOR": f"127.0.0.1:{port}",
+             "PARFASTAAI_NUM_PROCESSES": "2",
+             "PARFASTAAI_PROCESS_ID": str(rank)},
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=120)
+    assert [p.returncode for p in procs] == [0, 0], [e for _, e in outs]
+    assert outs[1][0] == ""
+    result = json.loads(outs[0][0])
+    assert [e["mesh"] for e in result["shapes"]] == ["1x1", "2x1"]
+    assert "2 process(es), gloo" in result["metric"]

@@ -4,9 +4,10 @@ on the dense path and on the banded exact engine (auto-routed under a low
 PARFASTAAI_EXACT_HOST_BYTES, and ``--streamed --exact`` with ``--resume``),
 ``--fast`` within 1e-6, ``--streamed`` (the f32 streamed engine) to its
 stated tolerance, ``--staged`` and PARFASTAAI_STAGED against the JAX
-CLI's staged runs, ``--profile`` on every route, the same error codes,
-exit code 3 for every flag the port does not run yet, and no jax in a port
-run."""
+CLI's staged runs, ``--profile`` on every route, ``--mesh`` of one
+device byte-identical to the JAX CLI's (the multi-process meshes are in
+test_torch_multiproc.py), the same error codes, exit code 3 for every flag
+the port does not run yet, and no jax in a port run."""
 
 import json
 import os
@@ -92,6 +93,26 @@ def test_fast_csv_matches_jax(mode, dbs, tmp_path):
     np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize(
+    "flags",
+    [["--mesh", "1"], ["--mesh", "1,1"], ["--mesh", "1", "--fast"],
+     # the JAX CLI's mesh route does not read --precise either
+     ["--mesh", "1", "--fast", "--precise"]],
+    ids=["rows", "rows_scp", "fast", "fast_precise"],
+)
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt"])
+def test_one_process_mesh_byte_identical(mode, flags, dbs, tmp_path):
+    """A mesh of one device in one process: the JAX CLI's bytes at the
+    same mesh (the plain version's IEEE f32 terms in ascending proteins
+    are its scan's)."""
+    extra = _mode_args(mode, dbs)
+    want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
+    assert jax_run([dbs["target"], str(want), "--quiet", *flags, *extra]) == 0
+    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu",
+                *flags, *extra]) == 0
+    assert got.read_bytes() == want.read_bytes()
+
+
 def test_dump_files_byte_identical(dbs, tmp_path):
     paths = {}
     for name, fn, dev in (("jax", jax_run, []), ("port", run, ["--device", "cpu"])):
@@ -139,7 +160,7 @@ def test_error_codes_match_jax(dbs, tmp_path):
         ["--staged", "--exact"],
         ["--staged", "--resume"],
         ["--staged", "--precise"],
-        ["--mesh", "2"],
+        ["--mesh", "2"],  # two mesh devices, one process
         ["--mesh", "0,1"],
         ["--profile", "trace_dir", "--mesh", "2"],
         ["--approx"],
@@ -151,6 +172,23 @@ def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
     assert run([dbs["target"], str(out), "--quiet", "--device", "cpu", *flags]) == 3
     assert not out.exists()
     assert "CONSTRUCT_ERROR" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--streamed", "--mesh", "1"], ["--streamed", "--exact", "--mesh", "1"],
+     ["--streamed", "--staged", "--mesh", "1,1"]],
+    ids=["streamed", "streamed_exact", "streamed_staged"],
+)
+def test_streamed_mesh_names_what_is_missing(flags, dbs, tmp_path, capsys):
+    """The streamed engines' mesh branches are not ported: exit 3 without
+    a CSV, even on a mesh of one device, and the message says so."""
+    out = tmp_path / "x.csv"
+    assert run([dbs["target"], str(out), "--quiet", "--device", "cpu",
+                *flags]) == 3
+    assert not out.exists()
+    err = capsys.readouterr().err
+    assert "CONSTRUCT_ERROR" in err and "second slice" in err
 
 
 def _staged_cli_runs(argv, dbs, tmp_path, capfd) -> tuple[bytes, bytes, str]:

@@ -823,3 +823,86 @@ def test_profile_on_cuda_records_device_events(cuda, synth_db, tmp_path):
         "traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert any("sn_rect" in e["name"] for e in kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,scp", [(1, 1), (2, 1), (1, 2), (2, 2), (3, 1)])
+def test_mesh_cell_body_bit_equal_to_plain(cuda, rows, scp):
+    """Every cell of a (rows, scp) mesh, run in turn on the card: its
+    program (its shard uploaded, its row band cut, one sn_rect launch)
+    under the IEEE divide is bit-equal to ``fused_sn_block_plain`` on the
+    same shard and band; the default divide within 2e-6."""
+    from parfastaai_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(rows * 10 + scp)
+    P, G, K = 6, 258, 384  # two row bands of 129: off the 128 x 128 block
+    m = (rng.random((P, G, K)) < 0.3).astype(np.uint8)
+    m[:, 5] = 0
+    t = m.sum(axis=2, dtype=np.int32)
+    G_pad = -(-G // rows) * rows
+    m = np.pad(m, ((0, 0), (0, G_pad - G), (0, 0)))
+    t = np.pad(t, ((0, 0), (0, G_pad - G)))
+    band = G_pad // rows
+    for r in range(rows):
+        for sh in range(scp):
+            m_loc, t_loc = mesh.upload_shard(m, t, sh, scp, cuda)
+            assert m_loc.device.type == "cuda"
+            ma, ta = mesh.row_band(m_loc, r, band), mesh.row_band(t_loc, r, band)
+            s_ref, n_ref = sn_rect.fused_sn_block_plain(ma, m_loc, ta, t_loc)
+            before = sn_rect.LAUNCHES
+            s, n = sn_rect.fused_sn_block(ma, m_loc, ta, t_loc, precise=True)
+            assert sn_rect.LAUNCHES == before + 1
+            _assert_matches_plain(s, n, s_ref, n_ref, "precise")
+            s, n = sn_rect.fused_sn_block(ma, m_loc, ta, t_loc)
+            _assert_matches_plain(s, n, s_ref, n_ref, "newton")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["all", "qt"])
+def test_compute_sharded_on_cuda_matches_cpu(cuda, synth_db, tmp_path, mode):
+    """The one-process mesh on the card: one sn_rect launch, N equal to the
+    CPU's and S within 2e-6 (the kernel's Newton divide, as the JAX
+    package's mesh bodies); the CLI's --mesh 1,1 CSV within 1e-6."""
+    import sqlite3
+
+    from parfastaai_tpu_torch.cli import run
+    from parfastaai_tpu_torch.engine import compute_sharded
+    from parfastaai_tpu_torch.etl.database import (
+        QueryTargetDatabase,
+        SCPDatabase,
+    )
+    from parfastaai_tpu_torch.modes import all_vs_all, query_target
+    from parfastaai_tpu_torch.tools.synth_db import generate
+
+    extra = []
+    if mode == "qt":
+        query = str(tmp_path / "query.db")
+        generate(query, n_genomes=17, n_proteins=6, pool_size=300,
+                 tetras_per_genome=100, seed=2)
+        with sqlite3.connect(query) as conn:
+            conn.execute(
+                "UPDATE genome_metadata SET genome_name = 'q_' || genome_name")
+        db = QueryTargetDatabase(synth_db, query)
+        pairs = query_target(db.meta, compat_qt_t_swap=True)
+        extra = ["-r", query]
+    else:
+        db = SCPDatabase(synth_db)
+        pairs = all_vs_all(db.meta)
+    presence = db.load_presence()
+    db.close()
+    want = compute_sharded(presence, pairs, torch.device("cpu"))
+    before = sn_rect.LAUNCHES
+    got = compute_sharded(presence, pairs, cuda, 1, 1)
+    assert sn_rect.LAUNCHES == before + 1
+    np.testing.assert_array_equal(got.n, want.n)
+    np.testing.assert_allclose(got.s, want.s, rtol=2e-6, atol=0)
+    on_cpu, on_cuda = tmp_path / "cpu.csv", tmp_path / "cuda.csv"
+    for out, dev in ((on_cpu, "cpu"), (on_cuda, "cuda")):
+        assert run([synth_db, str(out), "--quiet", "--mesh", "1,1",
+                    "--device", dev, *extra]) == 0
+    a, b = (
+        np.array([[float(v) for v in ln.split(",")[1:]]
+                  for ln in p.read_text().splitlines()[1:]])
+        for p in (on_cpu, on_cuda)
+    )
+    np.testing.assert_allclose(b, a, rtol=1e-6, atol=0)

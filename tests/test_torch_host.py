@@ -400,11 +400,13 @@ import sys
 import parfastaai_tpu_torch.cli, parfastaai_tpu_torch.engine
 import parfastaai_tpu_torch.bench, parfastaai_tpu_torch.ops.sn_square
 import parfastaai_tpu_torch.api as api
+import parfastaai_tpu_torch.parallel.distributed
 from parfastaai_tpu_torch.cli import run
 db, out = sys.argv[1:3]
-for engine in ("exact", "fast", "streamed", "streamed-exact"):
+for engine in ("exact", "fast", "sharded", "streamed", "streamed-exact"):
     api.aji_to_csv(out, db, engine=engine, device="cpu")
-for flags in (["--streamed", "--profile", out + ".trace"], [], ["--fast"]):
+for flags in (["--streamed", "--profile", out + ".trace"], [], ["--fast"],
+              ["--mesh", "1"]):
     rc = run([db, out, "--quiet", "--device", "cpu", *flags])
     assert rc == 0, rc
 bad = sorted(m for m in sys.modules
@@ -416,8 +418,8 @@ print("clean", len(open(out).read().splitlines()))
 
 def test_fresh_process_loads_no_jax_package(dbs, tmp_path):
     """A new interpreter that imports the port's entry modules and runs its
-    library API (every engine) and its CLI on the CPU loads no ``jax*``
-    module and nothing of ``parfastaai_tpu``."""
+    library API (every engine) and its CLI on the CPU (the mesh too) loads
+    no ``jax*`` module and nothing of ``parfastaai_tpu``."""
     target, _ = dbs
     out = tmp_path / "aji.csv"
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
