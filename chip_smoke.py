@@ -123,6 +123,21 @@ Run from the repository root:
    bucketed presence, the slab store's peak against its cap (which it may
    pass by one slab at most) and ``torch.cuda.max_memory_allocated``
    beside the budget.
+5a. Runs the streamed engines over the mesh through the CLI on the
+   database of step 2 (``streamed_mesh_phase``), in two processes each
+   (NCCL with two GPUs or more, else gloo with every rank on cuda:0;
+   ``2,2`` of each mesh leg in four with four GPUs or more):
+   ``--streamed --mesh 2,1`` and ``1,2``, ``--streamed --exact --mesh
+   2,1`` and ``1,2``, ``--streamed --staged --mesh 2,1`` and ``--streamed
+   --exact --mesh 1,2`` under leg A's budget and slabs (process 0 prints
+   the meta-only broadcast line and its slab counters), and ``--streamed
+   --exact`` without a mesh.  Each rank reports its launches: sn_rect as
+   reckoned from the plan in the f32 legs, no hand-written kernel in the
+   exact ones; only rank 0 writes; the exact CSVs have the default call's
+   bytes, the f32 row splits ``--streamed``'s (staged: leg A's staged
+   CSV's), the protein splits' first rows are within 1e-6 of exact f64.
+   Rank 0's phases and each leg's wall from launch to the last exit are
+   printed.
 6. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
@@ -137,10 +152,12 @@ Run from the repository root:
 7. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --mesh-only`` runs step 2 and step 2a alone (for
+``python3 chip_smoke.py --mesh-only`` runs steps 2, 2a and 5a alone (for
 a machine with several GPUs, whose legs then run on NCCL, four processes
 too with four GPUs or more, and the bench's mesh mode in one process per
-GPU), then prints the mesh phase's report and the result line.
+GPU; step 5a's references, ``--streamed`` and the default call, run in
+this process first), then prints the mesh phases' report and the result
+line.
 
 Exits non-zero, and prints no result line, when CUDA is not available,
 when the native host library does not build, when any phase fails, or when
@@ -1379,9 +1396,9 @@ def free_port() -> int:
 def launch_ranks(what: str, argv: list, n: int, env: dict | None = None):
     """``argv`` (rank i's output paths through ``{rank}``) in ``n``
     processes of one group (PARFASTAAI_COORDINATOR on a free local port):
-    [stdout] in rank order, and the wall from launch to the last exit.
-    Fails on a non-zero exit or a rank that outlives MESH_RANK_TIMEOUT
-    (every rank is then killed)."""
+    [(stdout, stderr)] in rank order, and the wall from launch to the last
+    exit.  Fails on a non-zero exit or a rank that outlives
+    MESH_RANK_TIMEOUT (every rank is then killed)."""
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
@@ -1414,27 +1431,28 @@ def launch_ranks(what: str, argv: list, n: int, env: dict | None = None):
         if p.returncode != 0:
             print(out, err)
             fail(f"{what}: rank {i} exited {p.returncode}")
-    return [out for out, _ in done], wall
+    return done, wall
 
 
-def mesh_ranks(db: str, out_dir: str, spec: str, n: int):
-    """``--mesh spec --device cuda`` through the CLI in ``n`` processes,
-    each with an output path of its own: [(CSV path, stdout, {kernel:
-    launches})] in rank order, and the wall of the slowest."""
-    out = os.path.join(out_dir, f"mesh{spec.replace(',', 'x')}_rank{{rank}}.csv")
-    outs, wall = launch_ranks(
-        f"--mesh {spec}",
-        [sys.executable, "-c", MESH_RANK, db, out, "--mesh", spec, "--device",
-         "cuda"], n)
+def mesh_ranks(db: str, out_dir: str, name: str, flags: list, n: int,
+               env: dict | None = None):
+    """The CLI with ``flags --device cuda`` in ``n`` processes, each with
+    an output path of its own: [(CSV path, stdout, {kernel: launches},
+    stderr)] in rank order, and the wall from launch to the last exit."""
+    out = os.path.join(out_dir, f"{name}_rank{{rank}}.csv")
+    done, wall = launch_ranks(
+        " ".join(flags),
+        [sys.executable, "-c", MESH_RANK, db, out, *flags, "--device",
+         "cuda"], n, env)
     ranks = []
-    for i, text in enumerate(outs):
+    for i, (text, err) in enumerate(done):
         counts = re.search(r"LAUNCHES sn_rect=(\d+) sn_square_wgmma=(\d+)",
                            text)
         if counts is None:
-            fail(f"--mesh {spec}: rank {i} reported no launch counts")
+            fail(f"{' '.join(flags)}: rank {i} reported no launch counts")
         ranks.append((out.replace("{rank}", str(i)), text,
                       {"sn_rect": int(counts.group(1)),
-                       "sn_square_wgmma": int(counts.group(2))}))
+                       "sn_square_wgmma": int(counts.group(2))}, err))
     return ranks, wall
 
 
@@ -1505,7 +1523,8 @@ def mesh_phase(dev, want_band: np.ndarray, keep_dir: str) -> dict:
         report["1,1"] = {"launches": [1], "wall_s": wall,
                          "jac_ms": phases["JAC + AJI"]}
         for spec, n in legs:
-            ranks, wall = mesh_ranks(db, out_dir, spec, n)
+            ranks, wall = mesh_ranks(db, out_dir, f"mesh{spec.replace(',', 'x')}",
+                                     ["--mesh", spec], n)
             primary_text = ranks[0][1]
             print(primary_text)
             if f"backend {backend}, rank 0 on cuda:0" not in primary_text:
@@ -1550,10 +1569,11 @@ def mesh_phase(dev, want_band: np.ndarray, keep_dir: str) -> dict:
              f"{2 * BENCH_CALLS} times alone")
     report["bench_mesh_launches"] = ran["sn_rect"]
     if n_gpu >= 2:
-        outs, wall = launch_ranks(
+        done, wall = launch_ranks(
             "the bench's mesh mode", [sys.executable, "-m",
                                       "parfastaai_tpu_torch.bench"],
             n_gpu, {"PARFASTAAI_BENCH_MODE": "mesh"})
+        outs = [out for out, _ in done]
         print(outs[0].strip())
         print(f"bench mesh mode on {n_gpu} processes: {wall:.1f} s")
         report["bench"].append(json.loads(outs[0].strip().splitlines()[-1]))
@@ -1661,7 +1681,11 @@ def staged_cli_leg(keep_dir: str) -> int:
                 fail("staged default call: not routed to the banded engine")
             agree = csv_agreement(out, os.path.join(keep_dir, want),
                                   exact=name == "default")
-            os.remove(out)
+            if name == "streamed":
+                # the staged mesh leg's one-process twin (same slabs)
+                os.replace(out, os.path.join(keep_dir, "staged_streamed.csv"))
+            else:
+                os.remove(out)
             launches[name] = ran["sn_rect"]
             phases = cli_phases(text)
             print(
@@ -1678,6 +1702,162 @@ def staged_cli_leg(keep_dir: str) -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return launches["streamed"]
+
+
+def streamed_mesh_legs(n_gpu: int) -> list:
+    """The streamed engines' mesh legs: (engine, --mesh spec or None,
+    processes, staged under leg A's budget).  Two processes each, and with
+    four GPUs or more each mesh leg at 2,2 too."""
+    legs = [("streamed", "2,1", 2, False), ("streamed", "1,2", 2, False),
+            ("exact", "2,1", 2, False), ("exact", "1,2", 2, False),
+            ("streamed", "2,1", 2, True), ("exact", "1,2", 2, True),
+            ("exact", None, 2, False)]
+    if n_gpu >= 4:
+        legs += list(dict.fromkeys((engine, "2,2", 4, staged)
+                                   for engine, spec, _, staged in legs
+                                   if spec))
+    return legs
+
+
+def streamed_launches(plan, G: int, rows: int, target: int | None) -> int:
+    """sn_rect launches of each rank of a G x G ``--streamed --mesh`` run
+    at the CLI's default band and chunk: one per width bucket (staged:
+    per chunk of ``_split_plan`` at ``target``) and block on or above the
+    diagonal, the band rounded up to the mesh's rows."""
+    import torch
+
+    from parfastaai_tpu_torch import engine
+
+    band, chunk = min(1024, G), min(4096, G)
+    band = -(-band // rows) * rows
+    n = 0
+    for r0 in range(0, G, band):
+        for c0 in range(0, G, chunk):
+            if c0 + chunk <= r0:
+                continue
+            n_ids = max(min(band, G - r0), min(chunk, G - c0))
+            n += len(plan) if target is None else len(list(
+                engine._split_plan(plan, n_ids, torch.device("cuda"),
+                                   target)))
+    return n
+
+
+def resident_references(keep_dir: str) -> None:
+    """``--streamed`` and the default call on the E2E database, in this
+    process, into ``keep_dir`` as streamed.csv and default.csv (the
+    streamed mesh legs' references where the streamed and exact phases did
+    not run)."""
+    db = synth_db()
+    for name, flags in (("streamed", ["--streamed"]), ("default", [])):
+        out, _, _, wall = cli_call(keep_dir, db, f"{name}_one", flags)
+        os.replace(out, os.path.join(keep_dir, f"{name}.csv"))
+        print(f"reference {' '.join(flags) or '(default)'} G="
+              f"{E2E['n_genomes']}: wall {wall:.3f} s")
+
+
+def streamed_mesh_phase(want_band: np.ndarray, keep_dir: str) -> dict:
+    """The streamed engines over the mesh (``--streamed --mesh``,
+    ``--streamed --exact --mesh``) and on two processes without one, on
+    the E2E database through the CLI, NCCL with two GPUs or more, else
+    gloo with every rank on cuda:0.  Each rank reports its launches:
+    sn_rect as reckoned from the plan (``streamed_launches``) in the f32
+    legs, no hand-written kernel in the exact ones.  Only rank 0 writes.
+    The exact legs write default.csv's bytes; the f32 row splits
+    streamed.csv's (staged: leg A's staged one-process CSV, where it ran,
+    and streamed.csv's within tolerance); the f32 protein splits' first
+    rows are within RTOL_E2E_AJI of exact f64.  The staged legs run under
+    leg A's budget and slabs, process 0 broadcasting the metadata and T
+    alone.  Prints rank 0's phases and the wall of each leg; returns
+    {leg: launches per rank, wall and phases}."""
+    import torch
+
+    from parfastaai_tpu_torch import engine
+    from parfastaai_tpu_torch.etl.database import SCPDatabase
+
+    n_gpu = torch.cuda.device_count()
+    backend = "nccl" if n_gpu >= 2 else "gloo"
+    db = synth_db()
+    db_ = SCPDatabase(db)
+    try:
+        presence = db_.load_presence()
+    finally:
+        db_.close()
+    plan = engine._bucket_plan(presence)
+    G = presence.m.shape[1]
+    budget = engine.presence_device_bytes(presence) // STAGED_BUDGET_SHARE
+    slab_bytes = budget // STAGED_SLAB_SHARE
+    del presence
+    staged_env = {"PARFASTAAI_HBM_BYTES": str(budget),
+                  "PARFASTAAI_SLAB_BYTES": str(slab_bytes)}
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_streamed_mesh_")
+    report = {}
+    try:
+        for eng, spec, n, staged in streamed_mesh_legs(n_gpu):
+            flags = ["--streamed"] + (["--exact"] if eng == "exact" else [])
+            if staged and eng == "streamed":
+                flags.append("--staged")
+            if spec:
+                flags += ["--mesh", spec]
+            rows = int(spec.split(",")[0]) if spec else 1
+            label = " ".join(flags) + (" (leg A's budget)" if staged else "")
+            name = "_".join(f.strip("-") for f in flags).replace(",", "x")
+            ranks, wall = mesh_ranks(db, out_dir, name, flags, n,
+                                     staged_env if staged else None)
+            text = ranks[0][1]
+            if f"backend {backend}, rank 0 on cuda:0" not in text:
+                print(text)
+                fail(f"{label}: not the {backend} backend with rank 0 on "
+                     "cuda:0")
+            if any(os.path.exists(r[0]) for r in ranks[1:]):
+                fail(f"{label}: a rank other than 0 wrote a CSV")
+            launches = [r[2]["sn_rect"] for r in ranks]
+            want_launches = [0] * n if eng == "exact" else [
+                streamed_launches(plan, G, rows,
+                                  slab_bytes if staged else None)] * n
+            if any(r[2]["sn_square_wgmma"] for r in ranks) or (
+                    launches != want_launches):
+                fail(f"{label}: launches {[r[2] for r in ranks]}, reckoned "
+                     f"sn_rect {want_launches} alone")
+            if staged and ("metadata + T only" not in text
+                           or SLAB_LINE.search(text) is None):
+                print(text)
+                fail(f"{label}: no meta-only broadcast or slab line on rank 0")
+            if not spec and "WARNING" not in ranks[0][3]:
+                fail(f"{label}: rank 0 said nothing of computing alone")
+            got = ranks[0][0]
+            if eng == "exact":
+                held = csv_agreement(got, os.path.join(keep_dir, "default.csv"),
+                                     exact=True)
+            elif rows > 1 and spec.endswith(",1"):
+                twin = os.path.join(keep_dir, "staged_streamed.csv")
+                if staged and os.path.exists(twin):
+                    csv_agreement(got, twin, exact=True)
+                held = csv_agreement(
+                    got, os.path.join(keep_dir, "streamed.csv"),
+                    exact=not staged)
+                if staged and os.path.exists(twin):
+                    held = f"leg A's staged bytes; against --streamed: {held}"
+            else:
+                held = (f"rows 0..{BAND_ROWS - 1} within "
+                        f"{rows_against(got, want_band):.3e} of exact f64 "
+                        f"(rtol {RTOL_E2E_AJI}); against --streamed: "
+                        + csv_agreement(got, os.path.join(keep_dir,
+                                                          "streamed.csv"),
+                                        exact=False))
+            os.remove(got)
+            phases = cli_phases(text)
+            slab = SLAB_LINE.search(text)
+            print(f"{label} G={G} on {n} processes ({backend}): wall "
+                  f"{wall:.3f} s (from launch to the last exit), sn_rect "
+                  f"launches per rank {launches}, only rank 0 wrote, {held}"
+                  + (f"; rank 0's store: {slab.group(0)}" if slab else "")
+                  + "; rank 0 split ms: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()))
+            report[f"{label} x{n}"] = {"launches": launches, "wall_s": wall,
+                                       "phases_ms": phases}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return report
 
 
 def record_presence():
@@ -1937,7 +2117,10 @@ def main() -> None:
     if mesh_only:
         keep_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_resident_")
         try:
-            mesh = mesh_phase(dev, e2e_phase(dev, keep_dir)["band"], keep_dir)
+            band = e2e_phase(dev, keep_dir)["band"]
+            mesh = mesh_phase(dev, band, keep_dir)
+            resident_references(keep_dir)
+            mesh["streamed"] = streamed_mesh_phase(band, keep_dir)
         finally:
             shutil.rmtree(keep_dir, ignore_errors=True)
         print(card_line())
@@ -1958,6 +2141,7 @@ def main() -> None:
         streamed_launches = streamed_phase(dev, e2e["band"], keep_dir)
         exact_phase(e2e["band"], keep_dir)
         staged_launches = staged_cli_leg(keep_dir)
+        streamed_mesh = streamed_mesh_phase(e2e["band"], keep_dir)
     finally:
         shutil.rmtree(keep_dir, ignore_errors=True)
     record = staged_record_leg(dev)
@@ -1984,6 +2168,10 @@ def main() -> None:
                     "launches_mesh": {spec: mesh[spec]["launches"]
                                       for spec in mesh if "," in spec},
                     "launches_bench_mesh": mesh["bench_mesh_launches"],
+                    # per rank of each streamed engine's mesh leg
+                    # (--streamed [--exact] [--staged] --mesh, processes)
+                    "launches_streamed_mesh": {
+                        leg: r["launches"] for leg, r in streamed_mesh.items()},
                     "mesh_gpus": mesh["gpus"],
                     "mesh_backend": mesh["backend"],
                     # leg B's chunk shape (P, A, B, K), the kb kernel shape

@@ -25,12 +25,12 @@ presence slabs of the last three (``True`` forces it, ``False`` forbids
 it, ``None`` leaves it to PARFASTAAI_STAGED and the device budget), as in
 the JAX package.  ``engine="sharded"`` is the fused f32 path over a
 (rows, scp) mesh of processes, one device each (``mesh``; default: every
-process of the group on one row each, ``(world size, 1)``): in a
+process of the group on one row each, ``(world size, 1)``), and ``mesh``
+cuts the streamed engines' blocks into that mesh's cells: in a
 multi-process run (``parallel.distributed.init_distributed`` first) every
-process makes the same call and gets the whole result.  As in the JAX
-package, ``mesh`` is ignored by ``exact`` and ``fast``; with the streamed
-engines it raises PFAAIError(CONSTRUCT_ERROR), since their mesh branches
-are not ported yet.
+process makes the same call; ``aji`` returns the whole result on each,
+``aji_to_csv`` writes from process 0.  As in the JAX package, ``mesh`` is
+ignored by ``exact`` and ``fast``.
 """
 
 from __future__ import annotations
@@ -104,18 +104,6 @@ def _open(
         fn = query_subset_axes if axes_only else query_subset
         return db, fn(db.meta, list(query_subset_names))
     return db, (all_vs_all_axes if axes_only else all_vs_all)(db.meta)
-
-
-def _reject_unported(engine: str, mesh: tuple[int, int] | None) -> None:
-    """CONSTRUCT_ERROR for what ``parfastaai_tpu.api`` runs and this
-    package does not yet: a mesh under the streamed engines."""
-    if mesh:
-        raise PFAAIError(
-            ErrorCode.CONSTRUCT_ERROR,
-            f"mesh with engine={engine!r}: the PyTorch port does not run "
-            "this yet (the streamed engines' mesh branches are the "
-            "multi-GPU engine's second slice; parfastaai_tpu.api runs it)",
-        )
 
 
 def _compute(
@@ -230,7 +218,9 @@ def aji_to_csv(
     ``--streamed``), and ``"streamed-exact"``, the banded f64 engine (CLI
     ``--streamed --exact``), byte-identical to ``engine="exact"`` output at
     any genome count.  Both support resume-from-partial-file
-    (``resume=True``) and ``staged`` as :func:`aji` reads it."""
+    (``resume=True``), ``staged`` as :func:`aji` reads it, and ``mesh``:
+    (rows, scp), their blocks over that mesh of processes, one device
+    each; every process makes the call and process 0 writes."""
     if engine == "streamed-exact" and (approx or precise):
         # The CLI's --exact guard: the banded exact engine is f64 by
         # definition; a quiet plain f64 pass would misreport what was
@@ -255,8 +245,12 @@ def aji_to_csv(
         )
         res.to_csv(out_path, separator)
         return
-    _reject_unported(engine, mesh)
     dev = resolve_device(device)
+    cells = None
+    if mesh:
+        from .parallel.mesh import make_mesh
+
+        cells = make_mesh(mesh[0], mesh[1] if len(mesh) > 1 else 1)
     db, pairs = _open(
         db_path, query_db, query_subset, compat_qt_t_swap, axes_only=True
     )
@@ -270,6 +264,7 @@ def aji_to_csv(
         row_denom_ids=pairs.row_denom_ids,
         col_denom_ids=pairs.col_denom_ids,
         staged=staged,
+        mesh=cells,
     )
     args = (
         presence,

@@ -16,18 +16,20 @@ buckets on the device, as does presence above the device budget
 prints what its slab store uploaded.  ``--profile DIR`` writes a Chrome
 trace of the compute phase (a ``torch.profiler`` run) into DIR.
 
-``--mesh ROWS[,SCP]`` runs ``engine.compute_sharded`` over a mesh of
-processes, one device each (parallel/): launch ROWS x SCP processes with
-PARFASTAAI_COORDINATOR / PARFASTAAI_NUM_PROCESSES / PARFASTAAI_PROCESS_ID
-or torchrun; ``--mesh 1`` runs in one process.  In a multi-process run
-process 0 alone opens the database, reads the query list and writes every
-output file (the CSV, ``--dump-jac``, ``--dump-e``, the ``--profile``
-trace); metadata, queries and presence reach the other ranks by broadcast,
-and a failure there reaches them in their place.  ``--mesh`` with
-``--streamed`` (``--exact`` or ``--staged`` too), a multi-process
-``--streamed`` run and a multi-process default call routed to the banded
-exact engine exit with CONSTRUCT_ERROR (3) and write no CSV: those engines'
-mesh and multi-process branches are not ported yet.
+``--mesh ROWS[,SCP]`` runs over a mesh of processes, one device each
+(parallel/): launch ROWS x SCP processes with PARFASTAAI_COORDINATOR /
+PARFASTAAI_NUM_PROCESSES / PARFASTAAI_PROCESS_ID or torchrun; ``--mesh 1``
+runs in one process.  Plain ``--mesh`` is ``engine.compute_sharded`` (the
+JAX CLI's f32 route); with ``--streamed`` (``--exact``, ``--staged``) the
+streamed engines cut their blocks into the mesh's cells.  In a
+multi-process run process 0 alone opens the database, reads the query
+list and writes every output file (the CSV, ``--dump-jac``, ``--dump-e``,
+the ``--profile`` trace); metadata, queries and presence reach the other
+ranks by broadcast, and a failure there reaches them in their place.  A
+staged ``--streamed --mesh`` run broadcasts only the metadata and T, and
+its slabs ship from process 0 on demand.  The streamed engines without
+``--mesh`` (the auto-routed default call too) run on process 0 alone in a
+multi-process run.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from .engine import (
     compute_sharded,
     compute_streamed,
     compute_streamed_exact,
+    _use_staged_mesh,
     presence_device_bytes,
     slab_stats,
 )
@@ -61,6 +64,7 @@ from .modes import (
     query_target_axes,
 )
 from .parallel import distributed
+from .parallel.mesh import make_mesh
 from .types import ErrorCode, PFAAIError
 from .utils.timing import phase_timer
 
@@ -200,7 +204,8 @@ def build_parser() -> argparse.ArgumentParser:
         help=(
             "Fused f32 path over a mesh of ROWS x SCP processes, one "
             "device each: ROWS-way genome-band data parallelism x SCP-way "
-            "protein sharding"
+            "protein sharding; with --streamed the streamed engines' "
+            "blocks over that mesh"
         ),
     )
     p.add_argument(
@@ -243,21 +248,11 @@ def _print_args_box(args) -> None:
     print(" └" + "─" * w + "┘")
 
 
-# What a message names where the port refuses a multi-GPU run that waits
-# for the streamed engines' mesh and multi-process branches.
-MESH_NOT_PORTED = (
-    "the PyTorch port does not run this yet: the streamed and banded exact "
-    "engines' mesh and multi-process branches are the multi-GPU engine's "
-    "second slice (parfastaai_tpu.cli runs them)"
-)
-
-
 def _validate(args) -> tuple[int, int] | None:
     """The flag checks of ``parfastaai_tpu.cli.run``, in its order, on
-    every rank before any collective; then what the port refuses: the
-    streamed engines with ``--mesh`` or on several processes, and a mesh
-    larger than the process group.  Returns ``--mesh``'s (rows, scp), or
-    None without it."""
+    every rank before any collective; then a mesh larger than the process
+    group, which the port refuses before any collective.  Returns
+    ``--mesh``'s (rows, scp), or None without it."""
     if args.exact and not args.streamed:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -303,11 +298,6 @@ def _validate(args) -> tuple[int, int] | None:
             "require --fast or --streamed",
         )
     world = distributed.world_size()
-    if args.streamed and (mesh or world > 1):
-        what = "--mesh" if mesh else f"a run of {world} processes"
-        raise PFAAIError(
-            ErrorCode.CONSTRUCT_ERROR, f"--streamed with {what}: {MESH_NOT_PORTED}"
-        )
     if mesh and mesh[0] * mesh[1] > world:
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -397,10 +387,11 @@ def _print_phases(phases: dict, verbose: bool) -> None:
             print(f"  {label:<17}: {seconds * 1e3:.1f} ms")
 
 
-def _print_slabs(presence, device, verbose: bool) -> None:
-    """What a staged run's slab store moved and held; nothing for a
+def _print_slabs(presence, device, verbose: bool, mesh=None) -> None:
+    """What a staged run's slab store moved and held (with ``mesh``,
+    process 0's store of that mesh: its shard of each slab); nothing for a
     resident run."""
-    stats = slab_stats(presence, device)
+    stats = slab_stats(presence, device, mesh)
     if verbose and stats is not None:
         ratio = stats["uploaded"] / max(1, presence_device_bytes(presence))
         print(
@@ -411,9 +402,12 @@ def _print_slabs(presence, device, verbose: bool) -> None:
         )
 
 
-def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
+def _banded_exact_run(
+    args, presence, pairs, device, verbose: bool, mesh=None
+) -> None:
     """The banded exact engine's one call, for ``--streamed --exact`` and
-    for the auto-routed default path alike (``pairs`` is the StreamAxes)."""
+    for the auto-routed default path alike (``pairs`` is the StreamAxes),
+    over ``mesh`` where given."""
     phases: dict[str, float] = {}
     with phase_timer("Banded exact + CSV ", enabled=verbose):
         compute_streamed_exact(
@@ -432,9 +426,10 @@ def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
             col_denom_ids=pairs.col_denom_ids,
             phases=phases,
             staged=args.staged or None,
+            mesh=mesh,
         )
     _print_phases(phases, verbose)
-    _print_slabs(presence, device, verbose)
+    _print_slabs(presence, device, verbose, mesh)
     if verbose:
         print(
             "  (the stages above overlap: they do not sum to the phase's "
@@ -447,8 +442,11 @@ def _banded_exact_run(args, presence, pairs, device, verbose: bool) -> None:
         )
 
 
-def _streamed_run(args, presence, pairs, device, verbose: bool) -> None:
-    """The f32 streamed engine's one call (``pairs`` is the StreamAxes)."""
+def _streamed_run(
+    args, presence, pairs, device, verbose: bool, mesh=None
+) -> None:
+    """The f32 streamed engine's one call (``pairs`` is the StreamAxes),
+    over ``mesh`` where given."""
     phases: dict[str, float] = {}
     with phase_timer("Streamed AJI + CSV ", enabled=verbose):
         compute_streamed(
@@ -469,9 +467,10 @@ def _streamed_run(args, presence, pairs, device, verbose: bool) -> None:
             col_denom_ids=pairs.col_denom_ids,
             phases=phases,
             staged=args.staged or None,
+            mesh=mesh,
         )
     _print_phases(phases, verbose)
-    _print_slabs(presence, device, verbose)
+    _print_slabs(presence, device, verbose, mesh)
     if verbose:
         print(
             "  (the stages above overlap: they do not sum to the phase's "
@@ -554,23 +553,31 @@ def _run(args, multiproc: bool) -> int:
                     lambda: load_query_genomes(args.query_subset)
                 )
             pairs, banded_auto = _pair_space(args, meta, two_db, queries)
-            if banded_auto and multiproc:
-                raise PFAAIError(
-                    ErrorCode.CONSTRUCT_ERROR,
-                    "the default call routes to the banded exact engine "
-                    f"above the host budget: {MESH_NOT_PORTED}",
-                )
             presence = err = None
+            meta_only = False
             if primary:
                 try:
                     with phase_timer("Presence ETL       ", enabled=verbose):
                         presence = db.load_presence(verbose=verbose)
+                    # A staged streamed mesh ships its slabs from process 0
+                    # on demand: the others need the metadata and T alone.
+                    meta_only = bool(
+                        multiproc and args.streamed and mesh
+                        and _use_staged_mesh(presence, mesh[1], device,
+                                             args.staged or None))
                 except Exception as e:  # noqa: BLE001 — see _from_primary
                     err = _as_pfaai_error(e)
             with phase_timer(
                 "Presence broadcast ", enabled=verbose and multiproc
             ):
-                presence = distributed.broadcast_presence(presence, error=err)
+                presence = distributed.broadcast_presence(
+                    presence, error=err, meta_only=meta_only)
+            if verbose and getattr(presence, "slab_broadcast", False):
+                print(
+                    "Presence broadcast: metadata + T only (staged-mesh "
+                    "slabs ship on demand; host capacity scales with the "
+                    "mesh)"
+                )
             if args.dump_e and primary:
                 _dump_e(args, db, two_db, queries, verbose)
         finally:
@@ -588,12 +595,15 @@ def _run(args, multiproc: bool) -> int:
         phases: dict[str, float] = {}
         # --profile covers the compute phase of whichever route runs, on
         # process 0 alone (one writer of the trace, as of the CSV).
+        # The streamed engines' mesh (every rank makes its groups).
+        cells = make_mesh(*mesh) if mesh and args.streamed else None
         with _profiled(args.profile if primary else "", device):
             if args.streamed and not args.exact:
-                _streamed_run(args, presence, pairs, device, verbose)
+                _streamed_run(args, presence, pairs, device, verbose, cells)
                 return 0
             if args.streamed or banded_auto:
-                _banded_exact_run(args, presence, pairs, device, verbose)
+                _banded_exact_run(
+                    args, presence, pairs, device, verbose, cells)
                 return 0
             with phase_timer("JAC + AJI          ", enabled=verbose):
                 if mesh:

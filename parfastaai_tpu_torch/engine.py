@@ -29,13 +29,20 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   (parallel/mesh.py): each rank runs the rectangular kernel on its row
   band and protein shard of the whole presence tensor; the shards' sums
   meet in an all-reduce, the bands in a gather on every rank.
+* ``compute_streamed`` and ``compute_streamed_exact`` with ``mesh``
+  (``--streamed [--exact] --mesh``): each block cut into the mesh's cells,
+  one rank each (``_mesh_block_engine``, ``_mesh_count_engine``), the
+  cells gathered to process 0, which alone writes the CSV.
 
 Above the device budget (``_use_staged``: PARFASTAAI_HBM_BYTES, else 75% of
 the card's memory), or where ``staged`` / PARFASTAAI_STAGED asks for it,
-the last three take their blocks from staged slabs instead of resident
+the banded engines take their blocks from staged slabs instead of resident
 buckets: an LRU of (proteins x genomes x K) slabs on the device
 (``_slab_store``), gathered on the host and uploaded on demand
-(``_staged_block_engine``, ``_staged_count_engine``).
+(``_staged_block_engine``, ``_staged_count_engine``); over a mesh, each
+rank's shard of each slab (``_MeshSlabStore``, ``_use_staged_mesh``,
+``_staged_mesh_block_engine``, ``_staged_mesh_count_engine``), shipped
+from process 0 where only it holds the presence tensor.
 
 Every function computes on the device it is given.  ``phases``, where
 accepted, is a dict that collects seconds per sub-phase.  ``compute`` and
@@ -326,13 +333,15 @@ def _slab_target_bytes(device: torch.device) -> int:
     return min(2 << 30, max(256 << 20, budget // 6))
 
 
-def _split_plan(plan, n_ids: int, device: torch.device):
+def _split_plan(plan, n_ids: int, device: torch.device,
+                target: int | None = None):
     """Each width bucket's proteins cut into chunks whose slab of ``n_ids``
-    genomes stays under ``_slab_target_bytes``: yields (bucket_i,
-    p_chunk_i, protein_idx, kb) in bucket order, chunks in protein order
-    (parfastaai_tpu.engine._split_plan).  The chunk length is a floor, so
-    no chunk of ``np.array_split`` overshoots the target."""
-    target = _slab_target_bytes(device)
+    genomes stays under ``target`` bytes (default ``_slab_target_bytes``):
+    yields (bucket_i, p_chunk_i, protein_idx, kb) in bucket order, chunks in
+    protein order (parfastaai_tpu.engine._split_plan).  The chunk length is
+    a floor, so no chunk of ``np.array_split`` overshoots the target."""
+    if target is None:
+        target = _slab_target_bytes(device)
     for bi, (idx, kb) in enumerate(plan):
         chunk_len = max(1, target // max(1, n_ids * kb))
         n_pc = max(1, -(-len(idx) // chunk_len))
@@ -386,37 +395,50 @@ class _SlabStore:
     def fetch(self, idx: np.ndarray, kb: int, ids: np.ndarray) -> torch.Tensor:
         idx = np.asarray(idx, np.int64)
         ids = np.asarray(ids, np.int64)
-        key = (kb, idx.tobytes(), ids.tobytes())
-        hit = self._slabs.get(key)
-        if hit is not None:
+        return self._fetch(
+            (kb, idx.tobytes(), ids.tobytes()), len(idx) * len(ids) * kb,
+            lambda: self._to_device(self._host_slab(idx, kb, ids)))
+
+    def _fetch(self, key, nb: int, upload):
+        """The slab under ``key`` (``nb`` bytes in the store): from the
+        store, or made by ``upload()`` after the evictions it needs."""
+        if key in self._slabs:
             self._slabs.move_to_end(key)
             self.hits += 1
-            return hit
-        nb = len(idx) * len(ids) * kb
+            return self._slabs[key][0]
         cap = self.cap()
         while self.held + nb > cap and len(self._slabs) > 1:
-            _, old = self._slabs.popitem(last=False)
-            self.held -= old.numel()
-        slab = self._upload(idx, kb, ids)
-        self._slabs[key] = slab
+            _, (_, old_nb) = self._slabs.popitem(last=False)
+            self.held -= old_nb
+        slab = upload()
+        self._slabs[key] = (slab, nb)
         self.held += nb
         self.peak = max(self.peak, self.held)
         self.uploaded += nb
         self.slabs += 1
         return slab
 
-    def _upload(
-        self, idx: np.ndarray, kb: int, ids: np.ndarray
+    def _host_slab(
+        self, idx: np.ndarray, kb: int, ids: np.ndarray, pinned: bool = True
     ) -> torch.Tensor:
-        shape = (len(idx), len(ids), kb)
-        cuda = self._device.type == "cuda"
-        host = torch.empty(shape, dtype=torch.int8, pin_memory=cuda)
+        """The (len(idx), len(ids), kb) int8 slab gathered on the host, into
+        page-locked memory for a card where ``pinned``; a protein -1 gives
+        a zero row."""
+        cuda = pinned and self._device.type == "cuda"
+        host = torch.empty((len(idx), len(ids), kb), dtype=torch.int8,
+                           pin_memory=cuda)
         out = host.numpy().view(np.uint8)
         kw = min(kb, self._m.shape[2])
         for j, p in enumerate(idx):
+            if p < 0:
+                out[j] = 0
+                continue
             out[j, :, :kw] = self._m[p][ids, :kw]
             out[j, :, kw:] = 0
-        if not cuda:
+        return host
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        if self._device.type != "cuda":
             return host.to(self._device)
         return host.to(self._device, non_blocking=True)
 
@@ -439,11 +461,130 @@ def _slab_store(presence: PresenceData, device: torch.device) -> _SlabStore:
     return stores[key]
 
 
-def slab_stats(presence: PresenceData, device: torch.device) -> dict | None:
+class _MeshSlabStore(_SlabStore):
+    """This rank's shard of each staged slab over a (rows, scp) mesh
+    (parfastaai_tpu.engine._mesh_slab_store), on the LRU of ``_SlabStore``.
+
+    ``fetch(kind, idx, kb, ids)`` returns this cell's shard of the
+    (len(idx), len(ids), kb) slab: the proteins ``idx`` padded with empty
+    proteins to a multiple of scp and cut into the cell's protein shard
+    (``mesh.shard_proteins``); for a ``row`` slab the cell's band of the
+    genomes ``ids``, a multiple of the mesh's rows (``mesh.cell_rows``),
+    for a ``col`` slab every genome of ``ids``.  Device memory per rank is
+    1 / (rows x scp) of a row slab and 1 / scp of a column slab, so the
+    genome capacity grows with the mesh.  A rank past the mesh keeps the
+    books of cell (0, 0) and uploads nothing (``fetch`` gives None).
+
+    A slab is keyed by what the whole slab holds, (kind, kb, proteins,
+    genomes), which fixes every rank's shard of it.  A key of the shard
+    alone could hit on one rank and miss on another (two protein chunks
+    can share one shard), and the broadcasts below would stop lining up.
+    Every rank fetches the same keys in the same order, holds shards of
+    equal bytes (P and the band are padded to the mesh) and has the cap
+    and slab target of process 0 (broadcast when the store is made), so
+    every rank misses and evicts at the same fetches.
+
+    Meta-only runs (``presence.slab_broadcast``, set by
+    ``distributed.broadcast_presence(meta_only=True)``): only process 0
+    holds the presence tensor, so on a miss it gathers the whole slab,
+    packs its bits and broadcasts them; each rank unpacks its own shard.
+    A rank's host memory stays at one packed slab."""
+
+    def __init__(self, presence: PresenceData, device: torch.device, mesh):
+        from .parallel import distributed
+
+        super().__init__(presence, device)
+        self._mesh = mesh
+        self._cell = mesh.coords if mesh.coords is not None else (0, 0)
+        multiproc = distributed.world_size() > 1
+        self._broadcast = multiproc and bool(
+            getattr(presence, "slab_broadcast", False))
+        budget = _device_budget(device)
+        limits = (int((budget if budget is not None else 4 << 30) * 0.75),
+                  _slab_target_bytes(device))
+        if multiproc:
+            limits = distributed.broadcast_pyobj(limits)
+        self._cap, self.target = limits
+
+    def cap(self) -> int:
+        return self._cap
+
+    def fetch(self, kind: str, idx: np.ndarray, kb: int, ids: np.ndarray):
+        from .parallel.mesh import cell_rows, shard_proteins
+
+        idx = np.asarray(idx, np.int64)
+        ids = np.asarray(ids, np.int64)
+        prot = shard_proteins(idx, self._cell[1], self._mesh.n_scp)
+        genomes = cell_rows(self._mesh, ids) if kind == "row" else ids
+        return self._fetch(
+            (kind, kb, idx.tobytes(), ids.tobytes()),
+            len(prot) * len(genomes) * kb,
+            lambda: self._upload_shard(kind, idx, kb, ids, prot, genomes))
+
+    def _upload_shard(self, kind, idx, kb, ids, prot, genomes):
+        from .parallel import distributed
+        from .parallel.mesh import shard_proteins
+
+        idle = self._mesh.coords is None
+        if not self._broadcast:
+            return None if idle else self._to_device(
+                self._host_slab(prot, kb, genomes))
+        n_scp = self._mesh.n_scp
+        whole = np.concatenate(
+            [shard_proteins(idx, s, n_scp) for s in range(n_scp)])
+        shape = (len(whole), len(ids), -(-kb // 8))
+        packed = None
+        if distributed.is_primary():
+            host = self._host_slab(whole, kb, ids, pinned=False)
+            host = host.numpy().view(np.uint8)
+            packed = np.packbits(host, axis=-1)
+        packed = distributed.broadcast_bytes(packed, shape)
+        if idle:
+            return None
+        p = len(prot)
+        rows = slice(None)
+        if kind == "row":
+            band = len(genomes)
+            rows = slice(self._cell[0] * band, (self._cell[0] + 1) * band)
+        part = packed[self._cell[1] * p : (self._cell[1] + 1) * p, rows]
+        cuda = self._device.type == "cuda"
+        out = torch.empty((p, len(genomes), kb), dtype=torch.int8,
+                          pin_memory=cuda)
+        out.numpy().view(np.uint8)[:] = np.unpackbits(part, axis=-1, count=kb)
+        return self._to_device(out)
+
+
+def _mesh_slab_store(presence: PresenceData, mesh,
+                     device: torch.device) -> _MeshSlabStore:
+    """The presence's mesh slab store for ``mesh`` on ``device``, made at
+    first use and kept on the presence object under the mesh's identity
+    (``mesh.mesh_key``: device, shape, world and rank)."""
+    from .parallel.mesh import mesh_key
+
+    stores = getattr(presence, "_torch_mesh_slab_stores", None)
+    if stores is None:
+        stores = {}
+        presence._torch_mesh_slab_stores = stores
+    key = mesh_key(mesh, device)
+    if key not in stores:
+        stores[key] = _MeshSlabStore(presence, device, mesh)
+    return stores[key]
+
+
+def slab_stats(
+    presence: PresenceData, device: torch.device, mesh=None
+) -> dict | None:
     """The counters of the presence's slab store on ``device`` (bytes
-    uploaded, peak and held bytes, the cap, uploads and hits), or None
+    uploaded, peak and held bytes, the cap, uploads and hits; with
+    ``mesh``, this rank's store of that mesh, its bytes a rank's), or None
     where nothing was staged."""
-    store = getattr(presence, "_torch_slab_stores", {}).get(str(device))
+    if mesh is None:
+        store = getattr(presence, "_torch_slab_stores", {}).get(str(device))
+    else:
+        from .parallel.mesh import mesh_key
+
+        store = getattr(presence, "_torch_mesh_slab_stores", {}).get(
+            mesh_key(mesh, device))
     return None if store is None else store.stats()
 
 
@@ -650,6 +791,298 @@ def _staged_count_engine(presence: PresenceData, device: torch.device):
             for j, p in enumerate(idx):
                 out[int(p)] = int_gram(ma[j], mb[j])
         return out
+
+    return block_counts
+
+
+def _use_staged_mesh(
+    presence: PresenceData,
+    n_scp: int,
+    device: torch.device,
+    staged: bool | None = None,
+) -> bool:
+    """Staged slabs or resident shards over a mesh
+    (parfastaai_tpu.engine._use_staged_mesh): ``staged`` or
+    PARFASTAAI_STAGED where either decides (``staged_override``), else
+    staged exactly when a rank's share of the width-bucketed presence, its
+    protein shard of every genome (1 / ``n_scp``), exceeds the rank's
+    device budget.  In a run of several processes only process 0's answer
+    counts: the callers broadcast it."""
+    override = staged_override(staged)
+    if override is not None:
+        return override
+    budget = _device_budget(device)
+    return (budget is not None
+            and presence_device_bytes(presence) // n_scp > budget)
+
+
+def _zero_block(a: int, b: int, device: torch.device):
+    """The (S, N) a rank past the mesh brings to a block's gather."""
+    return (torch.zeros((a, b), dtype=torch.float32, device=device),
+            torch.zeros((a, b), dtype=torch.int32, device=device))
+
+
+def _t_rows(t: np.ndarray, prot: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """T[prot, ids] with a zero row for every protein -1 (padding)."""
+    out = np.zeros((len(prot), len(ids)), t.dtype)
+    valid = prot >= 0
+    out[valid] = t[np.ix_(prot[valid], ids)]
+    return out
+
+
+def _mesh_buckets(presence: PresenceData, mesh, device: torch.device,
+                  phases: dict | None = None):
+    """This rank's protein shard of every width bucket on ``device``:
+    [(layout, m, t)] in bucket order, ``layout`` the (scp, Pb/scp) proteins
+    of every shard (-1 for the padding of Pb to a multiple of scp), ``m``
+    the (Pb/scp, G, Kb) uint8 presence of this rank's shard and ``t`` its
+    clamped T (``clamp_t``), both None past the mesh.  With scp = 1 the
+    tensors of ``to_device_buckets``.  Cached on the presence object under
+    the mesh's identity."""
+    from .parallel.mesh import mesh_key, shard_proteins
+
+    cache = getattr(presence, "_torch_mesh_bucket_cache", None)
+    if cache is None:
+        cache = {}
+        presence._torch_mesh_bucket_cache = cache
+    key = mesh_key(mesh, device)
+    if key in cache:
+        return cache[key]
+    n_scp = mesh.n_scp
+    G, K = presence.m.shape[1], presence.m.shape[2]
+    out = []
+    gather_s = h2d_s = 0.0
+    for idx, kb in _bucket_plan(presence):
+        layout = np.stack(
+            [shard_proteins(idx, s, n_scp) for s in range(n_scp)])
+        if mesh.coords is None:
+            out.append((layout, None, None))
+            continue
+        t0 = time.perf_counter()
+        prot = layout[mesh.coords[1]]
+        valid = prot >= 0
+        kw = min(kb, K)
+        m_host = np.zeros((len(prot), G, kb), np.uint8)
+        m_host[valid, :, :kw] = presence.m[prot[valid], :, :kw]
+        t_host = _t_rows(presence.t, prot, np.arange(G))
+        t1 = time.perf_counter()
+        out.append((layout, _to_device(m_host, device),
+                    clamp_t(_to_device(t_host, device))))
+        _sync(device)
+        gather_s += t1 - t0
+        h2d_s += time.perf_counter() - t1
+    _add(phases, "host bucketize", gather_s)
+    _add(phases, "H2D", h2d_s)
+    cache[key] = out
+    return out
+
+
+def _mesh_block_engine(
+    presence: PresenceData,
+    mesh,
+    approx: bool,
+    precise: bool,
+    device: torch.device,
+    phases: dict | None = None,
+    clock: _StageClock | None = None,
+):
+    """``block_sn(rids, cids, drids, dcids) -> (s, n)`` of this rank's cell
+    of one output block over a (rows, scp) mesh: the resident mesh branch
+    of parfastaai_tpu.engine.compute_streamed.
+
+    Every rank holds its protein shard of every width bucket
+    (``_mesh_buckets``).  The block's rows are padded with genome 0 to a
+    multiple of the mesh's rows; cell (r, s) takes band r of them against
+    every column of the block and runs the rectangular kernel on its shard
+    of each bucket, sums the buckets in bucket order, and then adds its
+    row's scp partials (``mesh._reduce``, an all-reduce over the row's scp
+    group).  Returns this cell's (S, N), on the collectives' device; zeros
+    past the mesh.  ``mesh.gather_rows`` puts the bands together.  With scp
+    = 1 each cell is ``_bucket_block_engine``'s arithmetic on its rows, so
+    a row split changes no value; with scp > 1 the shards' sums meet at the
+    end (~1e-7 against one device).
+
+    ``clock`` laps ``gather``, ``kernel`` and ``scp all-reduce``."""
+    from .parallel.mesh import _reduce, cell_rows, pad_rows
+
+    buckets = _mesh_buckets(presence, mesh, device, phases)
+    G = presence.m.shape[1]
+    if clock is None:
+        clock = _StageClock(device, phases, sync=True)
+
+    def block_sn(rids, cids, drids, dcids):
+        clock.start()
+        rl = cell_rows(mesh, pad_rows(np.asarray(rids), mesh.n_rows))
+        drl = cell_rows(mesh, pad_rows(np.asarray(drids), mesh.n_rows))
+        if mesh.coords is None:
+            return _zero_block(len(rl), len(cids), device)
+        rsel, csel, drsel, dcsel = (
+            _selector(ids, G, device) for ids in (rl, cids, drl, dcids)
+        )
+        s = n = None
+        for _, md, td in buckets:
+            ma, mb = _take(md, rsel), _take(md, csel)
+            ta, tb = _take(td, drsel), _take(td, dcsel)
+            clock.lap("gather")
+            s_b, n_b = fused_sn_block(
+                ma, mb, ta, tb, approx=approx, precise=precise
+            )
+            s = s_b if s is None else s + s_b
+            n = n_b if n is None else n + n_b
+            clock.lap("kernel")
+        s, n = _reduce(mesh, s, n)
+        clock.lap("scp all-reduce")
+        return s, n
+
+    return block_sn
+
+
+def _staged_mesh_block_engine(
+    presence: PresenceData,
+    mesh,
+    approx: bool,
+    precise: bool,
+    device: torch.device,
+    phases: dict | None = None,
+    clock: _StageClock | None = None,
+):
+    """``_mesh_block_engine``'s contract from staged slabs
+    (parfastaai_tpu.engine._staged_mesh_block_engine): per block, each
+    chunk of ``_split_plan`` (at the block's larger side, with the store's
+    slab target) fetches this cell's shard of its row and column slabs
+    from the ``_MeshSlabStore``, uploads the matching T (clamped, zeros for
+    padding proteins) and runs the rectangular kernel.  Chunks are summed
+    in chunk order within a bucket and the buckets in bucket order, as
+    ``_staged_block_engine`` sums them, so a one-row mesh gives that
+    engine's values; then the scp all-reduce.  A rank past the mesh joins
+    the slab broadcasts of a meta-only run and computes nothing.
+
+    ``clock`` laps ``slab upload``, ``kernel`` and ``scp all-reduce``."""
+    from .parallel.mesh import _reduce, cell_rows, pad_rows, shard_proteins
+
+    store = _mesh_slab_store(presence, mesh, device)
+    plan = _bucket_plan(presence)
+    t = presence.t
+    if clock is None:
+        clock = _StageClock(device, phases, sync=True)
+
+    def block_sn(rids, cids, drids, dcids):
+        n_ids = max(len(rids), len(cids))
+        rids = pad_rows(np.asarray(rids), mesh.n_rows)
+        drl = cell_rows(mesh, pad_rows(np.asarray(drids), mesh.n_rows))
+        cids, dcids = np.asarray(cids), np.asarray(dcids)
+        clock.start()
+        s = n = None
+        chunks = _split_plan(plan, n_ids, device, store.target)
+        for _, bucket in itertools.groupby(chunks, key=lambda c: c[0]):
+            s_b = n_b = None
+            for _, _, idx, kb in bucket:
+                ma = store.fetch("row", idx, kb, rids)
+                mb = store.fetch("col", idx, kb, cids)
+                if mesh.coords is None:
+                    continue
+                prot = shard_proteins(idx, mesh.coords[1], mesh.n_scp)
+                ta = clamp_t(_to_device(_t_rows(t, prot, drl), device))
+                tb = clamp_t(_to_device(_t_rows(t, prot, dcids), device))
+                clock.lap("slab upload")
+                s_c, n_c = fused_sn_block(
+                    ma, mb, ta, tb, approx=approx, precise=precise
+                )
+                s_b = s_c if s_b is None else s_b + s_c
+                n_b = n_c if n_b is None else n_b + n_c
+                clock.lap("kernel")
+            if s_b is not None:
+                s = s_b if s is None else s + s_b
+                n = n_b if n is None else n + n_b
+        if mesh.coords is None:
+            return _zero_block(len(drl), len(cids), device)
+        s, n = _reduce(mesh, s, n)
+        clock.lap("scp all-reduce")
+        return s, n
+
+    return block_sn
+
+
+def _mesh_count_engine(
+    presence: PresenceData, mesh, device: torch.device,
+    phases: dict | None = None,
+):
+    """``block_counts(rids, cids) -> (counts, layout)``: this rank's cell of
+    one exact count block over a (rows, scp) mesh
+    (parfastaai_tpu.engine._mesh_count_engine).
+
+    The block's rows are padded with genome 0 to a multiple of the mesh's
+    rows.  Cell (r, s) takes its protein shard of every width bucket
+    (``_mesh_buckets``) and band r of the rows against every column, and
+    writes each protein's int8 Gram (``ops.fused.int_gram``, as
+    ``_bucket_count_engine``) into the row of ``counts`` that ``layout``
+    gives it: ``counts`` is (rows of layout, band / rows, len(cids)) in the
+    wire dtype, ``layout`` the (scp, rows) proteins of every shard's rows,
+    -1 for padding (whose rows are 0).  No collective: process 0 gathers
+    the cells and puts every row in its place (``mesh.gather_cells``,
+    ``mesh.assemble_counts``).  Counts are integers, so the split changes
+    no value.  Zeros past the mesh."""
+    from .parallel.mesh import cell_rows, pad_rows
+
+    buckets = _mesh_buckets(presence, mesh, device, phases)
+    layout = np.concatenate([b[0] for b in buckets], axis=1)
+    out_dtype = _count_wire_dtype(presence)
+    G = presence.m.shape[1]
+
+    def block_counts(rids: np.ndarray, cids: np.ndarray):
+        rl = cell_rows(mesh, pad_rows(np.asarray(rids), mesh.n_rows))
+        out = torch.zeros((layout.shape[1], len(rl), len(cids)),
+                          dtype=out_dtype, device=device)
+        if mesh.coords is None:
+            return out, layout
+        rsel, csel = _selector(rl, G, device), _selector(cids, G, device)
+        row = 0
+        for b_layout, md, _ in buckets:
+            m8 = md.view(torch.int8)
+            ma, mb = _take(m8, rsel), _take(m8, csel)
+            for j, p in enumerate(b_layout[mesh.coords[1]]):
+                if p >= 0:
+                    out[row + j] = int_gram(ma[j], mb[j])
+            row += b_layout.shape[1]
+        return out, layout
+
+    return block_counts
+
+
+def _staged_mesh_count_engine(
+    presence: PresenceData, mesh, device: torch.device
+):
+    """``_mesh_count_engine``'s contract from staged slabs
+    (parfastaai_tpu.engine._staged_mesh_count_engine): per chunk of
+    ``_split_plan`` (at the block's larger side, with the store's slab
+    target), this cell's shard of the row and column slabs from the
+    ``_MeshSlabStore``; ``layout`` lists the chunks' shards in turn."""
+    from .parallel.mesh import pad_rows, protein_layout
+
+    store = _mesh_slab_store(presence, mesh, device)
+    plan = _bucket_plan(presence)
+    out_dtype = _count_wire_dtype(presence)
+
+    def block_counts(rids: np.ndarray, cids: np.ndarray):
+        chunks = list(_split_plan(
+            plan, max(len(rids), len(cids)), device, store.target))
+        rids = pad_rows(np.asarray(rids), mesh.n_rows)
+        cids = np.asarray(cids)
+        layout = protein_layout([c[2] for c in chunks], mesh.n_scp)
+        out = torch.zeros(
+            (layout.shape[1], len(rids) // mesh.n_rows, len(cids)),
+            dtype=out_dtype, device=device)
+        row = 0
+        for _, _, idx, kb in chunks:
+            ma = store.fetch("row", idx, kb, rids)
+            mb = store.fetch("col", idx, kb, cids)
+            n_p = -(-len(idx) // mesh.n_scp)
+            if mesh.coords is not None:
+                for j in range(n_p):
+                    if layout[mesh.coords[1], row + j] >= 0:
+                        out[row + j] = int_gram(ma[j], mb[j])
+            row += n_p
+        return out, layout
 
     return block_counts
 
@@ -1061,6 +1494,71 @@ class _BlockDownloads:
             self._timed.clear()
 
 
+def _primary_decides(decide, multiproc: bool):
+    """``decide()`` on process 0 alone in a run of several processes, and
+    its answer on every rank.  A failure there travels in the answer's
+    place, so every rank raises it instead of waiting in a collective that
+    process 0 never joins.  One process: ``decide()``."""
+    if not multiproc:
+        return decide()
+    from .parallel import distributed
+
+    value = err = None
+    if distributed.is_primary():
+        try:
+            value = decide()
+        except Exception as exc:  # noqa: BLE001 — every failure must reach
+            # the other ranks
+            err = distributed.picklable(exc)
+    value, err = distributed.broadcast_pyobj((value, err))
+    if err is not None:
+        raise err
+    return value
+
+
+def _stop_everywhere(werr: list, multiproc: bool) -> bool:
+    """Whether the run stops here because process 0's writer or worker
+    thread failed (``werr``).  In a run of several processes, one flag from
+    process 0 and, where it is set, its error, which every rank then holds
+    in ``werr``: every rank stops at the same step and raises the same
+    error.  One process: ``werr`` alone."""
+    if not multiproc:
+        return bool(werr)
+    from .parallel import distributed
+
+    if not distributed.broadcast_from_primary(1 if werr else 0):
+        return False
+    err = distributed.broadcast_pyobj(
+        distributed.picklable(werr[0]) if werr else None)
+    if not distributed.is_primary():
+        werr.append(err)
+    return True
+
+
+def _primary_only(engine: str, world: int, hint: str) -> None:
+    """The reference's WARNING where an engine without a mesh runs on
+    process 0 alone in a run of several processes."""
+    print(
+        f"WARNING: the {engine} engine without --mesh computes on the "
+        f"primary process only; the other {world - 1} process(es) idle "
+        f"through this phase (pass --mesh R,S to {hint})",
+        file=sys.stderr,
+    )
+
+
+def _open_csv(out_path: str, rows_done: int, header: str):
+    """The CSV for appending after ``rows_done`` resumed rows, else anew
+    with its header."""
+    fp = open(out_path, "a" if rows_done else "w")
+    try:
+        if not rows_done:
+            fp.write(header)
+    except BaseException:
+        fp.close()
+        raise
+    return fp
+
+
 def compute_streamed_exact(
     presence: PresenceData,
     row_ids: np.ndarray,
@@ -1077,9 +1575,10 @@ def compute_streamed_exact(
     col_denom_ids: np.ndarray | None = None,
     phases: dict | None = None,
     staged: bool | None = None,
+    mesh=None,
 ) -> None:
     """Banded exact engine: bit-parity f64 AJI straight to the CSV
-    (parfastaai_tpu.engine.compute_streamed_exact on one device).
+    (parfastaai_tpu.engine.compute_streamed_exact).
 
     ``compute`` downloads the whole (P, n_pairs) count matrix, which grows
     with G^2.  This engine keeps its exactness (integer intersections, f64
@@ -1120,14 +1619,41 @@ def compute_streamed_exact(
     denominators), no rows were resumed and the peak mirror footprint fits
     PARFASTAAI_MIRROR_BYTES (default 4 GiB); blocks are then band x band.
 
+    ``mesh`` (``parallel.mesh.make_mesh``): the count blocks come from the
+    mesh's ranks (``_mesh_count_engine``, or ``_staged_mesh_count_engine``
+    where ``_use_staged_mesh`` says so or the presence is meta-only), the
+    band rounded up to a multiple of the mesh's rows; every rank runs the
+    block walk and joins one gather per block, and process 0 puts the cells
+    together and runs the worker, the mirror store and the CSV alone.
+    Counts are integers, so the bytes are those of one device.  In a run
+    of several processes process 0 decides (staged, the resume point, the
+    mirror) after opening the CSV, and its decisions or its failure reach
+    every rank in one broadcast; one flag per block then says whether its
+    worker failed, so every rank stops and raises the same error.  Without
+    a mesh, the other processes return at once and process 0 computes
+    alone, with the reference's WARNING.
+
     ``phases`` collects seconds under ``host bucketize`` and ``H2D`` (the
     presence upload), ``Gram`` and ``D2H`` (device seconds from CUDA event
     pairs; staged: the slabs' uploads too), ``host finish`` and ``CSV
     write`` (the worker's busy seconds), ``producer wait`` (main thread
     blocked on a full queue or on a host buffer) and ``worker wait``
     (worker blocked on a copy or on an empty queue).  The stages overlap,
-    so they do not sum to the wall.
+    so they do not sum to the wall.  With a mesh, ``Gram`` is host seconds
+    up to the end of the block's Grams and ``count gather`` the gather and
+    the assembly on process 0.
     """
+    from .parallel import distributed
+    from .parallel.mesh import assemble_counts, gather_cells
+
+    primary = distributed.is_primary()
+    multiproc = distributed.world_size() > 1
+    if multiproc and mesh is None:
+        if not primary:
+            return  # no collective here: process 0 computes and writes
+        _primary_only("banded exact", distributed.world_size(),
+                      "shard the exact count production")
+        multiproc = False
     row_ids = np.asarray(row_ids, dtype=np.int32)
     col_ids = np.asarray(col_ids, dtype=np.int32)
     row_denom_ids = (
@@ -1142,15 +1668,11 @@ def compute_streamed_exact(
     )
     band = max(1, min(band, len(row_ids)))
     col_chunk = max(1, min(col_chunk, len(col_ids)))
-    if _use_staged(presence, device, staged):
-        block_counts = _staged_count_engine(presence, device)
-    else:
-        block_counts = _bucket_count_engine(presence, device, phases)
+    if mesh is not None:
+        band = -(-band // mesh.n_rows) * mesh.n_rows  # cells of equal bands
     t = presence.t
     P = t.shape[0]
-
     header = separator + separator.join(col_names) + "\n"
-    rows_done = _resume_point(out_path, header, band) if resume else 0
     # Symmetric reuse (see docstring): square blocks, so that each block
     # below the diagonal is exactly the transpose of a stored tile.
     sym_layout = (
@@ -1158,29 +1680,46 @@ def compute_streamed_exact(
         and np.array_equal(row_ids, col_ids)
         and np.array_equal(row_denom_ids, col_denom_ids)
     )
-    if sym_layout and rows_done:
-        print(
-            "NOTE: symmetric mirror disabled on --resume (mirrors need "
-            "every earlier band from this run); the remaining bands compute "
-            "the full square",
-            file=sys.stderr,
-        )
-    sym = sym_layout and rows_done == 0
-    if sym:
-        # The budget is checked before the square col_chunk is adopted, so
-        # a run without the mirror keeps the caller's chunk.
-        n_ch = -(-len(col_ids) // band)
-        # Peak live mirror tiles = max_i (i+1)(n-1-i) ~ n^2/4 f64 tiles.
-        peak = ((n_ch * n_ch) // 4 + 1) * band * band * 8
-        budget = int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
-        if peak > budget:
-            sym = False
+    opened = []
+
+    def decide():
+        if mesh is None:
+            staged_active = _use_staged(presence, device, staged)
+        else:
+            staged_active = getattr(presence, "slab_broadcast", False) or (
+                _use_staged_mesh(presence, mesh.n_scp, device, staged))
+        rows_done = _resume_point(out_path, header, band) if resume else 0
+        if sym_layout and rows_done:
             print(
-                "NOTE: symmetric mirror disabled — peak mirror bytes "
-                f"{peak} exceed PARFASTAAI_MIRROR_BYTES={budget}; "
-                "computing the full square",
+                "NOTE: symmetric mirror disabled on --resume (mirrors need "
+                "every earlier band from this run); the remaining bands "
+                "compute the full square",
                 file=sys.stderr,
             )
+        sym = sym_layout and rows_done == 0
+        if sym:
+            # The budget is checked before the square col_chunk is
+            # adopted, so a run without the mirror keeps the caller's chunk.
+            n_ch = -(-len(col_ids) // band)
+            # Peak live mirror tiles = max_i (i+1)(n-1-i) ~ n^2/4 f64 tiles.
+            peak = ((n_ch * n_ch) // 4 + 1) * band * band * 8
+            budget = int(float(
+                os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+            if peak > budget:
+                sym = False
+                print(
+                    "NOTE: symmetric mirror disabled — peak mirror bytes "
+                    f"{peak} exceed PARFASTAAI_MIRROR_BYTES={budget}; "
+                    "computing the full square",
+                    file=sys.stderr,
+                )
+        opened.append(_open_csv(out_path, rows_done, header))
+        return staged_active, rows_done, sym
+
+    # Process 0 opens the CSV before the first collective; its failure
+    # (a missing directory, an unwritable file) stops every rank.
+    staged_active, rows_done, sym = _primary_decides(decide, multiproc)
+    fp = opened[0] if opened else None
     if sym:
         col_chunk = band  # square blocks so mirrors transpose exactly
     n_chunks_per_band = max(1, -(-len(col_ids) // col_chunk))
@@ -1188,17 +1727,14 @@ def compute_streamed_exact(
     # Worker (stage 2).  The queue's depth of 2 bounds the blocks in flight;
     # the host buffers are one being filled, two queued, one being read.
     work_q: queue.Queue = queue.Queue(maxsize=2)
-    downloads = _BlockDownloads(
-        device, P * band * col_chunk, _count_wire_dtype(presence),
-        n_buffers=work_q.maxsize + 2,
-    )
+    downloads = None
     werr: list[BaseException] = []
     # Seconds by stage: the worker adds to its three keys, the main thread
     # to "producer wait" alone.
     busy = {"host finish": 0.0, "CSV write": 0.0, "producer wait": 0.0,
             "worker wait": 0.0}
 
-    def _worker(fp) -> None:
+    def _worker() -> None:
         download = None
         try:
             if os.environ.get("PARFASTAAI_TEST_WORKER_FAULT"):
@@ -1284,46 +1820,83 @@ def compute_streamed_exact(
         work_q.put(item)
         busy["producer wait"] += time.perf_counter() - t0
 
-    with open(out_path, "a" if rows_done else "w") as fp:
-        worker = threading.Thread(
-            target=_worker, args=(fp,), name="pfaai-exact-finish", daemon=True
-        )
-        try:
-            if not rows_done:
-                fp.write(header)
+    worker = None
+    try:
+        if mesh is not None:
+            block_counts = (
+                _staged_mesh_count_engine(presence, mesh, device)
+                if staged_active
+                else _mesh_count_engine(presence, mesh, device, phases)
+            )
+        elif staged_active:
+            block_counts = _staged_count_engine(presence, device)
+        else:
+            block_counts = _bucket_count_engine(presence, device, phases)
+        if mesh is None:
+            downloads = _BlockDownloads(
+                device, P * band * col_chunk, _count_wire_dtype(presence),
+                n_buffers=work_q.maxsize + 2,
+            )
+
+        def counts_of(rids, cids):
+            """The block's counts on their way to process 0's worker."""
+            if mesh is None:
+                return downloads.fetch(lambda: block_counts(rids, cids))
+            t0 = time.perf_counter()
+            counts, layout = block_counts(rids, cids)
+            _sync(device)
+            t1 = time.perf_counter()
+            cells = gather_cells(mesh, counts)  # every rank joins
+            host = (assemble_counts(mesh, cells, layout, P, len(rids))
+                    if primary else None)
+            _add(phases, "Gram", t1 - t0)
+            _add(phases, "count gather", time.perf_counter() - t1)
+            return _Download(torch.from_numpy(host)) if primary else None
+
+        if primary:
+            worker = threading.Thread(
+                target=_worker, name="pfaai-exact-finish", daemon=True
+            )
             worker.start()
-            for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
-                rids = row_ids[r0 : r0 + band]
-                drids = row_denom_ids[r0 : r0 + band]
-                for ci, c0 in enumerate(range(0, len(col_ids), col_chunk)):
-                    cids = col_ids[c0 : c0 + col_chunk]
-                    dcids = col_denom_ids[c0 : c0 + col_chunk]
-                    if sym and ci < bi:
-                        # Below the diagonal: no device work and no copy;
-                        # the worker mirrors the stored (ci, bi) tile.
-                        data = (ci, bi)
-                        kind = "mirror"
-                    else:
-                        download = downloads.fetch(
-                            lambda: block_counts(rids, cids)
-                        )
-                        data = (download, (bi, ci) if sym and ci > bi else None)
-                        kind = "counts"
+        stop = False
+        for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
+            rids = row_ids[r0 : r0 + band]
+            drids = row_denom_ids[r0 : r0 + band]
+            for ci, c0 in enumerate(range(0, len(col_ids), col_chunk)):
+                cids = col_ids[c0 : c0 + col_chunk]
+                dcids = col_denom_ids[c0 : c0 + col_chunk]
+                if sym and ci < bi:
+                    # Below the diagonal: no device work and no copy; the
+                    # worker mirrors the stored (ci, bi) tile.
+                    data = (ci, bi)
+                    kind = "mirror"
+                else:
+                    data = (counts_of(rids, cids),
+                            (bi, ci) if sym and ci > bi else None)
+                    kind = "counts"
+                if primary:
                     put((r0, rids, drids, c0, len(cids), dcids, kind, data))
-                    if werr:
-                        break
-                if werr:
+                # One flag a block (the reference's protocol): every rank
+                # makes this call once per block.
+                stop = _stop_everywhere(werr, multiproc)
+                if stop:
                     break
-        finally:
-            if worker.is_alive():
-                work_q.put(None)
-                worker.join()
-    downloads.close()
-    busy["producer wait"] += downloads.wait_s
-    _add(phases, "Gram", downloads.compute_s)
-    _add(phases, "D2H", downloads.d2h_s)
-    for key, seconds in busy.items():
-        _add(phases, key, seconds)
+            if stop:
+                break
+    finally:
+        if worker is not None and worker.is_alive():
+            work_q.put(None)
+            worker.join()
+        if fp is not None:
+            fp.close()
+    if downloads is not None:
+        downloads.close()
+        busy["producer wait"] += downloads.wait_s
+        _add(phases, "Gram", downloads.compute_s)
+        _add(phases, "D2H", downloads.d2h_s)
+    if primary:
+        for key, seconds in busy.items():
+            _add(phases, key, seconds)
     if werr:
         raise werr[0]
 
@@ -1351,9 +1924,10 @@ def compute_streamed(
     col_denom_ids: np.ndarray | None = None,
     phases: dict | None = None,
     staged: bool | None = None,
+    mesh=None,
 ) -> None:
     """The f32 streamed engine: AJI straight to the CSV in row bands
-    (parfastaai_tpu.engine.compute_streamed on one device).
+    (parfastaai_tpu.engine.compute_streamed).
 
     The output is walked in band x col_chunk blocks.  Each block is one
     pass of the rectangular kernel per width bucket
@@ -1419,18 +1993,43 @@ def compute_streamed(
     chunks, still in the slab store, open the next band.  The writer
     places each chunk at its c0, so the bytes do not depend on the order.
 
-    Not here, each with the part of the reference it stands for: the host
-    numpy block for small problems (``_take_host``: relay dispatch model,
-    not ported) and ``mesh`` with every multi-process branch (the streamed
-    engines' part of the multi-GPU engine, not ported yet; the mesh runs
-    through ``compute_sharded``).
+    ``mesh`` (``parallel.mesh.make_mesh``): each block is cut into the
+    mesh's cells (``_mesh_block_engine``, or ``_staged_mesh_block_engine``
+    where ``_use_staged_mesh`` says so or the presence is meta-only), the
+    band rounded up to a multiple of the mesh's rows.  Every rank runs the
+    block walk and joins one gather of the masked cells per block; process
+    0 runs the writer, the mirror store and the CSV alone.  A one-row mesh
+    writes the bytes of one device; protein shards add their sums at the
+    end (~1e-7).  In a run of several processes process 0 decides (staged,
+    the resume point, the mirror) after opening the CSV, its decisions or
+    its failure reach every rank in one broadcast, and one flag per band
+    says whether its writer failed, so every rank stops and raises the
+    same error.  Without a mesh the other processes return at once and
+    process 0 computes alone, with a WARNING (the reference runs the whole
+    walk on every process and gathers each block).  The mesh's ``phases``
+    are host seconds around syncs: ``gather`` (staged: ``slab upload``),
+    ``kernel``, ``scp all-reduce``, ``AJI mask`` and ``row gather``.
+
+    Not here: the host numpy block for small problems (``_take_host``:
+    relay dispatch model, not ported).
     """
+    from .parallel import distributed
+    from .parallel.mesh import gather_rows
+
     if approx and device.type != "cuda":
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
             "--approx requires the CUDA streamed kernel, but the device is "
             f"{device.type!r}, not cuda",
         )
+    primary = distributed.is_primary()
+    multiproc = distributed.world_size() > 1
+    if multiproc and mesh is None:
+        if not primary:
+            return  # no collective here: process 0 computes and writes
+        _primary_only("f32 streamed", distributed.world_size(),
+                      "cut its blocks into the mesh's cells")
+        multiproc = False
     row_ids = np.asarray(row_ids, dtype=np.int32)
     col_ids = np.asarray(col_ids, dtype=np.int32)
     row_denom_ids = (
@@ -1446,46 +2045,50 @@ def compute_streamed(
     # Clamped to >= 1: an empty axis gives a header-only CSV.
     band = max(1, min(band, len(row_ids)))
     col_chunk = max(1, min(col_chunk, len(col_ids)))
-    clock = _StageClock(device, phases, sync=False)
-    staged_active = _use_staged(presence, device, staged)
-    block_sn = _choose_block_engine(
-        presence, approx, precise, device, phases, clock, staged_active
-    )
-
-    def block_aji(rids, cids, drids, dcids) -> torch.Tensor:
-        aji = _mask_aji(*block_sn(rids, cids, drids, dcids))
-        clock.lap("AJI mask")
-        return aji
-
+    if mesh is not None:
+        band = -(-band // mesh.n_rows) * mesh.n_rows  # cells of equal bands
     header = separator + separator.join(col_names) + "\n"
-    rows_done = _resume_point(out_path, header, band) if resume else 0
     sym_layout = (
         len(row_ids) == len(col_ids)
         and np.array_equal(row_ids, col_ids)
         and np.array_equal(row_denom_ids, col_denom_ids)
     )
-    store_bytes = len(row_ids) * len(col_ids) * 4
-    budget = int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
-    sym = sym_layout and rows_done == 0 and store_bytes <= budget
-    if sym_layout and not sym:
-        why = (
-            "--resume keeps earlier bands this run never produced"
-            if rows_done
-            else f"assembled-band store {store_bytes} B exceeds "
-            f"PARFASTAAI_MIRROR_BYTES={budget}"
-        )
-        print(
-            f"NOTE: symmetric mirror disabled ({why}); computing the full "
-            "square",
-            file=sys.stderr,
-        )
+    opened = []
+
+    def decide():
+        if mesh is None:
+            staged_active = _use_staged(presence, device, staged)
+        else:
+            staged_active = getattr(presence, "slab_broadcast", False) or (
+                _use_staged_mesh(presence, mesh.n_scp, device, staged))
+        rows_done = _resume_point(out_path, header, band) if resume else 0
+        store_bytes = len(row_ids) * len(col_ids) * 4
+        budget = int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+        sym = sym_layout and rows_done == 0 and store_bytes <= budget
+        if sym_layout and not sym:
+            why = (
+                "--resume keeps earlier bands this run never produced"
+                if rows_done
+                else f"assembled-band store {store_bytes} B exceeds "
+                f"PARFASTAAI_MIRROR_BYTES={budget}"
+            )
+            print(
+                f"NOTE: symmetric mirror disabled ({why}); computing the "
+                "full square",
+                file=sys.stderr,
+            )
+        opened.append(_open_csv(out_path, rows_done, header))
+        return staged_active, rows_done, sym
+
+    # Process 0 opens the CSV before the first collective; its failure
+    # (a missing directory, an unwritable file) stops every rank.
+    staged_active, rows_done, sym = _primary_decides(decide, multiproc)
+    fp = opened[0] if opened else None
 
     # Writer (stage 2).  The queue's depth of 2 bounds the blocks in flight;
     # the host buffers are one being filled, two queued, one being read.
     work_q: queue.Queue = queue.Queue(maxsize=2)
-    downloads = _BlockDownloads(
-        device, band * col_chunk, torch.float32, n_buffers=work_q.maxsize + 2
-    )
+    downloads = None
     werr: list[BaseException] = []
     # The writer converts and formats a band in slabs of rows whose f64 copy
     # stays at _FORMAT_SLAB_BYTES: an array the allocator hands out again
@@ -1497,7 +2100,7 @@ def compute_streamed(
     busy = {"host assembly": 0.0, "CSV write": 0.0, "producer wait": 0.0,
             "writer wait": 0.0}
 
-    def _writer(fp) -> None:
+    def _writer() -> None:
         download = None
         try:
             if os.environ.get("PARFASTAAI_TEST_WORKER_FAULT"):
@@ -1572,42 +2175,84 @@ def compute_streamed(
         work_q.put(item)
         busy["producer wait"] += time.perf_counter() - t0
 
-    with open(out_path, "a" if rows_done else "w") as fp:
-        writer = threading.Thread(
-            target=_writer, args=(fp,), name="pfaai-csv-writer", daemon=True
-        )
-        try:
-            if not rows_done:
-                fp.write(header)
+    writer = None
+    # The mesh's blocks meet in a gather that waits for the device anyway:
+    # its stages are host seconds around syncs.
+    clock = _StageClock(device, phases, sync=mesh is not None)
+    try:
+        if mesh is None:
+            block_sn = _choose_block_engine(
+                presence, approx, precise, device, phases, clock,
+                staged_active
+            )
+            downloads = _BlockDownloads(
+                device, band * col_chunk, torch.float32,
+                n_buffers=work_q.maxsize + 2
+            )
+        else:
+            block_sn = (
+                _staged_mesh_block_engine if staged_active
+                else _mesh_block_engine
+            )(presence, mesh, approx, precise, device, phases, clock)
+
+        def block_aji(rids, cids, drids, dcids) -> torch.Tensor:
+            aji = _mask_aji(*block_sn(rids, cids, drids, dcids))
+            clock.lap("AJI mask")
+            return aji
+
+        def aji_of(rids, cids, drids, dcids):
+            """The block's AJI on its way to process 0's writer."""
+            if mesh is None:
+                return downloads.fetch(
+                    lambda: block_aji(rids, cids, drids, dcids))
+            cell = block_aji(rids, cids, drids, dcids)
+            t0 = time.perf_counter()
+            rows = gather_rows(mesh, cell)  # every rank joins
+            _add(phases, "row gather", time.perf_counter() - t0)
+            if not primary:
+                return None
+            return _Download(
+                torch.from_numpy(np.ascontiguousarray(rows[: len(rids)])))
+
+        if primary:
+            writer = threading.Thread(
+                target=_writer, name="pfaai-csv-writer", daemon=True
+            )
             writer.start()
-            c0s = list(range(0, len(col_ids), col_chunk))
-            for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
-                rids = row_ids[r0 : r0 + band]
-                drids = row_denom_ids[r0 : r0 + band]
-                snake = staged_active and bi % 2 == 1
-                for c0 in reversed(c0s) if snake else c0s:
-                    if sym and c0 + col_chunk <= r0:
-                        continue  # below the diagonal: the writer mirrors it
-                    cids = col_ids[c0 : c0 + col_chunk]
-                    dcids = col_denom_ids[c0 : c0 + col_chunk]
-                    download = downloads.fetch(
-                        lambda: block_aji(rids, cids, drids, dcids)
-                    )
+        c0s = list(range(0, len(col_ids), col_chunk))
+        for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
+            rids = row_ids[r0 : r0 + band]
+            drids = row_denom_ids[r0 : r0 + band]
+            snake = staged_active and bi % 2 == 1
+            for c0 in reversed(c0s) if snake else c0s:
+                if sym and c0 + col_chunk <= r0:
+                    continue  # below the diagonal: the writer mirrors it
+                cids = col_ids[c0 : c0 + col_chunk]
+                dcids = col_denom_ids[c0 : c0 + col_chunk]
+                download = aji_of(rids, cids, drids, dcids)
+                if primary:
                     put((r0, rids, (c0, len(cids), download)))
-                    if werr:
-                        break
-                if werr:
+                if werr and not multiproc:
                     break
+            if primary:
                 put((r0, rids, None))  # the band's end mark
-        finally:
-            if writer.is_alive():
-                work_q.put(None)
-                writer.join()
-    downloads.close()
+            # One flag a band (the reference's protocol): every rank makes
+            # this call once per band.
+            if _stop_everywhere(werr, multiproc):
+                break
+    finally:
+        if writer is not None and writer.is_alive():
+            work_q.put(None)
+            writer.join()
+        if fp is not None:
+            fp.close()
+    if downloads is not None:
+        downloads.close()
+        busy["producer wait"] += downloads.wait_s
+        _add(phases, "D2H", downloads.d2h_s)
     clock.close()
-    busy["producer wait"] += downloads.wait_s
-    _add(phases, "D2H", downloads.d2h_s)
-    for key, seconds in busy.items():
-        _add(phases, key, seconds)
+    if primary:
+        for key, seconds in busy.items():
+            _add(phases, key, seconds)
     if werr:
         raise werr[0]

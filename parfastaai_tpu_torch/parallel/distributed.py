@@ -168,6 +168,28 @@ def broadcast_pyobj(obj):
     return pickle.loads(_bcast(buf).numpy().tobytes())
 
 
+def broadcast_bytes(data: np.ndarray | None, shape) -> np.ndarray:
+    """Process 0's uint8 array ``data`` of ``shape`` on every rank (the
+    others pass None), as a host array."""
+    if world_size() <= 1:
+        return data
+    if is_primary():
+        t = torch.from_numpy(np.ascontiguousarray(data, np.uint8))
+    else:
+        t = torch.zeros(tuple(shape), dtype=torch.uint8)
+    return _bcast(t).numpy()
+
+
+def picklable(exc: BaseException) -> BaseException:
+    """``exc`` where it survives pickling (so that ``broadcast_pyobj`` can
+    carry it to every rank), else a RuntimeError that names it."""
+    try:
+        pickle.loads(pickle.dumps(exc))
+        return exc
+    except Exception:  # noqa: BLE001 — any failure to pickle
+        return RuntimeError(f"{type(exc).__name__}: {exc}")
+
+
 def broadcast_presence(presence, error=None, meta_only: bool = False):
     """Single-reader ETL: only process 0 opened the database; its
     PresenceData, or its failure, reaches every rank.

@@ -200,3 +200,79 @@ def gather_rows(mesh: Mesh, x: torch.Tensor) -> np.ndarray:
     per_rank = full.reshape(world, *x.shape)
     cells = per_rank[: mesh.n_rows * mesh.n_scp : mesh.n_scp]
     return cells.reshape(-1, *x.shape[1:])
+
+
+def mesh_key(mesh: Mesh, device: torch.device) -> tuple:
+    """What a mesh is to the caches kept on a presence object: the device,
+    the mesh's shape, the world, this rank and its cell.  Another shape,
+    world, rank or cell holds other shards (a test runs every cell in one
+    process)."""
+    return (str(device), mesh.n_rows, mesh.n_scp, distributed.world_size(),
+            distributed.rank(), mesh.coords)
+
+
+def pad_rows(ids: np.ndarray, n_rows: int) -> np.ndarray:
+    """``ids`` padded with genome 0 to a multiple of ``n_rows``, so that a
+    block's rows split into equal cell bands (the padded rows are computed
+    and dropped)."""
+    return np.pad(ids, (0, -len(ids) % n_rows))
+
+
+def cell_rows(mesh: Mesh, ids: np.ndarray) -> np.ndarray:
+    """This cell's band of a block's rows ``ids`` (a multiple of the mesh's
+    rows); a rank past the mesh takes row 0's shape."""
+    r = mesh.coords[0] if mesh.coords is not None else 0
+    band = len(ids) // mesh.n_rows
+    return ids[r * band : (r + 1) * band]
+
+
+def shard_proteins(idx: np.ndarray, s: int, n_scp: int) -> np.ndarray:
+    """Shard ``s`` of ``n_scp`` of the proteins ``idx``: padded with -1 (an
+    empty protein: its counts are 0, so it adds nothing to S or N) to a
+    multiple of ``n_scp``, then cut into contiguous equal shards, as
+    ``upload_shard`` cuts a (P, ...) tensor."""
+    idx = np.asarray(idx, np.int64)
+    pp = -(-len(idx) // n_scp) * n_scp
+    padded = np.concatenate([idx, np.full(pp - len(idx), -1, np.int64)])
+    p = pp // n_scp
+    return padded[s * p : (s + 1) * p]
+
+
+def protein_layout(chunks, n_scp: int) -> np.ndarray:
+    """(n_scp, rows) int64: the protein of each row of every shard's count
+    block (-1 for padding), chunk after chunk of ``chunks`` (each a protein
+    list), so that process 0 can put every cell's rows in their place."""
+    return np.stack([
+        np.concatenate([shard_proteins(idx, s, n_scp) for idx in chunks]
+                       or [np.zeros(0, np.int64)])
+        for s in range(n_scp)
+    ])
+
+
+def gather_cells(mesh: Mesh, x: torch.Tensor) -> np.ndarray:
+    """Every rank's ``x`` (the same shape and dtype on each) as one
+    (world, ...) host array, on every rank; every rank joins.  The cells
+    travel as their bytes: neither gloo nor NCCL gathers int16."""
+    dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+    full = distributed.gather_to_host(x.contiguous().view(torch.uint8))
+    return full.view(dtype).reshape(distributed.world_size(), *x.shape)
+
+
+def assemble_counts(mesh: Mesh, cells: np.ndarray, layout: np.ndarray,
+                    n_proteins: int, n_rows: int) -> np.ndarray:
+    """The (n_proteins, n_rows, B) count block, proteins in their own order,
+    from the cells' (world, rows_of_layout, band, B) count blocks
+    (``gather_cells``): cell (r, s) holds the proteins ``layout[s]`` of
+    band r.  Rows past ``n_rows`` (the band's padding) are dropped; every
+    protein lies in exactly one shard."""
+    band, b = cells.shape[2], cells.shape[3]
+    out = np.empty((n_proteins, n_rows, b), cells.dtype)
+    for r in range(mesh.n_rows):
+        lo, hi = r * band, min((r + 1) * band, n_rows)
+        if lo >= hi:
+            break
+        for s in range(mesh.n_scp):
+            valid = layout[s] >= 0
+            out[layout[s][valid], lo:hi] = (
+                cells[r * mesh.n_scp + s][valid, : hi - lo])
+    return out

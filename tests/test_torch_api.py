@@ -6,8 +6,9 @@ banded exact engine byte-equal and with the f32 streamed engine to its
 stated tolerance (the same header and row names as bytes, the text ``0``
 in the same cells, values within rtol 1e-6), ``staged`` and
 PARFASTAAI_STAGED against the JAX package's staged runs, the same error
-codes, and CONSTRUCT_ERROR for a mesh under the streamed engines, which
-this package does not run yet."""
+codes, and the streamed engines on a mesh of one device byte-identical
+to the JAX API's (tests/test_torch_mesh_streamed.py holds the mesh
+engines' cells)."""
 
 import os
 import sqlite3
@@ -194,24 +195,30 @@ def test_missing_database_code_matches_jax(tmp_path):
 
 
 # engine="sharded" and a mesh under exact / fast run since the mesh was
-# ported (tests/test_torch_mesh.py::test_api_sharded_matches_jax)
-UNPORTED = {
-    "streamed_mesh": ("aji_to_csv", dict(engine="streamed", mesh=(2, 1))),
-    "streamed_exact_mesh": (
-        "aji_to_csv", dict(engine="streamed-exact", mesh=(2, 1))),
+# ported (tests/test_torch_mesh.py::test_api_sharded_matches_jax); a mesh
+# under the streamed engines since its second slice (a staged one and a
+# mesh larger than the process group: tests/test_torch_mesh_streamed.py)
+STREAMED_MESH = {
+    "streamed_mesh": dict(engine="streamed", mesh=(1, 1)),
+    "streamed_exact_mesh": dict(engine="streamed-exact", mesh=(1, 1)),
 }
 
 
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_engines_raise_construct_error(case, dbs, tmp_path):
-    fn, kw = UNPORTED[case]
-    out = tmp_path / "x.csv"
-    args = (str(out), dbs["target"]) if fn == "aji_to_csv" else (dbs["target"],)
-    with pytest.raises(PFAAIError) as e:
-        getattr(api, fn)(*args, device="cpu", **kw)
-    assert e.value.code == ErrorCode.CONSTRUCT_ERROR
-    assert "does not run this yet" in str(e.value)
-    assert not out.exists()
+@pytest.mark.parametrize("case", sorted(STREAMED_MESH))
+def test_streamed_mesh_of_one_device_matches_jax(case, dbs, tmp_path,
+                                                 monkeypatch):
+    """``aji_to_csv`` with a streamed engine on a (1, 1) mesh in one
+    process: the JAX API's bytes at the same mesh (its device leg) and the
+    port's bytes without the mesh."""
+    kw = STREAMED_MESH[case]
+    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    paths = {k: tmp_path / f"{k}.csv" for k in ("jax", "port", "one")}
+    jax_api.aji_to_csv(str(paths["jax"]), dbs["target"], **kw)
+    api.aji_to_csv(str(paths["port"]), dbs["target"], device="cpu", **kw)
+    api.aji_to_csv(str(paths["one"]), dbs["target"], device="cpu",
+                   engine=kw["engine"])
+    got = paths["port"].read_bytes()
+    assert got == paths["jax"].read_bytes() == paths["one"].read_bytes()
 
 
 def _both(fn, engine, dbs, tmp_path, **kw):

@@ -5,9 +5,12 @@ PARFASTAAI_EXACT_HOST_BYTES, and ``--streamed --exact`` with ``--resume``),
 ``--fast`` within 1e-6, ``--streamed`` (the f32 streamed engine) to its
 stated tolerance, ``--staged`` and PARFASTAAI_STAGED against the JAX
 CLI's staged runs, ``--profile`` on every route, ``--mesh`` of one
-device byte-identical to the JAX CLI's (the multi-process meshes are in
-test_torch_multiproc.py), the same error codes, exit code 3 for every flag
-the port does not run yet, and no jax in a port run."""
+device byte-identical to the JAX CLI's, the streamed engines on it too
+(the multi-process meshes are in test_torch_multiproc.py and
+test_torch_multiproc_streamed.py), the same error codes, exit code 3 for
+the flag combinations the JAX CLI refuses, for a mesh larger than the
+process group and for ``--streamed --approx`` off the card, and no jax in
+a port run."""
 
 import json
 import os
@@ -180,15 +183,20 @@ def test_uncovered_flags_exit_3(flags, dbs, tmp_path, capsys):
      ["--streamed", "--staged", "--mesh", "1,1"]],
     ids=["streamed", "streamed_exact", "streamed_staged"],
 )
-def test_streamed_mesh_names_what_is_missing(flags, dbs, tmp_path, capsys):
-    """The streamed engines' mesh branches are not ported: exit 3 without
-    a CSV, even on a mesh of one device, and the message says so."""
-    out = tmp_path / "x.csv"
-    assert run([dbs["target"], str(out), "--quiet", "--device", "cpu",
-                *flags]) == 3
-    assert not out.exists()
-    err = capsys.readouterr().err
-    assert "CONSTRUCT_ERROR" in err and "second slice" in err
+def test_streamed_one_process_mesh_matches_jax(flags, dbs, tmp_path,
+                                                monkeypatch):
+    """The streamed engines on a mesh of one device, in one process: the
+    JAX CLI's bytes at the same mesh (its device leg, as in the staged
+    tests below) and the port's bytes without the mesh."""
+    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
+    want, got, plain = (tmp_path / f"{k}.csv" for k in ("jax", "port", "one"))
+    assert jax_run([dbs["target"], str(want), "--quiet", *flags]) == 0
+    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu",
+                *flags]) == 0
+    at = flags.index("--mesh")
+    assert run([dbs["target"], str(plain), "--quiet", "--device", "cpu",
+                *flags[:at], *flags[at + 2:]]) == 0
+    assert got.read_bytes() == want.read_bytes() == plain.read_bytes()
 
 
 def _staged_cli_runs(argv, dbs, tmp_path, capfd) -> tuple[bytes, bytes, str]:

@@ -906,3 +906,50 @@ def test_compute_sharded_on_cuda_matches_cpu(cuda, synth_db, tmp_path, mode):
         for p in (on_cpu, on_cuda)
     )
     np.testing.assert_allclose(b, a, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,scp", [(1, 1), (2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("staged", [False, True], ids=["resident", "staged"])
+def test_mesh_rank_blocks_on_cuda(cuda, monkeypatch, rows, scp, staged):
+    """Every cell of the streamed engines' mesh, run in turn on the card
+    (``_mesh_block_engine`` resident, ``_staged_mesh_block_engine`` on
+    slabs of two proteins), two width buckets, a ragged band: under the
+    IEEE divide each cell's (S, N) is bit-equal to the same cell on the
+    CPU (the kernel's plain version), with one sn_rect launch per bucket
+    or chunk; each cell of the count engines equals the CPU's."""
+    from parfastaai_tpu_torch import engine
+    from parfastaai_tpu_torch.parallel.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    if staged:
+        monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(2 * 150 * 384))
+    block = (engine._staged_mesh_block_engine if staged
+             else engine._mesh_block_engine)
+    counts = (engine._staged_mesh_count_engine if staged
+              else engine._mesh_count_engine)
+    on_cpu, on_cuda = _bucketed_presence()[1], _bucketed_presence()[1]
+    rids = np.arange(3, 140, 2)  # 69 rows, padded to the mesh's rows
+    cids = np.arange(150)[::-1].copy()
+    plan = engine._bucket_plan(on_cuda)
+    for r in range(rows):
+        for sh in range(scp):
+            cell = Mesh(rows, scp, (r, sh), None)
+            want = block(on_cpu, cell, False, True, cpu)(rids, cids, rids,
+                                                         cids)
+            before = sn_rect.LAUNCHES
+            got = block(on_cuda, cell, False, True, cuda)(rids, cids, rids,
+                                                          cids)
+            torch.cuda.synchronize()
+            launches = (len(list(engine._split_plan(
+                plan, 150, cuda,
+                engine._mesh_slab_store(on_cuda, cell, cuda).target)))
+                if staged else len(plan))
+            assert sn_rect.LAUNCHES - before == launches
+            assert got[0].device.type == "cuda"
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            c_cpu, layout_cpu = counts(on_cpu, cell, cpu)(rids, cids)
+            c_cuda, layout = counts(on_cuda, cell, cuda)(rids, cids)
+            np.testing.assert_array_equal(layout, layout_cpu)
+            assert torch.equal(c_cuda.cpu(), c_cpu)

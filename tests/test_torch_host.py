@@ -406,7 +406,8 @@ db, out = sys.argv[1:3]
 for engine in ("exact", "fast", "sharded", "streamed", "streamed-exact"):
     api.aji_to_csv(out, db, engine=engine, device="cpu")
 for flags in (["--streamed", "--profile", out + ".trace"], [], ["--fast"],
-              ["--mesh", "1"]):
+              ["--mesh", "1"], ["--streamed", "--mesh", "1"],
+              ["--streamed", "--exact", "--mesh", "1"]):
     rc = run([db, out, "--quiet", "--device", "cpu", *flags])
     assert rc == 0, rc
 bad = sorted(m for m in sys.modules
@@ -418,8 +419,9 @@ print("clean", len(open(out).read().splitlines()))
 
 def test_fresh_process_loads_no_jax_package(dbs, tmp_path):
     """A new interpreter that imports the port's entry modules and runs its
-    library API (every engine) and its CLI on the CPU (the mesh too) loads
-    no ``jax*`` module and nothing of ``parfastaai_tpu``."""
+    library API (every engine) and its CLI on the CPU (the mesh too, with
+    the streamed engines) loads no ``jax*`` module and nothing of
+    ``parfastaai_tpu``."""
     target, _ = dbs
     out = tmp_path / "aji.csv"
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")

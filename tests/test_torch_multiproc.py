@@ -10,13 +10,16 @@ PARFASTAAI_NUM_PROCESSES / PARFASTAAI_PROCESS_ID.
   paths of their own: they never open the database (metadata, queries and
   presence arrive by broadcast) and write nothing.
 * A failure on process 0 (a missing or corrupt database) gives every rank
-  the same exit code; a multi-process ``--streamed`` run and a default
-  call routed to the banded exact engine exit 3 on every rank without a
-  CSV.
+  the same exit code.
+* A multi-process ``--streamed`` run without a mesh (``--exact`` too, and
+  a default call routed to the banded exact engine) computes on process 0
+  alone; the streamed engines' meshes are in
+  test_torch_multiproc_streamed.py.
 
 Every wait has a timeout of TIMEOUT seconds."""
 
 import os
+import re
 import socket
 import sqlite3
 import subprocess
@@ -26,6 +29,7 @@ import pytest
 
 from parfastaai_tpu.cli import run as jax_run
 from parfastaai_tpu.tools.synth_db import generate
+from parfastaai_tpu_torch.cli import run
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
@@ -93,6 +97,13 @@ def _launch(argv_of, n: int, env: dict | None = None):
                 p.communicate(timeout=TIMEOUT)
 
 
+def _said(stderr: str) -> list[str]:
+    """What a rank wrote to stderr, less torch.distributed's own log
+    lines (``[W... socket.cpp:...] [c10d] ...``)."""
+    return [ln for ln in stderr.splitlines()
+            if not re.match(r"\[[WI]\d+ .*\] \[c10d\]", ln)]
+
+
 def _mode_args(mode, dbs):
     return {"all": [], "qt": ["-r", dbs["query"]],
             "qsub": ["-q", dbs["qfile"]]}[mode]
@@ -156,15 +167,26 @@ def test_primary_db_error_reaches_every_rank(corrupt, dbs, tmp_path):
      ([], {"PARFASTAAI_EXACT_HOST_BYTES": "1"})],
     ids=["streamed", "streamed_exact", "banded_auto"],
 )
-def test_multiprocess_streamed_engines_exit_3(flags, env, dbs, tmp_path):
-    """The streamed and banded exact engines' multi-process branches are
-    not ported: every rank exits 3, names them, and writes no CSV."""
+def test_multiprocess_streamed_engines_run_on_process_0(flags, env, dbs,
+                                                        tmp_path):
+    """The streamed and banded exact engines without a mesh on two
+    processes (the default call routed to the banded exact engine too):
+    process 0 computes alone with a WARNING and writes the one-process
+    bytes (the exact ones: the JAX CLI's); the other rank returns at once,
+    prints nothing and writes nothing.  Their meshes are in
+    test_torch_multiproc_streamed.py."""
     outs = [tmp_path / f"rank{i}.csv" for i in range(2)]
     ran = _launch(lambda r: [dbs["target"], str(outs[r]), *flags], 2, env)
-    assert [r[0] for r in ran] == [3, 3]
-    assert all("CONSTRUCT_ERROR" in r[2] and "second slice" in r[2]
-               for r in ran)
-    assert not any(p.exists() for p in outs)
+    assert [r[0] for r in ran] == [0, 0], [r[2] for r in ran]
+    assert "WARNING" in ran[0][2] and not ran[1][1] and not _said(ran[1][2])
+    assert not outs[1].exists()
+    want = tmp_path / "one.csv"
+    if flags == ["--streamed"]:
+        assert run([dbs["target"], str(want), "--quiet", "--device", "cpu",
+                    *flags]) == 0
+    else:
+        assert jax_run([dbs["target"], str(want), "--quiet", *flags]) == 0
+    assert outs[0].read_bytes() == want.read_bytes()
 
 
 def test_multiprocess_default_call_writes_once(dbs, tmp_path):
