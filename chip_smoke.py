@@ -138,6 +138,16 @@ Run from the repository root:
    CSV's), the protein splits' first rows are within 1e-6 of exact f64.
    Rank 0's phases and each leg's wall from launch to the last exit are
    printed.
+5b. Runs the bench's e2e mode (``PARFASTAAI_BENCH_MODE=e2e python -m
+   parfastaai_tpu_torch.bench``) on the database of step 2: in this
+   process with every leg and PARFASTAAI_BENCH_EXACT_MESH=1,1, launch
+   counters reset just before and read just after (sn_rect on the fused
+   and streamed legs, no kernel on the exact ones), then in two processes
+   with EXACT_MESH=2,1 (process 0 alone prints).  Each run's JSON line
+   must parse; its exact and mesh CSVs must be the default call's bytes,
+   its fused and streamed ones those of (or within RTOL_E2E_AJI of) the
+   --fast and --streamed calls'; the line and each leg's split, launches
+   and genome pairs per second are printed.
 6. Runs ``python -m parfastaai_tpu_torch.bench`` in process in kernel mode
    (the whole-matrix fused AJI path, launch counters reset just before and
    read just after), once with the default update, which must launch
@@ -148,11 +158,13 @@ Run from the repository root:
    against exact f64; and calls ``fused_aji`` with ``packed=True`` on the
    same workload (launch counters reset just before and read just after:
    sn_square_wgmma once, no other kernel), against the default plan's
-   result.
+   result.  Then ``ops.intersection_counts`` and ``ops.pair_counts`` on
+   the card at a small size, equal to ``int_gram`` and to exact counts.
 7. Prints the card's name and power limit, one JSON line of kernel results
    and, last, ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --mesh-only`` runs steps 2, 2a and 5a alone (for
+``python3 chip_smoke.py --mesh-only`` runs steps 2, 2a, 5a and 5b's
+two-process launch alone (for
 a machine with several GPUs, whose legs then run on NCCL, four processes
 too with four GPUs or more, and the bench's mesh mode in one process per
 GPU; step 5a's references, ``--streamed`` and the default call, run in
@@ -1860,6 +1872,145 @@ def streamed_mesh_phase(want_band: np.ndarray, keep_dir: str) -> dict:
     return report
 
 
+# The bench's e2e mode on the E2E database: every leg (the fused, streamed
+# and exact legs), the exact one also over a mesh.
+BENCH_E2E_ENV = {"PARFASTAAI_BENCH_MODE": "e2e", "PARFASTAAI_BENCH_EXACT": "1"}
+# The e2e legs whose engine launches sn_rect; the exact legs launch none.
+BENCH_E2E_RECT_LEGS = ("fused", "streamed")
+# Each leg's CSV suffix and the resident CSV of steps 2-4 it is held
+# against (exact legs: the same bytes; f32 legs: csv_agreement).
+BENCH_E2E_CSVS = {"fused": ("", "fast.csv"),
+                  "streamed": ("_streamed", "streamed.csv"),
+                  "exact": ("_exact", "default.csv"),
+                  "exact_mesh": ("_exact_mesh", "default.csv")}
+
+
+def bench_e2e_check(what: str, text: str, out_dir: str, keep_dir: str):
+    """The e2e JSON line (the last of ``text``) parsed, each leg's split
+    and launches printed, its CSVs held against the resident CSVs in
+    ``keep_dir``; fails unless sn_rect launched on the fused and streamed
+    legs and on no exact leg.  Returns the parsed line."""
+    import filecmp
+
+    try:
+        result = json.loads(text.splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"{what}: no JSON line in {text[-2000:]!r}")
+    print(f"{what} JSON: {json.dumps(result)}")
+    legs = result["legs"]
+    if set(legs) != set(BENCH_E2E_CSVS):
+        fail(f"{what}: legs {sorted(legs)}")
+    if result["phases"].get("banded_exact_mesh_bytes_identical") is not True:
+        fail(f"{what}: the mesh leg's CSV was not found identical")
+    G = E2E["n_genomes"]
+    for leg, entry in legs.items():
+        rect = entry["kernel_launches"]["sn_rect"]
+        if (rect > 0) != (leg in BENCH_E2E_RECT_LEGS) or (
+                entry["kernel_launches"]["sn_square_wgmma"]):
+            fail(f"{what}: leg {leg} launched {entry['kernel_launches']}")
+        suffix, ref = BENCH_E2E_CSVS[leg]
+        got = os.path.join(out_dir, f"pfaai_bench_e2e_{G}{suffix}.csv")
+        want = os.path.join(keep_dir, ref)
+        if leg.startswith("exact"):
+            if not filecmp.cmp(got, want, shallow=False):
+                fail(f"{what}: the {leg} leg's CSV is not {ref}'s bytes")
+            held = f"{ref}'s bytes"
+        else:
+            held = f"vs {ref}: " + csv_agreement(got, want, exact=False)
+        print(
+            f"  {leg}: {entry['seconds']:.3f} s, wall {entry['wall_seconds']:.3f}"
+            f" s, {entry['pairs_per_sec']:.4e} genome pairs/s over the leg, "
+            f"{entry['pairs_per_sec_wall']:.4e} over the wall; launches "
+            f"{entry['kernel_launches']}; {held}; split ms: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in entry["split_ms"].items()))
+    return result
+
+
+def bench_e2e_phase(keep_dir: str) -> dict:
+    """``python -m parfastaai_tpu_torch.bench`` in e2e mode, in this
+    process, on the E2E database with every leg and the (1, 1) mesh,
+    launch counters reset just before and read just after: sn_rect on the
+    fused and streamed legs (their sum), no other kernel; the exact and
+    mesh CSVs are the default call's bytes, the fused and streamed ones
+    the --fast and --streamed calls'.  Returns the launches per leg."""
+    from parfastaai_tpu_torch import bench
+
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_bench_e2e_")
+    env = {**BENCH_E2E_ENV, "PARFASTAAI_BENCH_EXACT_MESH": "1,1",
+           "PARFASTAAI_BENCH_DB": synth_db(), "PARFASTAAI_BENCH_OUT": out_dir,
+           "PARFASTAAI_BENCH_G": str(E2E["n_genomes"])}
+    lines: list[str] = []
+    try:
+        reset_launches()
+        with captured_stdout(lines):
+            bench.main(env)
+        ran = read_launches()
+        result = bench_e2e_check("bench e2e (1,1)", "\n".join(lines),
+                                 out_dir, keep_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    legs = {leg: e["kernel_launches"]["sn_rect"]
+            for leg, e in result["legs"].items()}
+    if ran["sn_square_wgmma"] or ran["sn_rect"] != sum(legs.values()):
+        fail(f"bench e2e: launches {ran}, legs {legs}")
+    return legs
+
+
+def bench_e2e_ranks(keep_dir: str) -> dict:
+    """The bench's e2e mode with PARFASTAAI_BENCH_EXACT_MESH=2,1 in two
+    processes (NCCL with two cards or more, else gloo with both ranks on
+    cuda:0): process 0 runs the ETL and the direct legs, broadcasts the
+    presence, both ranks join the mesh leg; only process 0 prints, and
+    its CSVs are held as in ``bench_e2e_phase``.  Returns rank 0's sn_rect
+    launches per leg and the wall from launch to the last exit."""
+    out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_bench_e2e_ranks_")
+    env = {**BENCH_E2E_ENV, "PARFASTAAI_BENCH_EXACT_MESH": "2,1",
+           "PARFASTAAI_BENCH_DB": synth_db(), "PARFASTAAI_BENCH_OUT": out_dir,
+           "PARFASTAAI_BENCH_G": str(E2E["n_genomes"])}
+    what = "bench e2e EXACT_MESH=2,1 (two processes)"
+    try:
+        done, wall = launch_ranks(
+            what, [sys.executable, "-m", "parfastaai_tpu_torch.bench"], 2, env)
+        if done[1][0].strip():
+            fail(f"{what}: rank 1 printed {done[1][0][:500]!r}")
+        result = bench_e2e_check(what, done[0][0], out_dir, keep_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"{what}: wall {wall:.3f} s from launch to the last exit, presence "
+          f"broadcast {result['phases']['presence_broadcast'] * 1e3:.1f} ms")
+    return {"launches": {leg: e["kernel_launches"]["sn_rect"]
+                         for leg, e in result["legs"].items()},
+            "wall_s": wall}
+
+
+def count_ops_phase(dev) -> None:
+    """``ops.intersection_counts`` and ``ops.pair_counts`` on their
+    default device, the card, at a small size: equal to ``int_gram`` of
+    each protein on the card and to exact counts on the host (numpy)."""
+    import torch
+
+    from parfastaai_tpu_torch.ops import intersection_counts, pair_counts
+    from parfastaai_tpu_torch.ops.fused import int_gram
+
+    P, G, K = 3, 300, 256
+    gen = np.random.default_rng(SEED)
+    m = (gen.random((P, G, K)) < 0.3).astype(np.uint8)
+    md = torch.from_numpy(m).to(dev).view(torch.int8)
+    ref = np.stack([int_gram(md[p], md[p]).cpu().numpy() for p in range(P)])
+    host = np.stack([np.rint(m[p].astype(np.float32) @ m[p].T.astype(
+        np.float32)).astype(np.int32) for p in range(P)])
+    got = intersection_counts(m)
+    if not (np.array_equal(got, ref) and np.array_equal(got, host)):
+        fail("intersection_counts differs from int_gram / exact counts")
+    a, b = np.triu_indices(G, k=1)
+    pairs = pair_counts(m, a, b)
+    if not np.array_equal(pairs, host[:, a, b]):
+        fail("pair_counts differs from exact counts")
+    print(f"count ops on the card: intersection_counts ({P}, {G}, {G}) and "
+          f"pair_counts of {len(a)} pairs (tile 128) equal int_gram and exact "
+          "counts ok")
+
+
 def record_presence():
     """Leg B's presence, made with numpy from SEED: LEG_B's P proteins, G
     genomes and K columns of compacted tetramers, LEG_B['tetras'] draws
@@ -2121,6 +2272,7 @@ def main() -> None:
             mesh = mesh_phase(dev, band, keep_dir)
             resident_references(keep_dir)
             mesh["streamed"] = streamed_mesh_phase(band, keep_dir)
+            mesh["bench_e2e_ranks"] = bench_e2e_ranks(keep_dir)
         finally:
             shutil.rmtree(keep_dir, ignore_errors=True)
         print(card_line())
@@ -2142,10 +2294,13 @@ def main() -> None:
         exact_phase(e2e["band"], keep_dir)
         staged_launches = staged_cli_leg(keep_dir)
         streamed_mesh = streamed_mesh_phase(e2e["band"], keep_dir)
+        bench_e2e = bench_e2e_phase(keep_dir)
+        bench_e2e_two = bench_e2e_ranks(keep_dir)
     finally:
         shutil.rmtree(keep_dir, ignore_errors=True)
     record = staged_record_leg(dev)
     whole, whole_variants, packed_launches = bench_phase(dev)
+    count_ops_phase(dev)
     # every entry module of the port is loaded by now, the library API too
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
@@ -2172,6 +2327,10 @@ def main() -> None:
                     # (--streamed [--exact] [--staged] --mesh, processes)
                     "launches_streamed_mesh": {
                         leg: r["launches"] for leg, r in streamed_mesh.items()},
+                    # per leg of the bench's e2e mode in this process, and
+                    # rank 0's of its two-process EXACT_MESH=2,1 launch
+                    "launches_bench_e2e": bench_e2e,
+                    "launches_bench_e2e_ranks": bench_e2e_two["launches"],
                     "mesh_gpus": mesh["gpus"],
                     "mesh_backend": mesh["backend"],
                     # leg B's chunk shape (P, A, B, K), the kb kernel shape

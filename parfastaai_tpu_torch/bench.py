@@ -35,7 +35,7 @@ timed run; 16, kb 4), PARFASTAAI_BENCH_REPS (5, kb 3),
 PARFASTAAI_BENCH_APPROX / PARFASTAAI_BENCH_PRECISE (the kernel's divide),
 PARFASTAAI_BENCH_VARIANT (the two-proteins-per-step update: lean, base,
 pipe, f32gram, fused, mxu_outer, counts; a variant other than lean is named
-in ``metric``), PARFASTAAI_BENCH_MODE (kb, mesh; e2e is not ported yet),
+in ``metric``), PARFASTAAI_BENCH_MODE (kb, mesh, e2e),
 PARFASTAAI_BENCH_KB_P/A/B/K, and PARFASTAAI_BENCH_DEVICE (cuda, the
 default, or cpu for the plain versions, timed on the host clock).  Without
 CUDA the default device exits non-zero.
@@ -46,12 +46,24 @@ PARFASTAAI_PROCESS_ID or torchrun, one process per GPU) and sweeps the
 mesh shapes over the process group; one process gives the (1, 1) mesh and
 the direct leg.  bench.py's tile and K-block knobs
 tune the TPU's tiling and have no counterpart.
+
+E2E mode (``e2e_bench``, bench.py's ``main_e2e``): the whole pipeline,
+SQLite -> ETL -> device -> CSV, through the engines a CLI call runs, on
+a synthetic database; see ``e2e_bench`` for its legs, knobs and keys:
+
+    PARFASTAAI_BENCH_MODE=e2e python -m parfastaai_tpu_torch.bench
+    PARFASTAAI_BENCH_MODE=e2e PARFASTAAI_BENCH_EXACT=1 \
+        PARFASTAAI_BENCH_EXACT_MESH=1,1 python -m parfastaai_tpu_torch.bench
 """
 
 from __future__ import annotations
 
+import filecmp
 import json
 import os
+import shutil
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -334,19 +346,331 @@ def mesh_bench(device: torch.device, env) -> dict | None:
     }
 
 
+# The e2e database: bench.py's synth_db.generate arguments at G genomes.
+E2E_DB = dict(n_proteins=80, pool_size=1200, tetras_per_genome=400, seed=0)
+
+
+def bench_db(env, g: int) -> str:
+    """The e2e database: PARFASTAAI_BENCH_DB, else pfaai_bench_synth{g}.db
+    in the temporary directory (``tempfile.gettempdir()``: /tmp unless
+    TMPDIR names another, the JAX bench's file).  A missing file is
+    generated once with ``tools.synth_db.generate`` at ``E2E_DB``, into a
+    temporary name in the same directory and then renamed, so an
+    interrupted generation leaves no file that a later run would read; its
+    time goes to stderr, outside every wall."""
+    path = env.get("PARFASTAAI_BENCH_DB") or os.path.join(
+        tempfile.gettempdir(), f"pfaai_bench_synth{g}.db")
+    if not os.path.exists(path):
+        from .tools.synth_db import generate
+
+        t0 = time.perf_counter()
+        tmp = f"{path}.tmp{os.getpid()}"
+        try:
+            generate(tmp, n_genomes=g, **E2E_DB)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        print(f"# generated {path} in {time.perf_counter() - t0:.1f}s "
+              "(one-time, not part of the e2e wall)", file=sys.stderr)
+    return path
+
+
+def streamed_download_bytes(g: int, band: int = 1024,
+                            col_chunk: int = 4096) -> int:
+    """Bytes ``engine.compute_streamed`` copies to the host on an
+    all-vs-all of ``g`` genomes at its default band and chunk: one f32 AJI
+    block per band x col_chunk block, the chunks wholly below the diagonal
+    skipped where the mirror engages (its store of g * g * 4 bytes within
+    PARFASTAAI_MIRROR_BYTES)."""
+    from .engine import mirror_budget
+
+    band, col_chunk = max(1, min(band, g)), max(1, min(col_chunk, g))
+    sym = g * g * 4 <= mirror_budget()
+    return sum(
+        4 * min(band, g - r0) * min(col_chunk, g - c0)
+        for r0 in range(0, g, band) for c0 in range(0, g, col_chunk)
+        if not (sym and c0 + col_chunk <= r0))
+
+
+def exact_download_bytes(p: int, g: int, count_bytes: int, band: int = 512,
+                         col_chunk: int = 2048) -> int:
+    """Bytes ``engine.compute_streamed_exact`` copies to the host on an
+    all-vs-all of ``g`` genomes and ``p`` proteins at its default band and
+    chunk: one block of P counts of ``count_bytes`` each (int16 where
+    max(T) < 2^15) per block, square blocks of the band where the mirror
+    engages (its peak store within PARFASTAAI_MIRROR_BYTES) and then only
+    the blocks on and above the diagonal."""
+    from .engine import mirror_budget
+
+    band, col_chunk = max(1, min(band, g)), max(1, min(col_chunk, g))
+    n_ch = -(-g // band)
+    sym = ((n_ch * n_ch) // 4 + 1) * band * band * 8 <= mirror_budget()
+    if sym:
+        col_chunk = band
+    return sum(
+        p * count_bytes * min(band, g - r0) * min(col_chunk, g - c0)
+        for bi, r0 in enumerate(range(0, g, band))
+        for ci, c0 in enumerate(range(0, g, col_chunk))
+        if not (sym and ci < bi))
+
+
+def _launch_counts() -> dict:
+    return {"sn_rect": sn_rect.LAUNCHES,
+            "sn_square_wgmma": sn_square.WGMMA_LAUNCHES}
+
+
+def _exact_mesh(spec: str) -> tuple[int, int]:
+    """PARFASTAAI_BENCH_EXACT_MESH by the CLI's ``--mesh`` rule, on a
+    launch with a process per mesh device; exits otherwise."""
+    from .parallel import distributed
+    from .parallel.mesh import parse_mesh
+
+    try:
+        rows, scp = parse_mesh(spec)
+    except ValueError as e:
+        raise SystemExit(f"PARFASTAAI_BENCH_EXACT_MESH {e}") from None
+    world = distributed.world_size()
+    if rows * scp > world:
+        raise SystemExit(
+            f"PARFASTAAI_BENCH_EXACT_MESH={spec}: Need {rows * scp} devices, "
+            f"have {world} (one process per mesh device)")
+    return rows, scp
+
+
+def e2e_bench(device: torch.device, env) -> dict | None:
+    """E2E mode: the pipeline wall, SQLite -> ETL -> device -> CSV, through
+    the engines of the CLI's calls (bench.py's ``main_e2e``), on
+    ``bench_db``'s all-vs-all.
+
+    Legs, each timed on the host clock around its call(s), their seconds
+    under the reference's ``phases`` keys:
+
+    * ``db_open`` (``SCPDatabase``), ``etl`` (``load_presence``);
+    * ``fused_aji``, ``csv``: ``engine.compute_fast`` (``--fast``; the
+      all-vs-all PairSpace is built inside the leg) and
+      ``write_aji_csv``; left out under PARFASTAAI_BENCH_STREAMED_ONLY;
+    * ``streamed_aji_csv``: ``engine.compute_streamed`` (``--streamed``);
+    * ``banded_exact_csv``: ``engine.compute_streamed_exact`` (the default
+      call at G=4096, ``--streamed --exact``), under
+      PARFASTAAI_BENCH_EXACT or PARFASTAAI_BENCH_EXACT_MESH;
+    * ``banded_exact_mesh_csv``: the same engine over
+      ``make_mesh(rows, scp)`` from PARFASTAAI_BENCH_EXACT_MESH (ROWS or
+      ROWS,SCP, the CLI's ``--mesh`` rule); process 0 then compares its
+      CSV with the exact leg's in chunks (``filecmp``), raises on a
+      difference and sets ``banded_exact_mesh_bytes_identical``.
+
+    The fused and streamed legs run ``csrc/sn_rect.cu`` on a card, the
+    exact legs the library int8 Gram.  ``legs`` gives each leg the
+    engine's own split in ms (its ``phases``: host bucketize, H2D, gather,
+    kernel, D2H, host assembly, pair gather, host finish, CSV write,
+    producer / writer / worker wait, whichever it fills; the banded
+    engines' stages overlap), ``seconds``, ``wall_seconds`` (db open + ETL
+    + the leg), genome pairs per second over both, and the hand-written
+    kernels it launched.  ``value`` is the fused leg's wall (the streamed
+    leg's under STREAMED_ONLY) and ``vs_baseline`` the reference binary's
+    extrapolated seconds (``BASELINE_PAIRS_PER_SEC``) over it.  Every
+    number is unrounded (bench.py rounds to 0.01 s).
+
+    ``wire_bytes`` counts what the port moves, where bench.py's formula
+    (:746-750) counts a bit-packed upload and G^2/2 cells each way:
+    ``upload_presence_bytes`` is ``engine.presence_device_bytes`` (the
+    int8 width buckets, uploaded unpacked), ``streamed_download_bytes`` and
+    ``exact_download_bytes`` the blocks the two engines copy to the host
+    (``streamed_download_bytes``, ``exact_download_bytes``), the diagonal
+    blocks whole and the mirrored ones skipped.
+
+    CSVs go to PARFASTAAI_BENCH_OUT (kept) if set, else to a fresh
+    temporary directory removed at the end unless PARFASTAAI_BENCH_KEEP
+    is set, as pfaai_bench_e2e_{G}.csv, ..._streamed.csv, ..._exact.csv
+    and ..._exact_mesh.csv.  No environment variable is set (bench.py
+    sets PARFASTAAI_FORCE_DEVICE against a host dispatch the port does
+    not have).
+
+    A launch of several processes (PARFASTAAI_COORDINATOR or torchrun,
+    one per GPU): process 0 alone opens the database and runs the ETL and
+    the direct legs, then sends the presence to every rank
+    (``distributed.broadcast_presence``, its failure in the same place);
+    every rank joins the mesh leg, and only process 0 writes and returns
+    the result (the others: None).  A mesh larger than the launch exits
+    with the CLI's "Need n devices" text; without a mesh leg the other
+    ranks return at once."""
+    from .engine import (compute_fast, compute_streamed,
+                         compute_streamed_exact, presence_device_bytes)
+    from .etl.database import SCPDatabase
+    from .io.csv_writer import write_aji_csv
+    from .modes import all_vs_all, all_vs_all_axes
+    from .parallel import distributed
+    from .parallel.mesh import make_mesh
+
+    g = int(env.get("PARFASTAAI_BENCH_G", "4096"))
+    streamed_only = bool(env.get("PARFASTAAI_BENCH_STREAMED_ONLY"))
+    mesh_spec = env.get("PARFASTAAI_BENCH_EXACT_MESH", "")
+    exact = bool(env.get("PARFASTAAI_BENCH_EXACT") or mesh_spec)
+    mesh_shape = _exact_mesh(mesh_spec) if mesh_spec else None
+    primary = distributed.is_primary()
+    if not primary and mesh_shape is None:
+        return None
+
+    phases: dict = {}
+    legs: dict = {}
+    out_dir = None
+    owns_dir = False
+    presence = err = None
+    n_pairs = setup = 0
+
+    def run_leg(leg: str, key: str | None, fn, path: str) -> None:
+        """``fn(path, split)`` timed as leg ``leg`` (its seconds also under
+        ``phases[key]`` where given)."""
+        split: dict[str, float] = {}
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        fn(path, split)
+        seconds = time.perf_counter() - t0
+        if key:
+            phases[key] = seconds
+        if primary:
+            legs[leg] = {
+                "seconds": seconds,
+                "wall_seconds": setup + seconds,
+                "pairs_per_sec": n_pairs / seconds,
+                "pairs_per_sec_wall": n_pairs / (setup + seconds),
+                "split_ms": {k: v * 1e3 for k, v in split.items()},
+                "kernel_launches": {k: n - before[k]
+                                    for k, n in _launch_counts().items()},
+            }
+
+    try:
+        if primary:
+            try:
+                path = bench_db(env, g)
+                out_dir = env.get("PARFASTAAI_BENCH_OUT")
+                if out_dir:
+                    os.makedirs(out_dir, exist_ok=True)
+                else:
+                    out_dir = tempfile.mkdtemp(prefix="pfaai_bench_e2e_")
+                    owns_dir = not env.get("PARFASTAAI_BENCH_KEEP")
+                t0 = time.perf_counter()
+                db = SCPDatabase(path)
+                phases["db_open"] = time.perf_counter() - t0
+                try:
+                    t0 = time.perf_counter()
+                    presence = db.load_presence()
+                    phases["etl"] = time.perf_counter() - t0
+                finally:
+                    db.close()
+                P, G, _ = presence.m.shape
+                n_pairs = G * (G - 1) // 2
+                setup = phases["db_open"] + phases["etl"]
+                axes = all_vs_all_axes(presence.meta)
+                csv = os.path.join(out_dir, f"pfaai_bench_e2e_{G}.csv")
+
+                def stem(suffix: str) -> str:
+                    return csv[: -len(".csv")] + suffix + ".csv"
+
+                if not streamed_only:
+                    def fused(out, split):
+                        t0 = time.perf_counter()
+                        pairs = all_vs_all(presence.meta)
+                        split["pair space"] = time.perf_counter() - t0
+                        result = compute_fast(presence, pairs, device,
+                                              phases=split)
+                        t1 = time.perf_counter()
+                        phases["fused_aji"] = t1 - t0
+                        write_aji_csv(out, pairs, result.aji, ",")
+                        phases["csv"] = split["CSV write"] = (
+                            time.perf_counter() - t1)
+
+                    run_leg("fused", None, fused, csv)
+
+                def streamed(out, split):
+                    compute_streamed(
+                        presence, axes.row_db_ids, axes.col_db_ids, out,
+                        axes.query_names, axes.target_names, device,
+                        phases=split)
+
+                run_leg("streamed", "streamed_aji_csv", streamed,
+                        stem("_streamed"))
+
+                if exact:
+                    run_leg("exact", "banded_exact_csv",
+                            lambda out, split: compute_streamed_exact(
+                                presence, axes.row_db_ids, axes.col_db_ids,
+                                out, axes.query_names, axes.target_names,
+                                device, phases=split),
+                            stem("_exact"))
+            except Exception as e:  # noqa: BLE001 — must reach every rank
+                if mesh_shape is None or distributed.world_size() == 1:
+                    raise
+                err = distributed.picklable(e)
+        if mesh_shape is not None:
+            t0 = time.perf_counter()
+            presence = distributed.broadcast_presence(presence, error=err)
+            if distributed.world_size() > 1:
+                phases["presence_broadcast"] = time.perf_counter() - t0
+            if not primary:
+                axes = all_vs_all_axes(presence.meta)
+            mesh = make_mesh(*mesh_shape)
+            mesh_csv = stem("_exact_mesh") if primary else os.devnull
+            run_leg("exact_mesh", "banded_exact_mesh_csv",
+                    lambda out, split: compute_streamed_exact(
+                        presence, axes.row_db_ids, axes.col_db_ids, out,
+                        axes.query_names, axes.target_names, device,
+                        phases=split, mesh=mesh),
+                    mesh_csv)
+            if primary:
+                # Chunked: at G=4096 each CSV is ~0.5 GB.
+                if not filecmp.cmp(stem("_exact"), mesh_csv, shallow=False):
+                    raise AssertionError(
+                        "mesh exact CSV differs from direct exact CSV")
+                phases["banded_exact_mesh_bytes_identical"] = True
+    finally:
+        if owns_dir:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    if not primary:
+        return None
+
+    ref_seconds = n_pairs / BASELINE_PAIRS_PER_SEC
+    main_leg = legs["streamed" if streamed_only else "fused"]
+    wire = {
+        "upload_presence_bytes": presence_device_bytes(presence),
+        "streamed_download_bytes": streamed_download_bytes(G),
+        "exact_download_bytes": exact_download_bytes(
+            P, G, 2 if int(presence.t.max()) < 2**15 else 4),
+    }
+    out = {
+        "metric": "e2e wall: SQLite->ETL->device->CSV "
+        "(synth G=%d P=%d, %d pairs, %s path)"
+        % (G, P, n_pairs, "streamed" if streamed_only else "fused"),
+        "value": main_leg["wall_seconds"],
+        "unit": "s",
+        "vs_baseline": ref_seconds / main_leg["wall_seconds"],
+        "phases": phases,
+        "streamed_wall_seconds": legs["streamed"]["wall_seconds"],
+        "reference_extrapolated_seconds": ref_seconds,
+        "wire_bytes": wire,
+    }
+    if exact:
+        out["exact_wall_seconds"] = legs["exact"]["wall_seconds"]
+    out["legs"] = legs
+    out["device_kind"] = (torch.cuda.get_device_name(device)
+                          if device.type == "cuda" else "cpu")
+    return out
+
+
 def main(environ=None) -> dict | None:
     """Run the mode the environment names, print its JSON line, return
-    it (mesh mode: on process 0; the other ranks print nothing and get
-    None)."""
+    it (mesh and e2e modes: on process 0; the other ranks print nothing
+    and get None)."""
     env = os.environ if environ is None else environ
     mode = env.get("PARFASTAAI_BENCH_MODE", "")
-    if mode not in ("", "kb", "mesh"):
+    if mode not in ("", "kb", "mesh", "e2e"):
         raise SystemExit(
-            f"PARFASTAAI_BENCH_MODE={mode!r} is not ported yet (kernel mode, "
-            "kb or mesh; ROADMAP.md, modules to port, item 11)"
+            f"PARFASTAAI_BENCH_MODE={mode!r}: kernel mode (unset), kb, mesh "
+            "or e2e"
         )
     name = env.get("PARFASTAAI_BENCH_DEVICE", "cuda")
-    if mode != "mesh":
+    if mode in ("", "kb"):
         device = _device(name)
         result = (kb_bench if mode == "kb" else kernel_bench)(device, env)
         print(json.dumps(result), flush=True)
@@ -360,7 +684,7 @@ def main(environ=None) -> dict | None:
         # _device exits without CUDA, as in every mode; resolve_device
         # gives a rank of a multi-process run its own card
         device = resolve_device(_device(name).type)
-        result = mesh_bench(device, env)
+        result = (mesh_bench if mode == "mesh" else e2e_bench)(device, env)
     finally:
         if owns_group:
             distributed.close()

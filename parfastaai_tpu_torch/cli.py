@@ -64,7 +64,7 @@ from .modes import (
     query_target_axes,
 )
 from .parallel import distributed
-from .parallel.mesh import make_mesh
+from .parallel.mesh import make_mesh, parse_mesh
 from .types import ErrorCode, PFAAIError
 from .utils.timing import phase_timer
 
@@ -280,17 +280,9 @@ def _validate(args) -> tuple[int, int] | None:
     mesh = None
     if args.mesh:
         try:
-            parts = [int(x) for x in args.mesh.split(",")]
-            ok = len(parts) in (1, 2) and all(x >= 1 for x in parts)
-        except ValueError:
-            ok = False
-        if not ok:
-            raise PFAAIError(
-                ErrorCode.CONSTRUCT_ERROR,
-                "--mesh expects ROWS or ROWS,SCP (positive integers), "
-                f"got {args.mesh!r}",
-            )
-        mesh = (parts[0], parts[1] if len(parts) > 1 else 1)
+            mesh = parse_mesh(args.mesh)
+        except ValueError as e:
+            raise PFAAIError(ErrorCode.CONSTRUCT_ERROR, f"--mesh {e}") from None
     if (args.approx or args.precise) and not (args.fast or args.streamed):
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,

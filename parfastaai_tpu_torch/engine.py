@@ -1494,6 +1494,12 @@ class _BlockDownloads:
             self._timed.clear()
 
 
+def mirror_budget() -> int:
+    """Host bytes the banded engines' symmetric mirror may hold:
+    PARFASTAAI_MIRROR_BYTES, default 4 GiB."""
+    return int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+
+
 def _primary_decides(decide, multiproc: bool):
     """``decide()`` on process 0 alone in a run of several processes, and
     its answer on every rank.  A failure there travels in the answer's
@@ -1703,8 +1709,7 @@ def compute_streamed_exact(
             n_ch = -(-len(col_ids) // band)
             # Peak live mirror tiles = max_i (i+1)(n-1-i) ~ n^2/4 f64 tiles.
             peak = ((n_ch * n_ch) // 4 + 1) * band * band * 8
-            budget = int(float(
-                os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+            budget = mirror_budget()
             if peak > budget:
                 sym = False
                 print(
@@ -2063,7 +2068,7 @@ def compute_streamed(
                 _use_staged_mesh(presence, mesh.n_scp, device, staged))
         rows_done = _resume_point(out_path, header, band) if resume else 0
         store_bytes = len(row_ids) * len(col_ids) * 4
-        budget = int(float(os.environ.get("PARFASTAAI_MIRROR_BYTES", 4 << 30)))
+        budget = mirror_budget()
         sym = sym_layout and rows_done == 0 and store_bytes <= budget
         if sym_layout and not sym:
             why = (

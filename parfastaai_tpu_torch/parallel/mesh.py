@@ -57,6 +57,20 @@ class Mesh:
         return {"rows": self.n_rows, "scp": self.n_scp}
 
 
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """A mesh spec, ``ROWS`` or ``ROWS,SCP`` in positive integers (spaces
+    around a number allowed), as (rows, scp); ValueError otherwise.  The
+    CLI's ``--mesh`` and the bench's PARFASTAAI_BENCH_EXACT_MESH read it."""
+    try:
+        parts = [int(x) for x in spec.split(",")]
+    except ValueError:
+        parts = []
+    if len(parts) not in (1, 2) or any(x < 1 for x in parts):
+        raise ValueError(
+            f"expects ROWS or ROWS,SCP (positive integers), got {spec!r}")
+    return parts[0], parts[1] if len(parts) > 1 else 1
+
+
 def make_mesh(n_rows: int, n_scp: int = 1) -> Mesh:
     """The mesh of the first ``n_rows * n_scp`` ranks.  Every rank creates
     every row's scp group, in row order, as ``dist.new_group`` needs."""

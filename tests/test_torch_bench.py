@@ -109,11 +109,11 @@ def test_default_device_exits_without_cuda(monkeypatch, capsys):
     [
         ({"PARFASTAAI_BENCH_APPROX": "1", "PARFASTAAI_BENCH_PRECISE": "1"},
          "both"),
-        ({"PARFASTAAI_BENCH_MODE": "e2e"}, "not ported"),
         ({"PARFASTAAI_BENCH_MODE": "kb", "PARFASTAAI_BENCH_KB_K": "1280"},
          "exists for"),
+        ({"PARFASTAAI_BENCH_MODE": "bogus"}, "kb, mesh or e2e"),
     ],
-    ids=["approx_precise", "e2e", "kb_narrow"],
+    ids=["approx_precise", "kb_narrow", "unknown_mode"],
 )
 def test_bad_knobs_exit(env, match):
     with pytest.raises(SystemExit, match=match):
