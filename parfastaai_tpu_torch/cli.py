@@ -14,7 +14,13 @@ PARFASTAAI_STAGED stage presence slabs instead of keeping the width
 buckets on the device, as does presence above the device budget
 (PARFASTAAI_HBM_BYTES, else 75% of the card's memory); a staged run
 prints what its slab store uploaded.  ``--profile DIR`` writes a Chrome
-trace of the compute phase (a ``torch.profiler`` run) into DIR.
+trace of the compute phase (a ``torch.profiler`` run) into DIR, with the
+call's spans (``utils.timing``) added, worker threads' too.
+
+A call records its spans (``cli.run``, ``cli.open``, ``cli.pairs``,
+``etl``, ``engine``, ``csv`` and theirs) where a ``torch.profiler``
+session records on its thread, under ``--profile``, or inside
+``utils.timing.recording()``; otherwise a span costs one check.
 
 ``--mesh ROWS[,SCP]`` runs over a mesh of processes, one device each
 (parallel/): launch ROWS x SCP processes with PARFASTAAI_COORDINATOR /
@@ -66,6 +72,7 @@ from .modes import (
 from .parallel import distributed
 from .parallel.mesh import make_mesh, parse_mesh
 from .types import ErrorCode, PFAAIError
+from .utils import timing
 from .utils.timing import phase_timer
 
 # The one file ``--profile DIR`` writes into DIR.
@@ -341,6 +348,7 @@ def _pair_space(args, meta, two_db: bool, queries):
         n_pairs_est = nq * (n_tgt - nq) + nq * (nq - 1) // 2
     else:
         n_pairs_est = n_tgt * (n_tgt - 1) // 2
+    timing.count(pairs=n_pairs_est)
     banded_auto = (
         exact_default
         and not args.dump_jac
@@ -360,7 +368,8 @@ def _pair_space(args, meta, two_db: bool, queries):
 
 def _dump_e(args, db, two_db: bool, queries, verbose: bool) -> None:
     """--dump-e: the sorted E array, re-derived on the host per mode."""
-    with phase_timer("E derivation       ", enabled=verbose):
+    with phase_timer("E derivation       ", enabled=verbose,
+                     name="cli.dump_e"):
         if two_db:
             _, _, _, e = derive_qt(db)
         elif queries is not None:
@@ -401,7 +410,7 @@ def _banded_exact_run(
     for the auto-routed default path alike (``pairs`` is the StreamAxes),
     over ``mesh`` where given."""
     phases: dict[str, float] = {}
-    with phase_timer("Banded exact + CSV ", enabled=verbose):
+    with phase_timer("Banded exact + CSV ", enabled=verbose, name="engine"):
         compute_streamed_exact(
             presence,
             pairs.row_db_ids,
@@ -440,7 +449,7 @@ def _streamed_run(
     """The f32 streamed engine's one call (``pairs`` is the StreamAxes),
     over ``mesh`` where given."""
     phases: dict[str, float] = {}
-    with phase_timer("Streamed AJI + CSV ", enabled=verbose):
+    with phase_timer("Streamed AJI + CSV ", enabled=verbose, name="engine"):
         compute_streamed(
             presence,
             pairs.row_db_ids,
@@ -498,17 +507,29 @@ def _profiled(trace_dir: str, device):
 def run(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     owns_group = distributed.backend() is None
-    # Before any device is touched; every rank of a multi-process launch
-    # runs this same command.
-    distributed.init_distributed(args.device)
-    try:
-        return _run(args, distributed.world_size() > 1)
-    finally:
-        if owns_group:
-            distributed.close()
+    held: list = []
+    with timing.call(force=bool(args.profile)) as recorded:
+        # Before any device is touched; every rank of a multi-process
+        # launch runs this same command.
+        distributed.init_distributed(args.device)
+        primary = distributed.is_primary()
+        try:
+            code = _run(args, distributed.world_size() > 1, held)
+        finally:
+            # The presence's pages go back here, inside a span.
+            with timing.span("cli.free"):
+                held.clear()
+            if owns_group:
+                distributed.close()
+    if recorded is not None and args.profile and primary and code == 0:
+        timing.append_to_chrome_trace(
+            os.path.join(args.profile, PROFILE_TRACE), recorded)
+    return code
 
 
-def _run(args, multiproc: bool) -> int:
+def _run(args, multiproc: bool, held: list) -> int:
+    """The call; ``held`` keeps the presence alive past the return, for the
+    caller to free."""
     primary = distributed.is_primary()
     # One writer, one reporter: the other ranks compute and join the
     # collectives, and never touch the output files.
@@ -528,7 +549,8 @@ def _run(args, multiproc: bool) -> int:
 
         def open_db():
             nonlocal db
-            with phase_timer("DB open + metadata ", enabled=verbose):
+            with phase_timer("DB open + metadata ", enabled=verbose,
+                             name="cli.open"):
                 if two_db:
                     db = QueryTargetDatabase(
                         args.path_to_input_db, args.query_db
@@ -544,13 +566,20 @@ def _run(args, multiproc: bool) -> int:
                 queries = _from_primary(
                     lambda: load_query_genomes(args.query_subset)
                 )
-            pairs, banded_auto = _pair_space(args, meta, two_db, queries)
+            with timing.span("cli.pairs"):
+                pairs, banded_auto = _pair_space(
+                    args, meta, two_db, queries)
             presence = err = None
             meta_only = False
             if primary:
                 try:
-                    with phase_timer("Presence ETL       ", enabled=verbose):
+                    with phase_timer("Presence ETL       ",
+                                     enabled=verbose, name="etl"):
                         presence = db.load_presence(verbose=verbose)
+                        timing.count(
+                            presence_bytes=presence.m.nbytes,
+                            useful_bytes=presence.m.shape[1]
+                            * int(presence.widths.sum()))
                     # A staged streamed mesh ships its slabs from process 0
                     # on demand: the others need the metadata and T alone.
                     meta_only = bool(
@@ -560,10 +589,12 @@ def _run(args, multiproc: bool) -> int:
                 except Exception as e:  # noqa: BLE001 — see _from_primary
                     err = _as_pfaai_error(e)
             with phase_timer(
-                "Presence broadcast ", enabled=verbose and multiproc
+                "Presence broadcast ", enabled=verbose and multiproc,
+                name="cli.broadcast" if multiproc else None,
             ):
                 presence = distributed.broadcast_presence(
                     presence, error=err, meta_only=meta_only)
+            held.append(presence)
             if verbose and getattr(presence, "slab_broadcast", False):
                 print(
                     "Presence broadcast: metadata + T only (staged-mesh "
@@ -597,7 +628,8 @@ def _run(args, multiproc: bool) -> int:
                 _banded_exact_run(
                     args, presence, pairs, device, verbose, cells)
                 return 0
-            with phase_timer("JAC + AJI          ", enabled=verbose):
+            with phase_timer("JAC + AJI          ", enabled=verbose,
+                             name="engine"):
                 if mesh:
                     # the reference's f32 mesh route: --fast's divide
                     # flags do not reach it
@@ -607,7 +639,10 @@ def _run(args, multiproc: bool) -> int:
                 elif args.fast:
                     result = compute_fast(
                         presence, pairs, device, approx=args.approx,
-                        precise=args.precise, phases=phases,
+                        precise=args.precise,
+                        # Without a reader of the split its stage clock
+                        # never waits for the device.
+                        phases=phases if verbose or timing.active() else None,
                         staged=args.staged or None,
                     )
                 else:

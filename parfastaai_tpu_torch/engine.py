@@ -45,10 +45,15 @@ rank's shard of each slab (``_MeshSlabStore``, ``_use_staged_mesh``,
 from process 0 where only it holds the presence tensor.
 
 Every function computes on the device it is given.  ``phases``, where
-accepted, is a dict that collects seconds per sub-phase.  ``compute`` and
-``compute_fast`` synchronise the device at each phase boundary, which
-their host copies do anyway; the two banded CSV engines never do, and read
-their device phases from CUDA events after the last block.
+accepted, is a dict that collects seconds per sub-phase.  Each host-timed
+sub-phase is a span of the recorded call too (``utils.timing``; its name
+beside its key: ``engine.bucketize`` for ``host bucketize``,
+``engine.upload`` for ``H2D``, ...), and the two banded CSV engines' worker
+and writer threads record into the call that started them.  ``compute``
+and ``compute_fast`` synchronise the device at each phase boundary, which
+their host copies do anyway, where a caller reads the split (``phases``
+or a recorded call); the two banded CSV engines never do, and read their
+device phases from CUDA events after the last block.
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ from .native import native_jaccard_finish, native_jaccard_finish_block
 from .ops.fused import int_gram, pair_counts_device
 from .ops.sn_rect import clamp_t, fused_sn_block
 from .types import ErrorCode, JacResult, PFAAIError
+from .utils import timing
+from .utils.timing import span as _span
 
 
 def _sync(device: torch.device) -> None:
@@ -91,11 +98,17 @@ class _StageClock:
     split).  ``sync=False``: nothing waits.  On a card each lap records a
     CUDA event on the current stream and ``close`` sums the event pairs
     into ``phases`` once the work is done; on the CPU, where each call
-    returns with its work done, a lap reads the host's clock."""
+    returns with its work done, a lap reads the host's clock.  A host lap
+    is also span ``engine.<stage>`` of the recorded call.  Where nothing
+    reads a lap (no ``phases``, and for a host lap no recorded call), the
+    clock does nothing and never waits."""
 
     def __init__(self, device: torch.device, phases: dict | None, sync: bool):
-        self._device, self._phases, self._sync = device, phases, sync
+        self._device, self._phases = device, phases
         self._events = device.type == "cuda" and not sync
+        self._on = phases is not None or (
+            timing.active() and not self._events)
+        self._sync = sync and self._on
         self._pairs: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
         self._last = None
 
@@ -109,15 +122,19 @@ class _StageClock:
         return time.perf_counter()
 
     def start(self) -> None:
-        self._last = self._now()
+        if self._on:
+            self._last = self._now()
 
     def lap(self, key: str) -> None:
         """Ends the stage ``key`` that began at ``start`` or the last lap."""
+        if not self._on:
+            return
         now = self._now()
         if self._events:
             self._pairs.append((key, self._last, now))
         else:
-            _add(self._phases, key, now - self._last)
+            timing.record(_stage_span(key), self._last, now, self._phases,
+                          key)
         self._last = now
 
     def close(self) -> None:
@@ -125,6 +142,12 @@ class _StageClock:
         for key, begin, end in self._pairs:
             _add(self._phases, key, begin.elapsed_time(end) / 1e3)
         self._pairs.clear()
+
+
+def _stage_span(key: str) -> str:
+    """The span name of a ``_StageClock`` stage."""
+    name = "upload" if key == "H2D" else key.lower()
+    return "engine." + name.replace(" ", "_").replace("-", "_")
 
 
 def jaccard_finish(
@@ -234,10 +257,9 @@ def upload_presence(
 ) -> torch.Tensor:
     """The whole (P, G, K) presence tensor on the device as int8, by a plain
     copy (the JAX package's bit packing served a slow relay)."""
-    t0 = time.perf_counter()
-    m = _to_device(presence.m.view(np.int8), device)
-    _sync(device)
-    _add(phases, "H2D", time.perf_counter() - t0)
+    with _span("engine.upload", phases, "H2D"):
+        m = _to_device(presence.m.view(np.int8), device)
+        _sync(device)
     return m
 
 
@@ -254,20 +276,19 @@ def to_device_buckets(
         presence._torch_bucket_cache = cache
     key = str(device)
     if key not in cache:
-        t0 = time.perf_counter()
-        host = bucketize_presence(presence)
-        t1 = time.perf_counter()
-        cache[key] = [
-            (
-                idx,
-                _to_device(np.ascontiguousarray(m_b), device),
-                clamp_t(_to_device(t_b, device)),
-            )
-            for idx, m_b, t_b in host
-        ]
-        _sync(device)
-        _add(phases, "host bucketize", t1 - t0)
-        _add(phases, "H2D", time.perf_counter() - t1)
+        with _span("engine.bucketize", phases, "host bucketize"):
+            host = bucketize_presence(presence)
+        with _span("engine.upload", phases, "H2D"):
+            cache[key] = [
+                (
+                    idx,
+                    _to_device(np.ascontiguousarray(m_b), device),
+                    clamp_t(_to_device(t_b, device)),
+                )
+                for idx, m_b, t_b in host
+            ]
+            _sync(device)
+            del host  # the host copy's pages go back inside the span
     return cache[key]
 
 
@@ -851,28 +872,23 @@ def _mesh_buckets(presence: PresenceData, mesh, device: torch.device,
     n_scp = mesh.n_scp
     G, K = presence.m.shape[1], presence.m.shape[2]
     out = []
-    gather_s = h2d_s = 0.0
     for idx, kb in _bucket_plan(presence):
         layout = np.stack(
             [shard_proteins(idx, s, n_scp) for s in range(n_scp)])
         if mesh.coords is None:
             out.append((layout, None, None))
             continue
-        t0 = time.perf_counter()
-        prot = layout[mesh.coords[1]]
-        valid = prot >= 0
-        kw = min(kb, K)
-        m_host = np.zeros((len(prot), G, kb), np.uint8)
-        m_host[valid, :, :kw] = presence.m[prot[valid], :, :kw]
-        t_host = _t_rows(presence.t, prot, np.arange(G))
-        t1 = time.perf_counter()
-        out.append((layout, _to_device(m_host, device),
-                    clamp_t(_to_device(t_host, device))))
-        _sync(device)
-        gather_s += t1 - t0
-        h2d_s += time.perf_counter() - t1
-    _add(phases, "host bucketize", gather_s)
-    _add(phases, "H2D", h2d_s)
+        with _span("engine.bucketize", phases, "host bucketize"):
+            prot = layout[mesh.coords[1]]
+            valid = prot >= 0
+            kw = min(kb, K)
+            m_host = np.zeros((len(prot), G, kb), np.uint8)
+            m_host[valid, :, :kw] = presence.m[prot[valid], :, :kw]
+            t_host = _t_rows(presence.t, prot, np.arange(G))
+        with _span("engine.upload", phases, "H2D"):
+            out.append((layout, _to_device(m_host, device),
+                        clamp_t(_to_device(t_host, device))))
+            _sync(device)
     cache[key] = out
     return out
 
@@ -1183,17 +1199,17 @@ def _banded_sn(
                     drids,
                     padded(col_denom_ids, c0, col_chunk),
                 )
-                t0 = time.perf_counter()
-                s[r0 : r0 + nr, c0 : c0 + nc] = s_b[:nr, :nc].cpu().numpy()
-                n[r0 : r0 + nr, c0 : c0 + nc] = n_b[:nr, :nc].cpu().numpy()
-                _add(phases, "D2H", time.perf_counter() - t0)
+                with _span("engine.d2h", phases, "D2H"):
+                    s[r0 : r0 + nr, c0 : c0 + nc] = (
+                        s_b[:nr, :nc].cpu().numpy())
+                    n[r0 : r0 + nr, c0 : c0 + nc] = (
+                        n_b[:nr, :nc].cpu().numpy())
     if symmetric:
-        t0 = time.perf_counter()
-        for r0 in range(0, len(row_ids), band):
-            r1 = min(r0 + band, len(row_ids))
-            s[r0:r1, :r0] = s[:r0, r0:r1].T
-            n[r0:r1, :r0] = n[:r0, r0:r1].T
-        _add(phases, "host assembly", time.perf_counter() - t0)
+        with _span("engine.assembly", phases, "host assembly"):
+            for r0 in range(0, len(row_ids), band):
+                r1 = min(r0 + band, len(row_ids))
+                s[r0:r1, :r0] = s[:r0, r0:r1].T
+                n[r0:r1, :r0] = n[:r0, r0:r1].T
     return s, n
 
 
@@ -1230,19 +1246,17 @@ def compute(
     (bit-parity with the reference and the JAX package)."""
     out_dtype = _count_wire_dtype(presence)
     m = upload_presence(presence, device, phases)
-    t0 = time.perf_counter()
-    counts_d = pair_counts_device(m, pairs.db_a, pairs.db_b, out_dtype)
-    _sync(device)
-    t1 = time.perf_counter()
-    counts = counts_d.cpu().numpy()
-    t2 = time.perf_counter()
-    del m, counts_d
-    t = presence.t
-    s, n = jaccard_finish(counts, t[:, pairs.denom_a], t[:, pairs.denom_b])
-    _add(phases, "Gram", t1 - t0)
-    _add(phases, "D2H", t2 - t1)
-    _add(phases, "host finish", time.perf_counter() - t2)
-    return _result(pairs, s, n)
+    with _span("engine.gram", phases, "Gram"):
+        counts_d = pair_counts_device(m, pairs.db_a, pairs.db_b, out_dtype)
+        _sync(device)
+    with _span("engine.d2h", phases, "D2H"):
+        counts = counts_d.cpu().numpy()
+    with _span("engine.finish", phases, "host finish"):
+        del m, counts_d
+        t = presence.t
+        s, n = jaccard_finish(
+            counts, t[:, pairs.denom_a], t[:, pairs.denom_b])
+        return _result(pairs, s, n)
 
 
 def compute_fast(
@@ -1283,19 +1297,17 @@ def compute_fast(
             s_mat, n_mat = _banded_sn(
                 presence, rows, cols, rows, cols, device, **fast
             )
-            t0 = time.perf_counter()
-            s = s_mat[qidx_of[pairs.db_a], pairs.db_b]
-            n = n_mat[qidx_of[pairs.db_a], pairs.db_b]
-            _add(phases, "pair gather", time.perf_counter() - t0)
+            with _span("engine.pair_gather", phases, "pair gather"):
+                s = s_mat[qidx_of[pairs.db_a], pairs.db_b]
+                n = n_mat[qidx_of[pairs.db_a], pairs.db_b]
         else:
             ids = np.arange(G, dtype=np.int32)
             s_mat, n_mat = _banded_sn(
                 presence, ids, ids, ids, ids, device, **fast
             )
-            t0 = time.perf_counter()
-            s = s_mat[pairs.db_a, pairs.db_b]
-            n = n_mat[pairs.db_a, pairs.db_b]
-            _add(phases, "pair gather", time.perf_counter() - t0)
+            with _span("engine.pair_gather", phases, "pair gather"):
+                s = s_mat[pairs.db_a, pairs.db_b]
+                n = n_mat[pairs.db_a, pairs.db_b]
     elif _is_rect_pairs(pairs):
         s_mat, n_mat = _banded_sn(
             presence,
@@ -1350,10 +1362,9 @@ def compute_sharded(
     mesh = make_mesh(n_rows, n_scp)
 
     def gathered(s_b, n_b, rows: int):
-        t0 = time.perf_counter()
-        s_mat = gather_rows(mesh, s_b)[:rows]
-        n_mat = gather_rows(mesh, n_b)[:rows]
-        _add(phases, "row gather", time.perf_counter() - t0)
+        with _span("engine.row_gather", phases, "row gather"):
+            s_mat = gather_rows(mesh, s_b)[:rows]
+            n_mat = gather_rows(mesh, n_b)[:rows]
         return s_mat, n_mat
 
     if not (
@@ -1435,9 +1446,10 @@ class _BlockDownloads:
     buffer.
 
     ``compute_s`` / ``d2h_s`` are the blocks' device seconds, from CUDA
-    event pairs read after the last block (``close``); on the CPU
-    ``compute_s`` is host seconds and ``d2h_s`` stays 0.  ``wait_s``:
-    seconds ``fetch`` waited for a free buffer."""
+    event pairs read after the last block (``close``); on the CPU both stay
+    0, and with ``phases`` each block's compute is span ``engine.gram``,
+    its host seconds in ``phases["Gram"]``.  ``wait_s``: seconds ``fetch``
+    waited for a free buffer (spans ``engine.producer_wait``)."""
 
     def __init__(
         self,
@@ -1445,8 +1457,11 @@ class _BlockDownloads:
         max_numel: int,
         dtype: torch.dtype,
         n_buffers: int,
+        phases: dict | None = None,
     ):
-        self.compute_s = self.d2h_s = self.wait_s = 0.0
+        self.compute_s = self.d2h_s = 0.0
+        self._phases = phases
+        self._waited: dict[str, float] = {}
         self._cuda = device.type == "cuda"
         if self._cuda:
             self._stream = torch.cuda.Stream(device)
@@ -1460,13 +1475,12 @@ class _BlockDownloads:
     def fetch(self, compute_block) -> _Download:
         """Runs ``compute_block() -> device tensor`` and starts its copy."""
         if not self._cuda:
-            t0 = time.perf_counter()
-            block = compute_block()
-            self.compute_s += time.perf_counter() - t0
-            return _Download(block)
-        t0 = time.perf_counter()
-        buf = self._free.get()
-        self.wait_s += time.perf_counter() - t0
+            if self._phases is None:
+                return _Download(compute_block())
+            with _span("engine.gram", self._phases, "Gram"):
+                return _Download(compute_block())
+        with _span("engine.producer_wait", self._waited, "producer wait"):
+            buf = self._free.get()
         g0, g1, c0, c1 = (
             torch.cuda.Event(enable_timing=True) for _ in range(4)
         )
@@ -1483,6 +1497,10 @@ class _BlockDownloads:
             c1.record()
         self._timed.append((g0, g1, c0, c1))
         return _Download(block, buf, c1, self._free)
+
+    @property
+    def wait_s(self) -> float:
+        return self._waited.get("producer wait", 0.0)
 
     def close(self) -> None:
         """Sums the blocks' event pairs, after every copy has landed."""
@@ -1550,6 +1568,18 @@ def _primary_only(engine: str, world: int, hint: str) -> None:
         f"through this phase (pass --mesh R,S to {hint})",
         file=sys.stderr,
     )
+
+
+def _in_call_thread(target, name: str) -> threading.Thread:
+    """A daemon thread running ``target`` inside the recorded call of the
+    thread that makes it (under its innermost open span)."""
+    handed = timing.handoff()
+
+    def run() -> None:
+        with timing.attached(handed):
+            target()
+
+    return threading.Thread(target=run, name=name, daemon=True)
 
 
 def _open_csv(out_path: str, rows_done: int, header: str):
@@ -1647,7 +1677,12 @@ def compute_streamed_exact(
     (worker blocked on a copy or on an empty queue).  The stages overlap,
     so they do not sum to the wall.  With a mesh, ``Gram`` is host seconds
     up to the end of the block's Grams and ``count gather`` the gather and
-    the assembly on process 0.
+    the assembly on process 0.  In a recorded call (``utils.timing``) the
+    main thread's spans are ``engine.open``, ``engine.block`` (one block's
+    enqueue), ``engine.producer_wait`` and ``engine.tail`` (the end mark
+    to the worker's join), the worker's ``worker.wait``, ``worker.finish``
+    and ``worker.csv`` (one a band, counter ``rows``); the caller's open
+    span gets counters ``blocks`` and ``mirrored``.
     """
     from .parallel import distributed
     from .parallel.mesh import assemble_counts, gather_cells
@@ -1723,7 +1758,8 @@ def compute_streamed_exact(
 
     # Process 0 opens the CSV before the first collective; its failure
     # (a missing directory, an unwritable file) stops every rank.
-    staged_active, rows_done, sym = _primary_decides(decide, multiproc)
+    with _span("engine.open"):
+        staged_active, rows_done, sym = _primary_decides(decide, multiproc)
     fp = opened[0] if opened else None
     if sym:
         col_chunk = band  # square blocks so mirrors transpose exactly
@@ -1763,18 +1799,19 @@ def compute_streamed_exact(
                     # the CSV that --resume would keep as a checkpoint.
                     rows_aji = None
                     return
-                t0 = time.perf_counter()
-                # Same-genome cells are untouched in the reference => 0.
-                rows_aji[cur_rids[:, None] == col_ids[None, :]] = 0.0
-                for i, row in enumerate(format_matrix(rows_aji, separator)):
-                    fp.write(row_names[cur_r0 + i] + separator + row + "\n")
-                rows_aji = None
-                busy["CSV write"] += time.perf_counter() - t0
+                with _span("worker.csv", busy, "CSV write"):
+                    # Same-genome cells are untouched in the reference => 0.
+                    rows_aji[cur_rids[:, None] == col_ids[None, :]] = 0.0
+                    for i, row in enumerate(
+                            format_matrix(rows_aji, separator)):
+                        fp.write(
+                            row_names[cur_r0 + i] + separator + row + "\n")
+                    timing.count(rows=len(rows_aji))
+                    rows_aji = None
 
             while True:
-                t0 = time.perf_counter()
-                item = work_q.get()
-                busy["worker wait"] += time.perf_counter() - t0
+                with _span("worker.wait", busy, "worker wait"):
+                    item = work_q.get()
                 if item is None:
                     flush()
                     return
@@ -1791,25 +1828,23 @@ def compute_streamed_exact(
                     # Transpose of a tile above the diagonal that was
                     # finished earlier (the FIFO guarantees it is there);
                     # each tile mirrors once.
-                    t0 = time.perf_counter()
-                    rows_aji[:, c0 : c0 + nc] = mirror.pop(data).T
-                    busy["host finish"] += time.perf_counter() - t0
+                    with _span("worker.finish", busy, "host finish"):
+                        rows_aji[:, c0 : c0 + nc] = mirror.pop(data).T
                     continue
                 download, store_key = data
-                t0 = time.perf_counter()
-                counts = download.wait()
-                t1 = time.perf_counter()
-                s, n = jaccard_finish_block(counts, t[:, drids], t[:, dcids])
-                del counts
-                download.release()
-                download = None
-                with np.errstate(divide="ignore", invalid="ignore"):
-                    blk = s / n  # 0/0 -> nan (parity)
-                rows_aji[:, c0 : c0 + nc] = blk
-                if store_key is not None:
-                    mirror[store_key] = blk
-                busy["worker wait"] += t1 - t0
-                busy["host finish"] += time.perf_counter() - t1
+                with _span("worker.wait", busy, "worker wait"):
+                    counts = download.wait()
+                with _span("worker.finish", busy, "host finish"):
+                    s, n = jaccard_finish_block(
+                        counts, t[:, drids], t[:, dcids])
+                    del counts
+                    download.release()
+                    download = None
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        blk = s / n  # 0/0 -> nan (parity)
+                    rows_aji[:, c0 : c0 + nc] = blk
+                    if store_key is not None:
+                        mirror[store_key] = blk
         except BaseException as exc:  # handed to the caller after the join
             werr.append(exc)
             if download is not None:
@@ -1821,11 +1856,11 @@ def compute_streamed_exact(
                     item[7][0].release()
 
     def put(item) -> None:
-        t0 = time.perf_counter()
-        work_q.put(item)
-        busy["producer wait"] += time.perf_counter() - t0
+        with _span("engine.producer_wait", busy, "producer wait"):
+            work_q.put(item)
 
     worker = None
+    n_blocks = n_mirrored = 0
     try:
         if mesh is not None:
             block_counts = (
@@ -1840,28 +1875,24 @@ def compute_streamed_exact(
         if mesh is None:
             downloads = _BlockDownloads(
                 device, P * band * col_chunk, _count_wire_dtype(presence),
-                n_buffers=work_q.maxsize + 2,
+                n_buffers=work_q.maxsize + 2, phases=phases,
             )
 
         def counts_of(rids, cids):
             """The block's counts on their way to process 0's worker."""
             if mesh is None:
                 return downloads.fetch(lambda: block_counts(rids, cids))
-            t0 = time.perf_counter()
-            counts, layout = block_counts(rids, cids)
-            _sync(device)
-            t1 = time.perf_counter()
-            cells = gather_cells(mesh, counts)  # every rank joins
-            host = (assemble_counts(mesh, cells, layout, P, len(rids))
-                    if primary else None)
-            _add(phases, "Gram", t1 - t0)
-            _add(phases, "count gather", time.perf_counter() - t1)
+            with _span("engine.gram", phases, "Gram"):
+                counts, layout = block_counts(rids, cids)
+                _sync(device)
+            with _span("engine.count_gather", phases, "count gather"):
+                cells = gather_cells(mesh, counts)  # every rank joins
+                host = (assemble_counts(mesh, cells, layout, P, len(rids))
+                        if primary else None)
             return _Download(torch.from_numpy(host)) if primary else None
 
         if primary:
-            worker = threading.Thread(
-                target=_worker, name="pfaai-exact-finish", daemon=True
-            )
+            worker = _in_call_thread(_worker, "pfaai-exact-finish")
             worker.start()
         stop = False
         for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
@@ -1875,10 +1906,13 @@ def compute_streamed_exact(
                     # worker mirrors the stored (ci, bi) tile.
                     data = (ci, bi)
                     kind = "mirror"
+                    n_mirrored += 1
                 else:
-                    data = (counts_of(rids, cids),
-                            (bi, ci) if sym and ci > bi else None)
+                    with _span("engine.block"):
+                        download = counts_of(rids, cids)
+                    data = (download, (bi, ci) if sym and ci > bi else None)
                     kind = "counts"
+                    n_blocks += 1
                 if primary:
                     put((r0, rids, drids, c0, len(cids), dcids, kind, data))
                 # One flag a block (the reference's protocol): every rank
@@ -1890,10 +1924,12 @@ def compute_streamed_exact(
                 break
     finally:
         if worker is not None and worker.is_alive():
-            work_q.put(None)
-            worker.join()
+            with _span("engine.tail"):
+                work_q.put(None)
+                worker.join()
         if fp is not None:
             fp.close()
+    timing.count(blocks=n_blocks, mirrored=n_mirrored)
     if downloads is not None:
         downloads.close()
         busy["producer wait"] += downloads.wait_s
@@ -1989,7 +2025,10 @@ def compute_streamed(
     ``host assembly`` and ``CSV write`` (the writer's busy seconds),
     ``producer wait`` (main thread blocked on a full queue or on a host
     buffer) and ``writer wait`` (writer blocked on a copy or on an empty
-    queue).  The stages overlap, so they do not sum to the wall.
+    queue).  The stages overlap, so they do not sum to the wall.  In a
+    recorded call (``utils.timing``) the main thread's spans are those of
+    ``compute_streamed_exact``, and the writer's ``writer.wait``,
+    ``writer.assembly`` and ``writer.csv`` (one a band, counter ``rows``).
 
     Staged slabs (``staged``, PARFASTAAI_STAGED, or presence above the
     device budget: ``_use_staged``): blocks come from the staged block
@@ -2087,7 +2126,8 @@ def compute_streamed(
 
     # Process 0 opens the CSV before the first collective; its failure
     # (a missing directory, an unwritable file) stops every rank.
-    staged_active, rows_done, sym = _primary_decides(decide, multiproc)
+    with _span("engine.open"):
+        staged_active, rows_done, sym = _primary_decides(decide, multiproc)
     fp = opened[0] if opened else None
 
     # Writer (stage 2).  The queue's depth of 2 bounds the blocks in flight;
@@ -2117,9 +2157,8 @@ def compute_streamed(
             # own array, never a view of a pooled host buffer.
             band_store: dict[int, np.ndarray] = {}
             while True:
-                t0 = time.perf_counter()
-                item = work_q.get()
-                busy["writer wait"] += time.perf_counter() - t0
+                with _span("writer.wait", busy, "writer wait"):
+                    item = work_q.get()
                 if item is None:
                     return  # a band without its end mark is not written
                 r0, rids, chunk = item
@@ -2129,42 +2168,41 @@ def compute_streamed(
                     )
                 if chunk is not None:
                     c0, nc, download = chunk
-                    t0 = time.perf_counter()
-                    block = download.wait()
-                    t1 = time.perf_counter()
-                    rows_aji[:, c0 : c0 + nc] = block
-                    del block
-                    download.release()
-                    download = None
-                    busy["writer wait"] += t1 - t0
-                    busy["host assembly"] += time.perf_counter() - t1
+                    with _span("writer.wait", busy, "writer wait"):
+                        block = download.wait()
+                    with _span("writer.assembly", busy, "host assembly"):
+                        rows_aji[:, c0 : c0 + nc] = block
+                        del block
+                        download.release()
+                        download = None
                     continue
                 # The band's end: every computed chunk is in place.
-                t0 = time.perf_counter()
-                if sym:
-                    # The skipped region [0, fill_end): transposed slices of
-                    # the earlier bands (all complete: only the last band
-                    # can be short, and nothing mirrors from it).
-                    fill_end = (r0 // col_chunk) * col_chunk
-                    for bs in range(0, fill_end, band):
-                        width = min(band, fill_end - bs)
-                        rows_aji[:, bs : bs + width] = band_store[bs][
-                            :width, r0 : r0 + len(rids)
-                        ].T
-                # Same-genome cells are untouched in the reference => 0.
-                rows_aji[rids[:, None] == col_ids[None, :]] = 0.0
-                if sym:
-                    band_store[r0] = rows_aji
-                t1 = time.perf_counter()
-                for i0 in range(0, len(rids), slab_rows):
-                    slab = rows_aji[i0 : i0 + slab_rows].astype(np.float64)
-                    for i, row in enumerate(format_matrix(slab, separator)):
-                        fp.write(
-                            row_names[r0 + i0 + i] + separator + row + "\n"
-                        )
-                rows_aji = None
-                busy["host assembly"] += t1 - t0
-                busy["CSV write"] += time.perf_counter() - t1
+                with _span("writer.assembly", busy, "host assembly"):
+                    if sym:
+                        # The skipped region [0, fill_end): transposed
+                        # slices of the earlier bands (all complete: only
+                        # the last band can be short, and nothing mirrors
+                        # from it).
+                        fill_end = (r0 // col_chunk) * col_chunk
+                        for bs in range(0, fill_end, band):
+                            width = min(band, fill_end - bs)
+                            rows_aji[:, bs : bs + width] = band_store[bs][
+                                :width, r0 : r0 + len(rids)
+                            ].T
+                    # Same-genome cells are untouched in the reference => 0.
+                    rows_aji[rids[:, None] == col_ids[None, :]] = 0.0
+                    if sym:
+                        band_store[r0] = rows_aji
+                with _span("writer.csv", busy, "CSV write"):
+                    for i0 in range(0, len(rids), slab_rows):
+                        slab = rows_aji[i0 : i0 + slab_rows].astype(
+                            np.float64)
+                        for i, row in enumerate(
+                                format_matrix(slab, separator)):
+                            fp.write(row_names[r0 + i0 + i] + separator
+                                     + row + "\n")
+                    timing.count(rows=len(rids))
+                    rows_aji = None
         except BaseException as exc:  # handed to the caller after the join
             werr.append(exc)
             if download is not None:
@@ -2176,11 +2214,11 @@ def compute_streamed(
                     item[2][2].release()
 
     def put(item) -> None:
-        t0 = time.perf_counter()
-        work_q.put(item)
-        busy["producer wait"] += time.perf_counter() - t0
+        with _span("engine.producer_wait", busy, "producer wait"):
+            work_q.put(item)
 
     writer = None
+    n_blocks = n_mirrored = 0
     # The mesh's blocks meet in a gather that waits for the device anyway:
     # its stages are host seconds around syncs.
     clock = _StageClock(device, phases, sync=mesh is not None)
@@ -2192,7 +2230,7 @@ def compute_streamed(
             )
             downloads = _BlockDownloads(
                 device, band * col_chunk, torch.float32,
-                n_buffers=work_q.maxsize + 2
+                n_buffers=work_q.maxsize + 2,
             )
         else:
             block_sn = (
@@ -2211,18 +2249,15 @@ def compute_streamed(
                 return downloads.fetch(
                     lambda: block_aji(rids, cids, drids, dcids))
             cell = block_aji(rids, cids, drids, dcids)
-            t0 = time.perf_counter()
-            rows = gather_rows(mesh, cell)  # every rank joins
-            _add(phases, "row gather", time.perf_counter() - t0)
+            with _span("engine.row_gather", phases, "row gather"):
+                rows = gather_rows(mesh, cell)  # every rank joins
             if not primary:
                 return None
             return _Download(
                 torch.from_numpy(np.ascontiguousarray(rows[: len(rids)])))
 
         if primary:
-            writer = threading.Thread(
-                target=_writer, name="pfaai-csv-writer", daemon=True
-            )
+            writer = _in_call_thread(_writer, "pfaai-csv-writer")
             writer.start()
         c0s = list(range(0, len(col_ids), col_chunk))
         for bi, r0 in enumerate(range(rows_done, len(row_ids), band)):
@@ -2231,10 +2266,13 @@ def compute_streamed(
             snake = staged_active and bi % 2 == 1
             for c0 in reversed(c0s) if snake else c0s:
                 if sym and c0 + col_chunk <= r0:
+                    n_mirrored += 1
                     continue  # below the diagonal: the writer mirrors it
                 cids = col_ids[c0 : c0 + col_chunk]
                 dcids = col_denom_ids[c0 : c0 + col_chunk]
-                download = aji_of(rids, cids, drids, dcids)
+                with _span("engine.block"):
+                    download = aji_of(rids, cids, drids, dcids)
+                n_blocks += 1
                 if primary:
                     put((r0, rids, (c0, len(cids), download)))
                 if werr and not multiproc:
@@ -2247,10 +2285,12 @@ def compute_streamed(
                 break
     finally:
         if writer is not None and writer.is_alive():
-            work_q.put(None)
-            writer.join()
+            with _span("engine.tail"):
+                work_q.put(None)
+                writer.join()
         if fp is not None:
             fp.close()
+    timing.count(blocks=n_blocks, mirrored=n_mirrored)
     if downloads is not None:
         downloads.close()
         busy["producer wait"] += downloads.wait_s

@@ -207,7 +207,7 @@ def _load_db_tensors(
     from concurrent.futures import ThreadPoolExecutor
 
     from ..native import native_load_presence
-    from ..utils.timing import phase_timer
+    from ..utils.timing import phase_timer, span
 
     n_threads = _etl_threads(n_threads)
     with phase_timer("  Native ETL       ", enabled=verbose):
@@ -239,7 +239,8 @@ def _load_db_tensors(
         finally:
             conn.close()
 
-    with phase_timer("  Tetras read      ", enabled=verbose):
+    with phase_timer("  Tetras read      ", enabled=verbose,
+                     name="etl.widths"):
         if n_threads > 1:
             with ThreadPoolExecutor(n_threads) as ex:
                 per_protein = list(ex.map(read_protein, protein_set))
@@ -249,13 +250,15 @@ def _load_db_tensors(
 
     with phase_timer("  Presence scatter ", enabled=verbose):
         K = max(LANE, _round_up(int(widths.max()) if P else LANE, LANE))
-        m = np.zeros((P, n_genomes, K), dtype=np.uint8)
+        with span("etl.alloc"):
+            m = np.zeros((P, n_genomes, K), dtype=np.uint8)
         tetramer_ids: list[np.ndarray] = []
-        for p, (tet_arr, blobs) in enumerate(per_protein):
-            tetramer_ids.append(tet_arr)
-            _scatter_presence(m[p], blobs)
+        with span("etl.fill"):
+            for p, (tet_arr, blobs) in enumerate(per_protein):
+                tetramer_ids.append(tet_arr)
+                _scatter_presence(m[p], blobs)
 
-    with phase_timer("  T matrix         ", enabled=verbose):
+    with phase_timer("  T matrix         ", enabled=verbose, name="etl.t"):
         conn = _connect(path)
         t = np.zeros((P, n_genomes), dtype=np.int32)
         try:
@@ -421,7 +424,8 @@ class QueryTargetDatabase:
             self.query_path, self.meta.protein_set, nq, n_threads, verbose
         )
 
-        with phase_timer("  Column merge     ", enabled=verbose):
+        with phase_timer("  Column merge     ", enabled=verbose,
+                         name="etl.merge"):
             tetramer_ids = [
                 np.union1d(tids_t[p], tids_q[p]) for p in range(P)
             ]
@@ -436,6 +440,7 @@ class QueryTargetDatabase:
                 pos_q = np.searchsorted(union, tids_q[p])
                 m[p, :nt][:, pos_t] = m_t[p][:, : w_t[p]]
                 m[p, nt:][:, pos_q] = m_q[p][:, : w_q[p]]
+            del m_t, m_q  # the per-database presences' pages go back here
 
         return PresenceData(
             meta=self.meta,

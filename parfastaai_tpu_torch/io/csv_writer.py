@@ -34,16 +34,21 @@ def write_aji_csv(
 ) -> None:
     """Format and write in ``row_chunk`` slices so transient formatted strings
     stay O(row_chunk * cols) — a G=4096 all-vs-all matrix fully materialized
-    would be several hundred MB of short-lived strings."""
-    mat = aji_matrix(pairs, aji)
-    with open(path, "w") as fp:
-        fp.write(separator + separator.join(pairs.target_names) + "\n")
-        for r0 in range(0, mat.shape[0], row_chunk):
-            rows = format_matrix(mat[r0 : r0 + row_chunk], separator)
-            for name, row in zip(
-                pairs.query_names[r0 : r0 + row_chunk], rows
-            ):
-                fp.write(name + separator + row + "\n")
+    would be several hundred MB of short-lived strings.  Span ``csv`` of a
+    recorded call (``utils.timing``), counter ``rows``."""
+    from ..utils import timing
+
+    with timing.span("csv"):
+        mat = aji_matrix(pairs, aji)
+        with open(path, "w") as fp:
+            fp.write(separator + separator.join(pairs.target_names) + "\n")
+            for r0 in range(0, mat.shape[0], row_chunk):
+                rows = format_matrix(mat[r0 : r0 + row_chunk], separator)
+                for name, row in zip(
+                    pairs.query_names[r0 : r0 + row_chunk], rows
+                ):
+                    fp.write(name + separator + row + "\n")
+        timing.count(rows=mat.shape[0])
 
 
 def format_matrix(mat: np.ndarray, separator: str) -> list[str]:

@@ -320,6 +320,8 @@ def native_load_presence(
     any read error — the caller falls back to the stdlib-sqlite3 ETL, which
     reproduces the identical tensors (same queries, same C library) and
     raises the proper PFAAIError for genuinely corrupt databases."""
+    from ..utils.timing import span
+
     lib = get_lib()
     if lib is None or not lib.sqlite_available():
         return None
@@ -329,21 +331,27 @@ def native_load_presence(
     err = ctypes.create_string_buffer(512)
     widths = np.zeros(P, dtype=np.int32)
     nt = int(n_threads) if n_threads else 0
-    if lib.etl_widths(
-        db_path.encode(), prots, P, _ptr(widths, ctypes.c_int32), nt,
-        err, len(err),
-    ):
+    with span("etl.widths"):
+        failed = lib.etl_widths(
+            db_path.encode(), prots, P, _ptr(widths, ctypes.c_int32), nt,
+            err, len(err),
+        )
+    if failed:
         return None
     k = int(widths.max()) if P else lane
     K = max(lane, ((k + lane - 1) // lane) * lane)
-    m = np.zeros((P, G, K), dtype=np.uint8)
-    tets = np.zeros((P, K), dtype=np.int32)
-    t = np.zeros((P, G), dtype=np.int32)
-    if lib.etl_load(
-        db_path.encode(), prots, P, G, K, _ptr(widths, ctypes.c_int32),
-        _ptr(m, ctypes.c_uint8), _ptr(tets, ctypes.c_int32),
-        _ptr(t, ctypes.c_int32), nt, err, len(err),
-    ):
+    with span("etl.alloc"):
+        m = np.zeros((P, G, K), dtype=np.uint8)
+        tets = np.zeros((P, K), dtype=np.int32)
+        t = np.zeros((P, G), dtype=np.int32)
+    # The fill first touches the zeroed pages of m: their faults are here.
+    with span("etl.fill"):
+        failed = lib.etl_load(
+            db_path.encode(), prots, P, G, K, _ptr(widths, ctypes.c_int32),
+            _ptr(m, ctypes.c_uint8), _ptr(tets, ctypes.c_int32),
+            _ptr(t, ctypes.c_int32), nt, err, len(err),
+        )
+    if failed:
         return None
     tetramer_ids = [tets[p, : widths[p]].copy() for p in range(P)]
     return m, t, widths, tetramer_ids

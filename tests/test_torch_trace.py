@@ -1,0 +1,376 @@
+"""The port's span recorder (``parfastaai_tpu_torch.utils.timing``) on the
+CPU: nothing recorded and no ``record_function`` while it is off; under
+``torch.profiler`` every span of the default call (banded route) and of the
+``-r`` call (dense route) with its parent, one call id per ``cli.run`` and
+the worker's spans under the engine span; the engines' ``phases`` equal to
+their spans' sums key by key; spans closed on an exception; the verbose
+lines' text; ``--profile``'s trace holding the worker's spans on the
+trace's clock; and a ``--quiet --fast`` call that never synchronises in its
+stage clock."""
+
+import io
+import json
+import os
+import re
+import sqlite3
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from parfastaai_tpu_torch import cli, engine, modes
+from parfastaai_tpu_torch.etl.database import SCPDatabase
+from parfastaai_tpu_torch.tools.synth_db import generate
+from parfastaai_tpu_torch.utils import timing
+
+CPU = torch.device("cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+G_TARGET, G_QUERY = 40, 12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def dbs(tmp_path_factory):
+    """A 40-genome target DB and a 12-genome query DB (5 proteins, disjoint
+    genome names)."""
+    d = tmp_path_factory.mktemp("torch_trace")
+    target, query = str(d / "target.db"), str(d / "query.db")
+    generate(target, n_genomes=G_TARGET, n_proteins=5, pool_size=300,
+             tetras_per_genome=100, seed=5)
+    generate(query, n_genomes=G_QUERY, n_proteins=5, pool_size=300,
+             tetras_per_genome=100, seed=6)
+    with sqlite3.connect(query) as conn:
+        conn.execute(
+            "UPDATE genome_metadata SET genome_name = 'q_' || genome_name")
+    return {"target": target, "query": query}
+
+
+@pytest.fixture(scope="module")
+def single(dbs):
+    db = SCPDatabase(dbs["target"])
+    presence = db.load_presence()
+    db.close()
+    return db.meta, presence
+
+
+def _profiled_call(argv) -> timing.Call:
+    """``cli.run(argv)`` under ``torch.profiler``; its recorded call."""
+    before = len(timing.calls) and timing.calls[-1]
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert cli.run(argv) == 0
+    assert timing.calls[-1] is not before
+    return timing.calls[-1]
+
+
+def _by_name(c: timing.Call) -> dict[str, list[timing.Span]]:
+    out: dict[str, list[timing.Span]] = {}
+    for s in c.spans:
+        out.setdefault(s.name, []).append(s)
+    return out
+
+
+def _parent_names(c: timing.Call) -> dict[str, set]:
+    ids = {s.id: s.name for s in c.spans}
+    out: dict[str, set] = {}
+    for s in c.spans:
+        out.setdefault(s.name, set()).add(ids.get(s.parent))
+    return out
+
+
+def test_off_records_nothing_and_calls_no_record_function(
+        dbs, tmp_path, monkeypatch):
+    made = []
+    real = torch.profiler.record_function
+
+    def spy(*args, **kwargs):
+        made.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    before = list(timing.calls)
+    out = tmp_path / "off.csv"
+    assert cli.run([dbs["target"], str(out), "--quiet", "--device", "cpu"]) == 0
+    assert cli.run([dbs["target"], str(tmp_path / "qt.csv"), "--quiet",
+                    "--device", "cpu", "-r", dbs["query"]]) == 0
+    assert list(timing.calls) == before and made == []
+    # outside a recorded call, without phases: one shared object, nothing
+    # allocated for it
+    assert timing.span("engine") is timing.span("cli.run") is timing._NULL
+    assert not timing.active() and timing.handoff() is None
+    # the spy sees a recorded call's spans
+    with timing.recording():
+        assert cli.run([dbs["target"], str(out), "--quiet", "--device",
+                        "cpu"]) == 0
+    assert ("pfaai.cli.run",) in made and ("pfaai.engine",) in made
+
+
+BANDED = {
+    "cli.open": "cli.run", "cli.pairs": "cli.run", "etl": "cli.run",
+    "etl.widths": "etl", "etl.alloc": "etl", "etl.fill": "etl",
+    "engine": "cli.run", "engine.open": "engine",
+    "engine.bucketize": "engine", "engine.upload": "engine",
+    "engine.block": "engine", "engine.gram": "engine.block",
+    "engine.producer_wait": "engine", "engine.tail": "engine",
+    "worker.wait": "engine", "worker.finish": "engine",
+    "worker.csv": "engine", "cli.free": "cli.run",
+}
+DENSE = {
+    "cli.open": "cli.run", "cli.pairs": "cli.run", "etl": "cli.run",
+    "etl.widths": "etl", "etl.alloc": "etl", "etl.fill": "etl",
+    "etl.merge": "etl", "engine": "cli.run", "engine.upload": "engine",
+    "engine.gram": "engine", "engine.d2h": "engine",
+    "engine.finish": "engine", "csv": "cli.run", "cli.free": "cli.run",
+}
+
+
+@pytest.mark.parametrize("route", ["banded", "dense_qt"])
+def test_profiled_call_records_every_span_with_its_parent(
+        route, dbs, tmp_path, monkeypatch):
+    argv = [dbs["target"], str(tmp_path / "x.csv"), "--quiet", "--device",
+            "cpu"]
+    if route == "banded":
+        monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+        want = BANDED
+    else:
+        argv += ["-r", dbs["query"]]
+        want = DENSE
+    c = _profiled_call(argv)
+    names, parents = _by_name(c), _parent_names(c)
+    assert len(names["cli.run"]) == 1 and parents["cli.run"] == {None}
+    for name, parent in want.items():
+        assert name in names, name
+        assert parents[name] == {parent}, name
+    # one call id, every span inside the call's own span
+    root = names["cli.run"][0]
+    assert {s.call for s in c.spans} == {c.id}
+    assert all(root.start <= s.start <= s.end <= root.end for s in c.spans)
+    # counters where the work is counted
+    (etl,) = names["etl"]
+    assert 0 < etl.counters["useful_bytes"] <= etl.counters["presence_bytes"]
+    (pairs,) = names["cli.pairs"]
+    if route == "banded":
+        assert pairs.counters["pairs"] == G_TARGET * (G_TARGET - 1) // 2
+        (eng,) = names["engine"]
+        assert eng.counters["blocks"] == len(names["engine.block"]) > 0
+        assert eng.counters["mirrored"] == 0
+        assert sum(s.counters["rows"] for s in names["worker.csv"]) == G_TARGET
+    else:
+        assert pairs.counters["pairs"] == G_TARGET * G_QUERY
+        assert len(names["etl.fill"]) == 2  # the two databases
+        assert names["csv"][0].counters["rows"] == G_QUERY
+
+
+def test_worker_spans_carry_the_call_and_the_engine_span(
+        dbs, tmp_path, monkeypatch):
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    argv = [dbs["target"], str(tmp_path / "x.csv"), "--quiet", "--device",
+            "cpu"]
+    first, second = _profiled_call(argv), _profiled_call(argv)
+    assert first.id != second.id
+    for c in (first, second):
+        (eng,) = _by_name(c)["engine"]
+        workers = [s for s in c.spans if s.thread == "pfaai-exact-finish"]
+        assert {s.name for s in workers} == {
+            "worker.wait", "worker.finish", "worker.csv"}
+        assert {(s.call, s.parent) for s in workers} == {(c.id, eng.id)}
+        assert all(eng.start <= s.start <= s.end <= eng.end for s in workers)
+
+
+def _recorded(fn) -> tuple[dict, timing.Call]:
+    phases: dict = {}
+    with timing.call(force=True) as c:
+        fn(phases)
+    return phases, c
+
+
+def _engine_runs(single, tmp_path):
+    meta, presence = single
+    axes = modes.all_vs_all_axes(meta)
+    pairs = modes.all_vs_all(meta)
+    out = str(tmp_path / "e.csv")
+    ids = (presence, axes.row_db_ids, axes.col_db_ids, out,
+           axes.query_names, axes.target_names, CPU)
+    return {
+        "banded": lambda ph: engine.compute_streamed_exact(
+            *ids, band=7, col_chunk=5, phases=ph),
+        "streamed": lambda ph: engine.compute_streamed(
+            *ids, band=7, col_chunk=5, phases=ph),
+        "dense": lambda ph: engine.compute(presence, pairs, CPU, phases=ph),
+        "fast": lambda ph: engine.compute_fast(presence, pairs, CPU,
+                                               phases=ph),
+    }
+
+
+@pytest.mark.parametrize("route", ["banded", "streamed", "dense", "fast"])
+def test_phases_equal_the_spans_key_by_key(route, single, tmp_path):
+    """Each ``phases`` key holds the summed seconds of the spans recorded
+    under it (on the CPU every stage is host-timed; the banded engines'
+    ``D2H`` is a CUDA-event sum, 0 here, with no span)."""
+    meta, presence = single
+    presence.__dict__.pop("_torch_bucket_cache", None)  # upload anew
+    phases, c = _recorded(_engine_runs(single, tmp_path)[route])
+    assert phases
+    keyed = {s.key for s in c.spans if s.key is not None}
+    assert keyed <= set(phases)
+    for key, seconds in phases.items():
+        spans = [s.end - s.start for s in c.spans if s.key == key]
+        assert sum(spans) == pytest.approx(seconds, rel=1e-9, abs=1e-12), key
+        assert spans or (key == "D2H" and route in ("banded", "streamed"))
+
+
+def test_spans_close_on_an_exception(dbs, tmp_path, monkeypatch):
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    monkeypatch.setenv("PARFASTAAI_TEST_WORKER_FAULT", "1")
+    with timing.recording():
+        with pytest.raises(RuntimeError, match="injected finish-worker"):
+            cli.run([dbs["target"], str(tmp_path / "x.csv"), "--quiet",
+                     "--device", "cpu"])
+    c = timing.calls[-1]
+    names = _by_name(c)
+    for name in ("cli.run", "engine", "engine.tail", "cli.free"):
+        (s,) = names[name]
+        assert s.start <= s.end, name
+    assert not timing.active()
+    # a bare span too, and the thread's stack unwinds
+    with timing.call(force=True) as bare:
+        with pytest.raises(ValueError):
+            with timing.span("outer"):
+                with timing.span("inner"):
+                    raise ValueError("x")
+        with timing.span("after"):
+            pass
+    parents = _parent_names(bare)
+    assert parents["inner"] == {"outer"} and parents["after"] == {"cli.run"}
+
+
+def test_phase_timer_keeps_its_line():
+    pattern = re.compile(
+        r"^JAC \+ AJI          : \d+\.\d ms; peak RSS \d+\.\d MB\n$")
+    for recorded in (False, True):
+        out = io.StringIO()
+        with timing.call(force=recorded) as c:
+            with timing.phase_timer("JAC + AJI          ", out=out,
+                                    name="engine"):
+                timing.count(blocks=2)
+        assert pattern.match(out.getvalue()), out.getvalue()
+        if recorded:
+            (eng,) = _by_name(c)["engine"]
+            assert eng.counters == {"blocks": 2}
+    quiet = io.StringIO()
+    with timing.phase_timer("CSV write          ", out=quiet, enabled=False):
+        pass
+    assert quiet.getvalue() == ""
+
+
+def test_verbose_cli_lines_keep_their_text(dbs, tmp_path):
+    """The CLI's phase lines, as an operator sees them (a fresh process:
+    the timers print through the stdout taken at import)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "parfastaai_tpu_torch", dbs["target"],
+         str(tmp_path / "v.csv"), "--device", "cpu", "-r", dbs["query"]],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    for label in ("DB open + metadata ", "Presence ETL       ",
+                  "  Column merge     ", "JAC + AJI          ",
+                  "CSV write          "):
+        pattern = re.compile(
+            "^" + re.escape(label) + r": \d+\.\d ms; peak RSS \d+\.\d MB$")
+        assert sum(bool(pattern.match(ln)) for ln in lines) == 1, label
+
+
+def test_profile_trace_holds_the_worker_spans(dbs, tmp_path, monkeypatch):
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    trace_dir = tmp_path / "prof"
+    assert cli.run([dbs["target"], str(tmp_path / "x.csv"), "--quiet",
+                    "--device", "cpu", "--profile", str(trace_dir)]) == 0
+    events = json.loads(
+        (trace_dir / cli.PROFILE_TRACE).read_text())["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "pfaai_span"]
+    (eng,) = [e for e in ours if e["name"] == "engine"]
+    workers = [e for e in ours if e["name"].startswith("worker.")]
+    assert {e["name"] for e in workers} == {
+        "worker.wait", "worker.finish", "worker.csv"}
+    assert len({e["tid"] for e in workers}) == 1
+    assert workers[0]["tid"] != eng["tid"]
+    assert all(eng["ts"] <= e["ts"] and e["ts"] + e["dur"]
+               <= eng["ts"] + eng["dur"] for e in workers)
+    assert all(e["args"]["parent"] == eng["args"]["id"] for e in workers)
+    # the appended copy of a main-thread span sits on its profiler range
+    (annotated,) = [e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"] == timing.PREFIX + "engine"]
+    assert abs(annotated["ts"] - eng["ts"]) < 1e3  # µs
+    assert abs(annotated["dur"] - eng["dur"]) < 1e3
+    names = {e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["tid"] == eng["tid"]}
+    assert names == {"pfaai MainThread"}
+
+
+def test_quiet_fast_call_never_syncs_between_blocks(dbs, tmp_path,
+                                                    monkeypatch):
+    """Without a printed or recorded split, ``compute_fast``'s stage clock
+    never waits for the device: the one ``_sync`` left is the upload's."""
+    calls = []
+    real = engine._sync
+
+    def spy(device):
+        calls.append(threading.current_thread().name)
+        return real(device)
+
+    monkeypatch.setattr(engine, "_sync", spy)
+    argv = [dbs["target"], str(tmp_path / "f.csv"), "--fast", "--device",
+            "cpu"]
+    assert cli.run([*argv, "--quiet"]) == 0
+    assert len(calls) == 1
+    calls.clear()
+    with timing.recording():
+        assert cli.run([*argv, "--quiet"]) == 0
+    assert len(calls) > 1  # the recorded split laps every stage
+
+
+def test_calls_keep_the_last_few():
+    for _ in range(timing.CALLS_KEPT + 3):
+        with timing.call(force=True) as last:
+            pass
+    assert len(timing.calls) == timing.CALLS_KEPT
+    assert timing.calls[-1] is last
+    assert [s.name for s in last.spans] == ["cli.run"]
+
+
+def test_a_handed_off_thread_records_into_the_call():
+    with timing.call(force=True) as c:
+        with timing.span("engine"):
+            handed = timing.handoff()
+
+            def work():
+                with timing.attached(handed):
+                    with timing.span("worker.finish"):
+                        timing.count(rows=3)
+                assert not timing.active()
+
+            t = threading.Thread(target=work, name="w")
+            t.start()
+            t.join(timeout=30)
+            assert not t.is_alive()
+    names = _by_name(c)
+    (w,) = names["worker.finish"]
+    assert (w.call, w.parent, w.thread) == (c.id, names["engine"][0].id, "w")
+    assert w.counters == {"rows": 3}
+    events = timing.chrome_events(c, base_ns=c.wall_anchor_ns)
+    x = {e["name"]: e for e in events if e["ph"] == "X"}
+    assert 0.0 <= x["cli.run"]["ts"] < 1e3  # µs after the call's anchor
+    assert np.isclose(x["worker.finish"]["dur"],
+                      (w.end - w.start) * 1e6)
