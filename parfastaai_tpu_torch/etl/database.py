@@ -24,6 +24,8 @@ orders match by construction.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import sqlite3
 from dataclasses import dataclass
@@ -133,33 +135,39 @@ def _blob_to_ids(blob: bytes) -> np.ndarray:
     return np.frombuffer(blob, dtype="<i4")
 
 
-def _scatter_presence(m_p: np.ndarray, blobs: list[np.ndarray]) -> None:
+def _scatter_presence(
+    m_p: np.ndarray,
+    blobs: list[np.ndarray],
+    n_genomes: int,
+    col_map: np.ndarray | None = None,
+    row0: int = 0,
+) -> None:
     """Scatter one protein's genome-id blobs into its (G, K) presence slice:
-    column j gets a 1 at each id in blobs[j].  Native C++/OpenMP when
-    available (the reference's constructF analogue, ds_helper.hpp:126-162),
-    NumPy otherwise.
+    column ``col_map[j]`` (j without a map) gets a 1 at row ``row0 + g`` for
+    each id g in blobs[j].  Native C++/OpenMP when available (the
+    reference's constructF analogue, ds_helper.hpp:126-162), NumPy otherwise.
 
-    Genome ids are bounds-checked first: the native kernel writes at
-    ``id * K + j`` unguarded, so a corrupt database must be rejected here,
-    not discovered as memory corruption."""
+    Genome ids are bounds-checked first, against the database's own
+    ``n_genomes``: the native kernel writes at
+    ``(row0 + id) * K + col`` unguarded, so a corrupt database must be
+    rejected here, not discovered as memory corruption or as a 1 in another
+    database's rows."""
     from ..native import native_unpack_presence
 
     if blobs:
         offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
         np.cumsum([len(b) for b in blobs], out=offsets[1:])
         gids = np.concatenate(blobs) if offsets[-1] else np.empty(0, np.int32)
-        if len(gids) and (
-            int(gids.min()) < 0 or int(gids.max()) >= m_p.shape[0]
-        ):
+        if len(gids) and (int(gids.min()) < 0 or int(gids.max()) >= n_genomes):
             raise PFAAIError(
                 ErrorCode.CONSTRUCT_ERROR,
-                f"Corrupt database: genome id outside [0, {m_p.shape[0]}) "
+                f"Corrupt database: genome id outside [0, {n_genomes}) "
                 "in a tetramer blob",
             )
-        if native_unpack_presence(gids, offsets, m_p):
+        if native_unpack_presence(gids, offsets, m_p, col_map, row0):
             return
     for j, gids in enumerate(blobs):
-        m_p[gids, j] = 1
+        m_p[row0 + gids, j if col_map is None else col_map[j]] = 1
 
 
 def _read_t_matrix(
@@ -189,37 +197,139 @@ def _etl_threads(n_threads: int | None) -> int:
     return int(env) if env else max(1, min(8, os.cpu_count() or 1))
 
 
-def _load_db_tensors(
-    path: str,
+def _padded_width(widths: np.ndarray) -> int:
+    """The presence's K: the widest protein, rounded up to a lane."""
+    return max(LANE, _round_up(int(widths.max()) if len(widths) else LANE,
+                               LANE))
+
+
+def _union_columns(
+    ids_by_db: list[list[np.ndarray]],
+) -> tuple[list[np.ndarray], np.ndarray, list[np.ndarray | None]]:
+    """The presence's columns from each database's per-protein ascending
+    tetramer ids: ``(tetramer_ids, widths, col_maps)``.
+
+    One database: its own ids, and no map.  Several: per protein the union
+    of their ids (``np.union1d``), and per database an int32 (P, max(1,
+    its widest protein)) map whose row p holds the union column of each of
+    its ids of protein p (``np.searchsorted``)."""
+    if len(ids_by_db) == 1:
+        (ids,) = ids_by_db
+        return ids, np.asarray([len(i) for i in ids], np.int32), [None]
+    union = [functools.reduce(np.union1d, per_protein)
+             for per_protein in zip(*ids_by_db)]
+    col_maps = []
+    for ids in ids_by_db:
+        col_map = np.zeros((len(ids), max([1] + [len(i) for i in ids])),
+                           np.int32)
+        for p, (side, cols) in enumerate(zip(ids, union)):
+            col_map[p, : len(side)] = np.searchsorted(cols, side)
+        col_maps.append(col_map)
+    return union, np.asarray([len(u) for u in union], np.int32), col_maps
+
+
+def _merge_timer(n_dbs: int, verbose: bool):
+    """The ``-r`` union and column maps' span and line; nothing for one
+    database."""
+    from ..utils.timing import phase_timer
+
+    if n_dbs == 1:
+        return contextlib.nullcontext()
+    return phase_timer("  Column merge     ", enabled=verbose,
+                       name="etl.merge")
+
+
+def _load_tensors(
+    dbs: list[tuple[str, int]],
     protein_set: tuple[str, ...],
-    n_genomes: int,
     n_threads: int | None = None,
     verbose: bool = False,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, list[np.ndarray]]:
-    """(m, t, widths, tetramer_ids) for one database and one protein list.
+    """(m, t, widths, tetramer_ids) of one presence over the databases
+    ``dbs`` = [(path, n_genomes)] and one protein list: genome g of a
+    database is row g plus the genome counts of the databases before it.
 
-    Native C++ one-pass loader (native/pfaai_sqlite.cpp: read + scatter + T
-    fused, OpenMP over proteins — measured 2.25x over the Python path at
-    G=4096) with the stdlib-sqlite3 path as fallback and error-reporting
-    surface: any native failure re-runs in Python, which builds identical
-    tensors (same queries through the same C library) and raises the proper
-    PFAAIError for genuinely corrupt databases."""
-    from concurrent.futures import ThreadPoolExecutor
+    One database keeps its own compacted columns.  Several share, per
+    protein, the union of their tetramer ids: each one's ids are read first
+    (``_union_columns``, span ``etl.merge``), then its rows are scattered
+    through its column map straight into the one zeroed presence (span
+    ``etl.fill`` each, counter ``mapped_columns``).
 
-    from ..native import native_load_presence
-    from ..utils.timing import phase_timer, span
+    Native C++ loader (native/pfaai_sqlite.cpp: read + scatter + T fused,
+    OpenMP over proteins — measured 2.25x over the Python path at G=4096)
+    with the stdlib-sqlite3 path as fallback and error-reporting surface:
+    any native failure re-runs everything in Python on a fresh presence,
+    which builds identical tensors (same queries through the same C
+    library) and raises the proper PFAAIError for genuinely corrupt
+    databases."""
+    from ..utils.timing import phase_timer
 
     n_threads = _etl_threads(n_threads)
+    rows = np.cumsum([0] + [n for _, n in dbs]).tolist()
     with phase_timer("  Native ETL       ", enabled=verbose):
-        res = native_load_presence(
-            path, protein_set, n_genomes, n_threads, lane=LANE
-        )
+        res = _native_tensors(dbs, rows, protein_set, n_threads, verbose)
     if res is not None:
         return res
+    return _python_tensors(dbs, rows, protein_set, n_threads, verbose)
+
+
+def _native_tensors(dbs, rows, protein_set, n_threads, verbose):
+    """``_load_tensors`` by the native loader; None on any failure."""
+    from ..native import native_fill, native_tetramer_ids, native_widths
+    from ..utils.timing import count, span
+
+    P = len(protein_set)
+    mapped = len(dbs) > 1
+    read = []  # per database: (widths, tetramer-id buffer or None)
+    with span("etl.widths"):
+        for path, _ in dbs:
+            widths = native_widths(path, protein_set, n_threads)
+            if widths is None:
+                return None
+            tets = None
+            if mapped:
+                tets = native_tetramer_ids(path, protein_set, widths,
+                                           n_threads)
+                if tets is None:
+                    return None
+            read.append((widths, tets))
+    with _merge_timer(len(dbs), verbose):
+        if mapped:
+            tetramer_ids, widths, col_maps = _union_columns(
+                [[tets[p, :w] for p, w in enumerate(widths)]
+                 for widths, tets in read])
+        else:
+            widths, col_maps = read[0][0], [None]
+    K = _padded_width(widths)
+    with span("etl.alloc"):
+        m = np.zeros((P, rows[-1], K), dtype=np.uint8)
+        t = np.zeros((P, rows[-1]), dtype=np.int32)
+        if not mapped:  # the fill writes the lone database's ids here
+            read = [(widths, np.zeros((P, K), dtype=np.int32))]
+    # The fill first touches the zeroed pages of m: their faults are here.
+    for (path, n), (w, tets), col_map, row0 in zip(dbs, read, col_maps,
+                                                   rows):
+        with span("etl.fill"):
+            if not native_fill(path, protein_set, n, w, m, t, tets,
+                               n_threads, col_map, row0):
+                return None
+            if mapped:
+                count(mapped_columns=int(w.sum()))
+    if not mapped:
+        tetramer_ids = [read[0][1][p, :w].copy() for p, w in enumerate(widths)]
+    return m, t, widths, tetramer_ids
+
+
+def _python_tensors(dbs, rows, protein_set, n_threads, verbose):
+    """``_load_tensors`` by threaded stdlib sqlite3 (one read-only
+    connection per worker; the C library releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..utils.timing import count, phase_timer, span
 
     P = len(protein_set)
 
-    def read_protein(prot: str) -> tuple[np.ndarray, list[np.ndarray]]:
+    def read_protein(path: str, prot: str):
         conn = _connect(path)
         try:
             tets: list[int] = []
@@ -239,37 +349,50 @@ def _load_db_tensors(
         finally:
             conn.close()
 
+    read = []  # per database, per protein: (tetramer ids, blobs)
     with phase_timer("  Tetras read      ", enabled=verbose,
                      name="etl.widths"):
-        if n_threads > 1:
-            with ThreadPoolExecutor(n_threads) as ex:
-                per_protein = list(ex.map(read_protein, protein_set))
-        else:
-            per_protein = [read_protein(prot) for prot in protein_set]
-    widths = np.asarray([len(t) for t, _ in per_protein], dtype=np.int32)
+        for path, _ in dbs:
+            read_one = functools.partial(read_protein, path)
+            if n_threads > 1:
+                with ThreadPoolExecutor(n_threads) as ex:
+                    read.append(list(ex.map(read_one, protein_set)))
+            else:
+                read.append([read_one(prot) for prot in protein_set])
+    with _merge_timer(len(dbs), verbose):
+        tetramer_ids, widths, col_maps = _union_columns(
+            [[tets for tets, _ in per_protein] for per_protein in read])
 
     with phase_timer("  Presence scatter ", enabled=verbose):
-        K = max(LANE, _round_up(int(widths.max()) if P else LANE, LANE))
         with span("etl.alloc"):
-            m = np.zeros((P, n_genomes, K), dtype=np.uint8)
-        tetramer_ids: list[np.ndarray] = []
-        with span("etl.fill"):
-            for p, (tet_arr, blobs) in enumerate(per_protein):
-                tetramer_ids.append(tet_arr)
-                _scatter_presence(m[p], blobs)
+            m = np.zeros((P, rows[-1], _padded_width(widths)), dtype=np.uint8)
+        for (_, n), per_protein, col_map, row0 in zip(dbs, read, col_maps,
+                                                      rows):
+            with span("etl.fill"):
+                for p, (tets, blobs) in enumerate(per_protein):
+                    _scatter_presence(
+                        m[p], blobs, n,
+                        None if col_map is None else col_map[p], row0)
+                if col_map is not None:
+                    count(mapped_columns=sum(len(tets)
+                                             for tets, _ in per_protein))
 
     with phase_timer("  T matrix         ", enabled=verbose, name="etl.t"):
-        conn = _connect(path)
-        t = np.zeros((P, n_genomes), dtype=np.int32)
-        try:
-            _read_t_matrix(conn.cursor(), protein_set, t)
-        except (sqlite3.Error, ValueError) as e:
-            raise PFAAIError(
-                ErrorCode.SQLITE_DB_ERROR,
-                f"Failed reading '_genomes' tables from {path}: {e}",
-            )
-        finally:
-            conn.close()
+        t = np.zeros((P, rows[-1]), dtype=np.int32)
+        for (path, n), row0 in zip(dbs, rows):
+            conn = _connect(path)
+            try:
+                # each database's own columns: an id past its genomes
+                # raises, as on a T of its own
+                _read_t_matrix(conn.cursor(), protein_set,
+                               t[:, row0 : row0 + n])
+            except (sqlite3.Error, ValueError) as e:
+                raise PFAAIError(
+                    ErrorCode.SQLITE_DB_ERROR,
+                    f"Failed reading '_genomes' tables from {path}: {e}",
+                )
+            finally:
+                conn.close()
     return m, t, widths, tetramer_ids
 
 
@@ -324,10 +447,9 @@ class SCPDatabase:
         ``verbose`` prints one timing line per construction step, mirroring
         the reference's per-phase timers (interface.hpp:306-327: Lc/Lp, F,
         T; E has no production equivalent — it never materializes)."""
-        m, t, widths, tetramer_ids = _load_db_tensors(
-            self.path,
+        m, t, widths, tetramer_ids = _load_tensors(
+            [(self.path, len(self.meta.genome_set))],
             self.meta.protein_set,
-            len(self.meta.genome_set),
             n_threads,
             verbose,
         )
@@ -403,45 +525,23 @@ class QueryTargetDatabase:
         column union here, because a tetramer present in only one DB
         contributes zero to every query x target product.
 
-        Each database is loaded independently through the fast per-DB path
-        (_load_db_tensors: native C++ loader or threaded Python), then the
-        two compacted column spaces are merged per protein: the union column
-        positions come from one searchsorted per side, and whole (G_side,
-        w_side) slabs are placed with vectorized fancy-index assignment — no
-        per-tetramer Python loop.
+        The union is built first and filled once (``_load_tensors``): both
+        databases' tetramer ids are read without their blobs, the union per
+        protein is ``np.union1d`` of the two and each database's column map
+        one ``np.searchsorted`` into it (span ``etl.merge``); then the target
+        is scattered into rows [0, |T|) and the query into [|T|, |T|+|Q|) of
+        the one zeroed (P, |T|+|Q|, K) presence through their maps, each
+        database's genome ids checked against its own genome count.  No
+        per-database presence exists and nothing is copied between
+        presences.
         """
-        from ..utils.timing import phase_timer
-
-        P = len(self.meta.protein_set)
-        nt = len(self.meta.genome_set)
-        nq = len(self.meta.query_genome_set)
-        G = nt + nq
-
-        m_t, t_t, w_t, tids_t = _load_db_tensors(
-            self.target_path, self.meta.protein_set, nt, n_threads, verbose
+        m, t, widths, tetramer_ids = _load_tensors(
+            [(self.target_path, len(self.meta.genome_set)),
+             (self.query_path, len(self.meta.query_genome_set))],
+            self.meta.protein_set,
+            n_threads,
+            verbose,
         )
-        m_q, t_q, w_q, tids_q = _load_db_tensors(
-            self.query_path, self.meta.protein_set, nq, n_threads, verbose
-        )
-
-        with phase_timer("  Column merge     ", enabled=verbose,
-                         name="etl.merge"):
-            tetramer_ids = [
-                np.union1d(tids_t[p], tids_q[p]) for p in range(P)
-            ]
-            widths = np.asarray([len(u) for u in tetramer_ids], np.int32)
-            K = max(LANE, _round_up(int(widths.max()) if P else LANE, LANE))
-            m = np.zeros((P, G, K), dtype=np.uint8)
-            t = np.zeros((P, G), dtype=np.int32)
-            t[:, :nt] = t_t
-            t[:, nt:] = t_q
-            for p, union in enumerate(tetramer_ids):
-                pos_t = np.searchsorted(union, tids_t[p])
-                pos_q = np.searchsorted(union, tids_q[p])
-                m[p, :nt][:, pos_t] = m_t[p][:, : w_t[p]]
-                m[p, nt:][:, pos_q] = m_q[p][:, : w_q[p]]
-            del m_t, m_q  # the per-database presences' pages go back here
-
         return PresenceData(
             meta=self.meta,
             m=m,

@@ -89,6 +89,8 @@ def _build_and_load() -> ctypes.CDLL | None:
         ctypes.c_int64,
         ctypes.POINTER(ctypes.c_uint8),
         ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
     ]
     lib.format_f64_row.argtypes = [
         ctypes.POINTER(ctypes.c_double),
@@ -117,6 +119,18 @@ def _build_and_load() -> ctypes.CDLL | None:
         ctypes.c_int64,
     ]
     lib.etl_widths.restype = ctypes.c_int32
+    lib.etl_ids.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_char),
+        ctypes.c_int64,
+    ]
+    lib.etl_ids.restype = ctypes.c_int32
     lib.etl_load.argtypes = [
         ctypes.c_char_p,
         ctypes.POINTER(ctypes.c_char_p),
@@ -127,6 +141,10 @@ def _build_and_load() -> ctypes.CDLL | None:
         ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int64,
         ctypes.c_int64,
         ctypes.POINTER(ctypes.c_char),
         ctypes.c_int64,
@@ -305,62 +323,139 @@ def native_format_matrix(mat: np.ndarray, sep: str) -> list[bytes] | None:
     return out
 
 
-def native_load_presence(
+def _sqlite_lib() -> ctypes.CDLL | None:
+    lib = get_lib()
+    return lib if lib is not None and lib.sqlite_available() else None
+
+
+def _protein_names(protein_set: tuple[str, ...]):
+    return (ctypes.c_char_p * len(protein_set))(
+        *[p.encode() for p in protein_set])
+
+
+def native_widths(
+    db_path: str, protein_set: tuple[str, ...], n_threads: int | None = None
+) -> np.ndarray | None:
+    """Per-protein row counts of the '{SCP}_tetras' tables (int32 (P,), the
+    compacted presence widths; pfaai_sqlite.cpp ``etl_widths``).  None when
+    the native library or libsqlite3 is unavailable, or on any read error
+    (the caller falls back to the stdlib-sqlite3 ETL)."""
+    lib = _sqlite_lib()
+    if lib is None:
+        return None
+    widths = np.zeros(len(protein_set), dtype=np.int32)
+    err = ctypes.create_string_buffer(512)
+    failed = lib.etl_widths(
+        db_path.encode(), _protein_names(protein_set), len(protein_set),
+        _ptr(widths, ctypes.c_int32), int(n_threads or 0), err, len(err),
+    )
+    return None if failed else widths
+
+
+def native_tetramer_ids(
+    db_path: str,
+    protein_set: tuple[str, ...],
+    widths: np.ndarray,
+    n_threads: int | None = None,
+) -> np.ndarray | None:
+    """The '{SCP}_tetras' tables' tetramer ids, ascending, without their
+    blobs: int32 (P, max(1, max(widths))), row p's first ``widths[p]``
+    entries (pfaai_sqlite.cpp ``etl_ids``).  A row count other than
+    ``widths[p]`` fails; None on any failure, as ``native_widths``."""
+    lib = _sqlite_lib()
+    if lib is None:
+        return None
+    widths = np.ascontiguousarray(widths, dtype=np.int32)
+    P = len(protein_set)
+    tets = np.zeros((P, max(1, int(widths.max()) if P else 1)), np.int32)
+    err = ctypes.create_string_buffer(512)
+    failed = lib.etl_ids(
+        db_path.encode(), _protein_names(protein_set), P, tets.shape[1],
+        _ptr(widths, ctypes.c_int32), _ptr(tets, ctypes.c_int32),
+        int(n_threads or 0), err, len(err),
+    )
+    return None if failed else tets
+
+
+def native_fill(
     db_path: str,
     protein_set: tuple[str, ...],
     n_genomes: int,
+    widths: np.ndarray,
+    m: np.ndarray,
+    t: np.ndarray,
+    tets: np.ndarray,
     n_threads: int | None = None,
-    lane: int = 128,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray, list[np.ndarray]] | None:
-    """Fused native ETL: SQLite -> (m, t, widths, tetramer_ids) in one C++
-    pass (pfaai_sqlite.cpp) — the framework's native data loader, the
+    col_map: np.ndarray | None = None,
+    row0: int = 0,
+) -> bool:
+    """Fused native ETL of one database (pfaai_sqlite.cpp ``etl_load``: read
+    + scatter + T in one C++ pass, OpenMP over proteins) into the zeroed
+    presence ``m`` (P, G_out, K_out) uint8 and T ``t`` (P, G_out) int32, its
+    genome g on row ``row0 + g`` — the framework's native data loader, the
     counterpart of the reference's C++ row streaming (scp_db.hpp:121-262).
 
-    Returns None when the native library or libsqlite3 is unavailable, or on
-    any read error — the caller falls back to the stdlib-sqlite3 ETL, which
+    Without ``col_map``, '_tetras' row j of protein p is column j and its
+    tetramer id is written to ``tets[p, j]``.  With ``col_map`` (int32, the
+    shape of ``tets``), row j goes to column ``col_map[p, j]``, and ``tets``
+    holds the ids the map was built from (``native_tetramer_ids``): a row
+    whose id differs fails.  Genome ids are checked against ``n_genomes``,
+    row counts against ``widths``.
+
+    False when the native library or libsqlite3 is unavailable, or on any
+    read error — the caller falls back to the stdlib-sqlite3 ETL, which
     reproduces the identical tensors (same queries, same C library) and
     raises the proper PFAAIError for genuinely corrupt databases."""
-    from ..utils.timing import span
-
-    lib = get_lib()
-    if lib is None or not lib.sqlite_available():
-        return None
+    lib = _sqlite_lib()
+    if lib is None:
+        return False
     P = len(protein_set)
-    G = int(n_genomes)
-    prots = (ctypes.c_char_p * P)(*[p.encode() for p in protein_set])
+    G_out, K_out = m.shape[1], m.shape[2]
+    widths = np.ascontiguousarray(widths, dtype=np.int32)
+    # The C loop writes at row0 + g (g < n_genomes) and at column j <
+    # widths[p] or col_map[p, j] unguarded: hold them inside the buffers.
+    if not (
+        m.dtype == np.uint8 and m.flags.c_contiguous and m.shape[0] == P
+        and t.dtype == np.int32 and t.flags.c_contiguous
+        and t.shape == (P, G_out) and tets.dtype == np.int32
+        and tets.flags.c_contiguous and tets.shape[0] == P
+        and widths.shape == (P,) and 0 <= row0
+        and row0 + n_genomes <= G_out
+        and (P == 0 or int(widths.max()) <= tets.shape[1])
+    ):
+        raise ValueError("native_fill: buffers do not hold the database")
+    if col_map is None:
+        if P and int(widths.max()) > K_out:
+            raise ValueError("native_fill: widths exceed the presence's K")
+    else:
+        col_map = np.ascontiguousarray(col_map, dtype=np.int32)
+        if col_map.shape != tets.shape or (
+            col_map.size
+            and not 0 <= int(col_map.min()) <= int(col_map.max()) < K_out
+        ):
+            raise ValueError("native_fill: column map outside the presence")
     err = ctypes.create_string_buffer(512)
-    widths = np.zeros(P, dtype=np.int32)
-    nt = int(n_threads) if n_threads else 0
-    with span("etl.widths"):
-        failed = lib.etl_widths(
-            db_path.encode(), prots, P, _ptr(widths, ctypes.c_int32), nt,
-            err, len(err),
-        )
-    if failed:
-        return None
-    k = int(widths.max()) if P else lane
-    K = max(lane, ((k + lane - 1) // lane) * lane)
-    with span("etl.alloc"):
-        m = np.zeros((P, G, K), dtype=np.uint8)
-        tets = np.zeros((P, K), dtype=np.int32)
-        t = np.zeros((P, G), dtype=np.int32)
-    # The fill first touches the zeroed pages of m: their faults are here.
-    with span("etl.fill"):
-        failed = lib.etl_load(
-            db_path.encode(), prots, P, G, K, _ptr(widths, ctypes.c_int32),
-            _ptr(m, ctypes.c_uint8), _ptr(tets, ctypes.c_int32),
-            _ptr(t, ctypes.c_int32), nt, err, len(err),
-        )
-    if failed:
-        return None
-    tetramer_ids = [tets[p, : widths[p]].copy() for p in range(P)]
-    return m, t, widths, tetramer_ids
+    failed = lib.etl_load(
+        db_path.encode(), _protein_names(protein_set), P, int(n_genomes),
+        tets.shape[1], _ptr(widths, ctypes.c_int32), _ptr(m, ctypes.c_uint8),
+        _ptr(tets, ctypes.c_int32), _ptr(t, ctypes.c_int32),
+        int(n_threads or 0),
+        None if col_map is None else _ptr(col_map, ctypes.c_int32),
+        int(row0), G_out, K_out, err, len(err),
+    )
+    return not failed
 
 
 def native_unpack_presence(
-    gids: np.ndarray, col_offsets: np.ndarray, m_out: np.ndarray
+    gids: np.ndarray,
+    col_offsets: np.ndarray,
+    m_out: np.ndarray,
+    col_map: np.ndarray | None = None,
+    row0: int = 0,
 ) -> bool:
-    """Scatter one protein's genome-id blobs into m_out (G, K) uint8.
+    """Scatter one protein's genome-id blobs into m_out (G, K) uint8: a 1 at
+    row ``row0 + g`` of column ``col_map[j]`` (or j) for each id g of blob j.
+    The caller has checked the ids and the map against m_out.
 
     Returns False when the native library is unavailable (caller falls back).
     """
@@ -370,11 +465,15 @@ def native_unpack_presence(
     gids = np.ascontiguousarray(gids, dtype=np.int32)
     col_offsets = np.ascontiguousarray(col_offsets, dtype=np.int64)
     assert m_out.dtype == np.uint8 and m_out.flags.c_contiguous
+    if col_map is not None:
+        col_map = np.ascontiguousarray(col_map, dtype=np.int32)
     lib.unpack_presence(
         _ptr(gids, ctypes.c_int32),
         _ptr(col_offsets, ctypes.c_int64),
         len(col_offsets) - 1,
         _ptr(m_out, ctypes.c_uint8),
         m_out.shape[1],
+        None if col_map is None else _ptr(col_map, ctypes.c_int32),
+        int(row0),
     )
     return True

@@ -100,13 +100,18 @@ void jaccard_finish_block_f64(const void* counts, int32_t itemsize,
 
 // gids: concatenated int32 genome-id blobs of one protein's '_tetras' rows
 // (column-major concatenation: column j owns gids[col_offsets[j] ..
-// col_offsets[j+1])).  Writes m[g * K + j] = 1 for each id g in column j.
+// col_offsets[j+1])).  Writes m[(row0 + g) * K + c] = 1 for each id g in
+// column j, where c = colmap[j] (an injective map into [0, K)) or, with a
+// null colmap, j.
 void unpack_presence(const int32_t* gids, const int64_t* col_offsets,
-                     int64_t ncols, uint8_t* m, int64_t K) {
+                     int64_t ncols, uint8_t* m, int64_t K,
+                     const int32_t* colmap, int64_t row0) {
+  uint8_t* rows = m + row0 * K;
 #pragma omp parallel for schedule(static)
   for (int64_t j = 0; j < ncols; ++j) {
+    const int64_t c = colmap ? colmap[j] : j;
     for (int64_t k = col_offsets[j]; k < col_offsets[j + 1]; ++k) {
-      m[static_cast<int64_t>(gids[k]) * K + j] = 1;
+      rows[static_cast<int64_t>(gids[k]) * K + c] = 1;
     }
   }
 }

@@ -163,6 +163,189 @@ def test_presence_without_native_matches(dbs, monkeypatch):
         db.close()
 
 
+def _no_native(monkeypatch):
+    monkeypatch.setenv("PARFASTAAI_NO_NATIVE", "1")
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native.get_lib() is None
+
+
+def _fail_second_fill(monkeypatch):
+    """The native loader fills the target, then fails on the query: the
+    Python path refills a fresh union."""
+    real, fills = native.native_fill, []
+
+    def fill(*args, **kwargs):
+        fills.append(args[0])
+        return len(fills) == 1 and real(*args, **kwargs)
+
+    monkeypatch.setattr(native, "native_fill", fill)
+    return fills
+
+
+# (target, query) generator arguments; the query's genome names get a prefix
+UNION_PAIRS = {
+    # a query from the target's seed shares protein 0's pool and draws the
+    # others' afresh; a wider pool adds tetramers the target lacks
+    "query_shares_and_adds": (
+        dict(n_genomes=32, n_proteins=5, pool_size=300, tetras_per_genome=100,
+             seed=5),
+        dict(n_genomes=16, n_proteins=5, pool_size=300, tetras_per_genome=100,
+             seed=5)),
+    "query_wider_pool": (
+        dict(n_genomes=32, n_proteins=5, pool_size=300, tetras_per_genome=100,
+             seed=5),
+        dict(n_genomes=16, n_proteins=5, pool_size=700, tetras_per_genome=150,
+             seed=8)),
+    # each side under 128 columns, their union over
+    "union_crosses_a_lane": (
+        dict(n_genomes=24, n_proteins=4, pool_size=100, tetras_per_genome=40,
+             seed=11),
+        dict(n_genomes=12, n_proteins=4, pool_size=100, tetras_per_genome=40,
+             seed=12)),
+}
+
+
+def _make_pair(d, case):
+    target, query = str(d / f"{case}_t.db"), str(d / f"{case}_q.db")
+    kw_t, kw_q = UNION_PAIRS[case]
+    synth_db.generate(target, **kw_t)
+    synth_db.generate(query, **kw_q)
+    with sqlite3.connect(query) as conn:
+        conn.execute("UPDATE genome_metadata SET genome_name = 'q_' || genome_name")
+    return target, query
+
+
+@pytest.fixture(scope="module")
+def union_pairs(dbs, tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_union")
+    return {"fixture": dbs, **{c: _make_pair(d, c) for c in UNION_PAIRS}}
+
+
+@pytest.mark.parametrize("path", ["native", "no_native", "native_fails_late"])
+@pytest.mark.parametrize("case", ["fixture", *UNION_PAIRS])
+def test_union_fill_matches(union_pairs, case, path, monkeypatch):
+    """The ``-r`` presence filled straight into the union's columns equals
+    the JAX package's per-database load and column merge, field by field,
+    on the native loader, without it, and where it fails after the target's
+    fill."""
+    target, query = union_pairs[case]
+    fills = []
+    if path == "no_native":
+        _no_native(monkeypatch)
+    elif path == "native_fails_late":
+        fills = _fail_second_fill(monkeypatch)
+    db = database.QueryTargetDatabase(target, query)
+    ref = jax_database.QueryTargetDatabase(target, query)
+    try:
+        got, want = db.load_presence(), ref.load_presence()
+    finally:
+        db.close()
+        ref.close()
+    assert_same_record(got, want)
+    assert fills == ([target, query] if path == "native_fails_late" else [])
+    if case == "union_crosses_a_lane":
+        sides = [database.SCPDatabase(p) for p in (target, query)]
+        try:
+            side_widths = [s.load_presence().widths for s in sides]
+        finally:
+            for s in sides:
+                s.close()
+        assert max(w.max() for w in side_widths) <= constants.LANE
+        assert got.widths.max() > constants.LANE
+        assert got.m.shape[2] == 2 * constants.LANE
+
+
+def _corrupt_copy(src, dst, gid):
+    """A copy of ``src`` whose first protein's first '_tetras' blob also
+    holds genome id ``gid``."""
+    with sqlite3.connect(src) as a, sqlite3.connect(dst) as b:
+        a.backup(b)
+    with sqlite3.connect(dst) as conn:
+        (prot,) = conn.execute(
+            "SELECT SCP_acc FROM scp_data LIMIT 1").fetchone()
+        tet, blob = conn.execute(
+            f"SELECT tetramer, genomes FROM '{prot}_tetras' "
+            "ORDER BY tetramer LIMIT 1").fetchone()
+        conn.execute(f"UPDATE '{prot}_tetras' SET genomes = ? "
+                     "WHERE tetramer = ?",
+                     (blob + np.int32(gid).tobytes(), tet))
+
+
+@pytest.mark.parametrize("path", ["native", "no_native"])
+@pytest.mark.parametrize("side", ["query", "target"])
+def test_union_fill_rejects_an_id_past_its_database(dbs, tmp_path, side,
+                                                    path, monkeypatch):
+    """A genome id at its own database's genome count, which would still
+    fit the union's rows (the query's past them, the target's in the
+    query's), is rejected with CONSTRUCT_ERROR, as on a database of its own;
+    neither fill writes outside its database's rows."""
+    target, query = dbs
+    with sqlite3.connect(target) as conn:
+        nt = conn.execute("SELECT COUNT(*) FROM genome_metadata").fetchone()[0]
+    with sqlite3.connect(query) as conn:
+        nq = conn.execute("SELECT COUNT(*) FROM genome_metadata").fetchone()[0]
+    bad = str(tmp_path / "bad.db")
+    if side == "query":
+        _corrupt_copy(query, bad, nq)
+        query = bad
+    else:
+        _corrupt_copy(target, bad, nt)
+        target = bad
+    if path == "no_native":
+        _no_native(monkeypatch)
+    db = database.QueryTargetDatabase(target, query)
+    try:
+        with pytest.raises(types.PFAAIError) as e:
+            db.load_presence()
+        assert e.value.code == types.ErrorCode.CONSTRUCT_ERROR
+        prots = db.meta.protein_set
+    finally:
+        db.close()
+    ref = jax_database.QueryTargetDatabase(target, query)
+    try:
+        with pytest.raises(jax_types.PFAAIError) as e:
+            ref.load_presence()
+        assert int(e.value.code) == int(types.ErrorCode.CONSTRUCT_ERROR)
+    finally:
+        ref.close()
+
+    # the bad database's fill alone, into a zeroed union
+    path_bad, n, row0 = (query, nq, nt) if side == "query" else (target, nt, 0)
+    ids, widths = [], []
+    for p in (target, query):
+        w = native.native_widths(p, prots) if path == "native" else None
+        if path == "native":
+            tets = native.native_tetramer_ids(p, prots, w)
+            ids.append([tets[i, :k] for i, k in enumerate(w)])
+        else:
+            with sqlite3.connect(p) as conn:
+                ids.append([np.asarray([r[0] for r in conn.execute(
+                    f"SELECT tetramer FROM '{q}_tetras' ORDER BY tetramer")],
+                    np.int32) for q in prots])
+        widths.append(np.asarray([len(i) for i in ids[-1]], np.int32))
+    _, union_w, maps = database._union_columns(ids)
+    k = 1 if side == "query" else 0
+    m = np.zeros((len(prots), nt + nq, database._padded_width(union_w)),
+                 np.uint8)
+    t = np.zeros(m.shape[:2], np.int32)
+    others = slice(0, nt) if side == "query" else slice(nt, nt + nq)
+    if path == "native":
+        tets = np.zeros(maps[k].shape, np.int32)
+        for i, row in enumerate(ids[k]):
+            tets[i, : len(row)] = row
+        assert not native.native_fill(path_bad, prots, n, widths[k], m, t,
+                                      tets, col_map=maps[k], row0=row0)
+    else:
+        with sqlite3.connect(path_bad) as conn:
+            blobs = [np.frombuffer(b, "<i4") for (b,) in conn.execute(
+                f"SELECT genomes FROM '{prots[0]}_tetras' ORDER BY tetramer")]
+        with pytest.raises(types.PFAAIError) as e:
+            database._scatter_presence(m[0], blobs, n, maps[k][0], row0)
+        assert e.value.code == types.ErrorCode.CONSTRUCT_ERROR
+    assert not m[:, others].any() and not t[:, others].any()
+
+
 def test_bucketize_presence_matches(dbs):
     target, _ = dbs
     db, ref = database.SCPDatabase(target), jax_database.SCPDatabase(target)

@@ -22,7 +22,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from parfastaai_tpu_torch import cli, engine, modes
+from parfastaai_tpu_torch import cli, engine, modes, native
 from parfastaai_tpu_torch.etl.database import SCPDatabase
 from parfastaai_tpu_torch.tools.synth_db import generate
 from parfastaai_tpu_torch.utils import timing
@@ -170,6 +170,36 @@ def test_profiled_call_records_every_span_with_its_parent(
         assert pairs.counters["pairs"] == G_TARGET * G_QUERY
         assert len(names["etl.fill"]) == 2  # the two databases
         assert names["csv"][0].counters["rows"] == G_QUERY
+
+
+@pytest.mark.parametrize("loader", ["native", "no_native"])
+def test_union_fill_counts_its_mapped_columns(dbs, tmp_path, monkeypatch,
+                                              loader):
+    """A ``-r`` call records the union (``etl.merge``) and one ``etl.fill``
+    a database, whose ``mapped_columns`` add up to both databases' widths;
+    a one-database call maps nothing."""
+    monkeypatch.setenv("PARFASTAAI_EXACT_HOST_BYTES", "1")
+    if loader == "no_native":
+        monkeypatch.setenv("PARFASTAAI_NO_NATIVE", "1")
+        monkeypatch.setattr(native, "_TRIED", False)
+        monkeypatch.setattr(native, "_LIB", None)
+    widths = 0
+    for path in (dbs["target"], dbs["query"]):
+        db = SCPDatabase(path)
+        widths += int(db.load_presence().widths.sum())
+        db.close()
+    with timing.recording():
+        assert cli.run([dbs["target"], str(tmp_path / "qt.csv"), "--quiet",
+                        "--device", "cpu", "-r", dbs["query"]]) == 0
+        qt = _by_name(timing.calls[-1])
+        assert cli.run([dbs["target"], str(tmp_path / "one.csv"), "--quiet",
+                        "--device", "cpu"]) == 0
+        one = _by_name(timing.calls[-1])
+    assert len(qt["etl.merge"]) == 1 and len(qt["etl.fill"]) == 2
+    assert sum(s.counters["mapped_columns"] for s in qt["etl.fill"]) == widths
+    assert "etl.merge" not in one
+    assert sum(s.counters.get("mapped_columns", 0)
+               for s in one["etl.fill"]) == 0
 
 
 def test_worker_spans_carry_the_call_and_the_engine_span(
