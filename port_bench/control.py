@@ -3,13 +3,13 @@ control's.
 
     python3 -m port_bench.control --workload <name> --seeds <n> [<n> ...]
 
-For each seed, in one process: the cell's database(s), one CLI call with
-the cell's flags writing a real CSV (the checked call of a run), and its
-numbers against the plain reference (the program's reading); then the
-reference itself computed one precision below what the configuration
-states, put in the program's place (the control's reading): float32 for
-the f64 output, bfloat16 for the f32 output.  One JSON line per seed.
-The limits sit above every program reading and below every control
+For each seed, in one process: the cell's database(s) and query list, one
+CLI call with the cell's flags writing a real CSV (the checked call of a
+run), and its numbers against the plain reference (the program's reading);
+then the reference itself computed one precision below what the
+configuration states, put in the program's place (the control's reading):
+float32 for the f64 output, bfloat16 for the f32 output.  One JSON line per
+seed.  The limits sit above every program reading and below every control
 reading; ``PERF.md`` gives both.
 """
 
@@ -47,9 +47,11 @@ def control_numbers(cell: harness.Cell, dbs: gen.Databases, seed: int,
     kind, _ = harness.compared(cell)
     tdb = reference.read_database(dbs.target)
     qdb = reference.read_database(dbs.query) if dbs.query else None
-    want = reference.aji(tdb, qdb, device=device, empty_is_zero=kind == "f32")
-    low = reference.aji(tdb, qdb, device=device, dtype=LOWER[kind],
-                        empty_is_zero=kind == "f32")
+    queries = harness.queries_of(dbs)
+    want = reference.aji(tdb, qdb, queries=queries, device=device,
+                         empty_is_zero=kind == "f32")
+    low = reference.aji(tdb, qdb, queries=queries, device=device,
+                        dtype=LOWER[kind], empty_is_zero=kind == "f32")
     rows = harness.sample_rows(len(want.row_names), seed)
     return reference.compare(as_csv(low, rows), want, kind, rows)
 

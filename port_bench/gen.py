@@ -32,6 +32,13 @@ protein has its own random stream, spawned from the seed, so the proteins
 draw in parallel and the result depends on the seed alone.  Two databases
 from one seed (query and target) share the ancestral sets and the protein
 order, and their genome names are disjoint.
+
+The configuration's ``mode`` says what a seed makes: ``all_vs_all`` one
+database of ``n_genomes``; ``query_target`` that database and a query
+database of ``n_query_genomes``; ``query_subset`` the all-vs-all database,
+byte for byte, and ``queries.txt``, ``n_query_genomes`` of its genome names
+drawn from the seed, one a line, in the seed's order (which sets the rows
+of the CSV).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import numpy as np
 
 # 20 amino acids, 4 positions.
 NTETRAMERS = 20**4
+MODES = ("all_vs_all", "query_target", "query_subset")
 
 
 @dataclass
@@ -216,20 +224,49 @@ def write_db(path: str, coll: Collection, seed: int, stream: int) -> None:
 
 @dataclass
 class Databases:
-    """What one seed made: the target database (all-vs-all: the only
-    one), the query database where the configuration has one, and the
-    compacted width of each protein over every genome of the run."""
+    """What one seed made: the target database (all-vs-all and query
+    subset: the only one), the query database (two-database mode), the
+    query list (query-subset mode), and the compacted width of each protein
+    over every genome of the run."""
 
     target: str
     query: str | None
     widths: np.ndarray  # int64 (P,)
     n_genomes: int  # genomes over both databases
+    query_list: str | None = None
+
+
+def mode(config: dict) -> str:
+    """The configuration's mode, checked with its query count."""
+    name, g = config.get("mode"), config["n_genomes"]
+    q = config.get("n_query_genomes")
+    if name not in MODES:
+        raise ValueError(f"unknown mode {name!r}: one of {MODES}")
+    if name == "all_vs_all" and q is not None:
+        raise ValueError("all_vs_all takes no n_query_genomes")
+    if name == "query_target" and not (q is not None and q >= 1):
+        raise ValueError(f"query_target needs n_query_genomes >= 1, has {q}")
+    if name == "query_subset" and not (q is not None and 1 <= q < g):
+        raise ValueError(f"query_subset needs 1 <= n_query_genomes < "
+                         f"n_genomes = {g}, has {q}")
+    return name
+
+
+def query_names(seed: int, config: dict) -> list[str]:
+    """The query subset's genome names: ``n_query_genomes`` distinct names
+    of the database, in an order drawn from the seed."""
+    picks = np.random.default_rng(_seq(seed, 4)).choice(
+        config["n_genomes"], size=config["n_query_genomes"], replace=False)
+    names = genome_names("", config["n_genomes"])
+    return [names[i] for i in picks.tolist()]
 
 
 def make(config: dict, seed: int, directory: str) -> Databases:
-    """The configuration's database(s) from ``seed`` in ``directory``."""
+    """The configuration's database(s), and its query list where it has
+    one, from ``seed`` in ``directory``."""
+    kind = mode(config)
     files, names = ["target.db"], [genome_names("", config["n_genomes"])]
-    if config.get("n_query_genomes"):
+    if kind == "query_target":
         files.append("query.db")
         names.append(genome_names("q_", config["n_query_genomes"]))
     colls = list(zip(files, collections(
@@ -243,15 +280,21 @@ def make(config: dict, seed: int, directory: str) -> Databases:
         len(np.unique(np.concatenate([c.sets[p] % NTETRAMERS
                                       for _, c in colls])))
         for p in range(config["n_proteins"])], dtype=np.int64)
+    query_list = None
+    if kind == "query_subset":
+        query_list = os.path.join(directory, "queries.txt")
+        with open(query_list, "w") as fp:
+            fp.write("".join(n + "\n" for n in query_names(seed, config)))
     return Databases(
         target=paths[0], query=paths[1] if len(paths) > 1 else None,
-        widths=widths, n_genomes=sum(len(c.genome_names) for _, c in colls))
+        widths=widths, n_genomes=sum(len(c.genome_names) for _, c in colls),
+        query_list=query_list)
 
 
 def main(argv: list[str] | None = None) -> None:
     """``python -m port_bench.gen CONFIG SEED DIR``: the configuration's
-    database(s) (CONFIG a JSON object) from SEED in DIR; prints what
-    ``make`` returns as JSON."""
+    database(s) and query list (CONFIG a JSON object) from SEED in DIR;
+    prints what ``make`` returns as JSON."""
     import json
     import sys
 
@@ -261,6 +304,7 @@ def main(argv: list[str] | None = None) -> None:
     config, seed, directory = (argv if argv is not None else sys.argv[1:])
     dbs = make(json.loads(config), int(seed), directory)
     print(json.dumps({"target": dbs.target, "query": dbs.query,
+                      "query_list": dbs.query_list,
                       "widths": dbs.widths.tolist(),
                       "n_genomes": dbs.n_genomes,
                       "seconds": time.perf_counter() - t0}))

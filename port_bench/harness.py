@@ -1,13 +1,14 @@
 """The benchmark of the PyTorch port: one cell, one run, one result line.
 
-A run makes the cell's database(s) from ``--seed``, warms the CLI with one
-call, then drives ``parfastaai_tpu_torch.cli.run`` with the cell's flags in
-a closed loop (one call in flight) for ``--seconds``, each call writing its
-CSV over the same file in the run's temporary directory.  One more call
-after the window writes a CSV of its own, which the plain reference
-(``reference.py``) judges.  ``--trace 1`` runs the
-same loop with spans and ``torch.profiler`` and reports the per-layer
-metrics instead of the end-to-end ones.
+A run makes the cell's database(s), and its query list in query-subset
+mode, from ``--seed``, warms the CLI with one call, then drives
+``parfastaai_tpu_torch.cli.run`` with the cell's flags in a closed loop
+(one call in flight) for ``--seconds``, each call writing its CSV over the
+same file in the run's temporary directory.  One more call after the
+window writes a CSV of its own, which the plain reference
+(``reference.py``) judges.  ``--trace 1`` runs the same loop with spans
+and ``torch.profiler`` and reports the per-layer metrics instead of the
+end-to-end ones.
 
 Everything a cell is made of is found by name: the workload and its metrics
 in ``BENCHMARK.json``, the configuration in the file that entry names, the
@@ -86,6 +87,7 @@ def find_cell(bench: dict, name: str, root: str = ROOT,
         config = json.load(fp)
     with open(os.path.join(home, "traffic", w["traffic"] + ".json")) as fp:
         traffic = json.load(fp)
+    gen.mode(config)
     if (traffic.get("loop", "closed"), traffic.get("in_flight", 1)) != (
             "closed", 1):
         raise ValueError(f"traffic {w['traffic']!r}: the harness runs a "
@@ -124,7 +126,8 @@ def make_databases(config: dict, seed: int, directory: str,
           f"{time.perf_counter() - t0:.3f} s to sync; widths K_p "
           f"{made['widths']}", file=log)
     return gen.Databases(made["target"], made["query"],
-                         np.asarray(made["widths"]), made["n_genomes"])
+                         np.asarray(made["widths"]), made["n_genomes"],
+                         made["query_list"])
 
 
 def rss_bytes() -> int:
@@ -133,10 +136,14 @@ def rss_bytes() -> int:
 
 
 def pairs_per_call(config: dict) -> int:
-    """Genome pairs whose AJI one call writes."""
-    g = config["n_genomes"]
-    if config["mode"] == "query_target":
+    """Genome pairs whose AJI one call writes: in query-subset mode each
+    query against every other genome, each query pair once."""
+    g, mode = config["n_genomes"], gen.mode(config)
+    if mode == "query_target":
         return config["n_query_genomes"] * g
+    if mode == "query_subset":
+        q = config["n_query_genomes"]
+        return q * (g - q) + q * (q - 1) // 2
     return g * (g - 1) // 2
 
 
@@ -183,6 +190,8 @@ def _argv(cell: Cell, dbs: gen.Databases, out: str, device: str) -> list[str]:
     argv = [dbs.target, out]
     if dbs.query:
         argv += ["-r", dbs.query]
+    if dbs.query_list:
+        argv += ["-q", dbs.query_list]
     return argv + list(cell.traffic["flags"]) + ["--quiet", "--device", device]
 
 
@@ -259,13 +268,18 @@ def sample_rows(n_rows: int, seed: int, k: int = 32) -> np.ndarray:
     return np.unique(np.concatenate([[0, n_rows - 1], picks]))
 
 
+def queries_of(dbs: gen.Databases) -> list[str] | None:
+    """The query subset's names in list order, or None."""
+    return reference.read_names(dbs.query_list) if dbs.query_list else None
+
+
 def check(cell: Cell, dbs: gen.Databases, csv_path: str, seed: int,
           device: str) -> dict[str, dict]:
     """The checked call's CSV against the plain reference: each number
     compared with its limit."""
     kind, limits = compared(cell)
-    ref = reference.aji(dbs.target, dbs.query, device=device,
-                        empty_is_zero=(kind == "f32"))
+    ref = reference.aji(dbs.target, dbs.query, queries=queries_of(dbs),
+                        device=device, empty_is_zero=(kind == "f32"))
     got = reference.read_csv(csv_path)
     numbers = reference.compare(got, ref, kind,
                                 sample_rows(len(ref.row_names), seed))

@@ -16,8 +16,11 @@ genome x genome matrix with 0 on the diagonal.  Two-database output has the
 query genomes as rows and the target genomes as columns; its denominators
 read T as ParFastAAI does (``algorithm_impl.hpp:250-253``): with the targets
 at ids [0, nt) and the queries at [nt, nt + nq), row i (query i) reads T at
-id i and column j (target j) at id nq + j.  A cell with N = 0 is NaN in the
-f64 output and 0 in the f32 output.
+id i and column j (target j) at id nq + j.  Query-subset output has the
+listed genomes as rows, in list order, and every genome of the database as
+columns: the all-vs-all matrix's rows of those genomes, with 0 at each
+query's own cell.  A cell with N = 0 is NaN in the f64 output and 0 in the
+f32 output.
 
 Plain PyTorch and NumPy; nothing of the program under test.
 """
@@ -94,21 +97,39 @@ def _presence(dbs: list[Database], prot: str, device: torch.device):
     return m
 
 
+def read_names(path: str) -> list[str]:
+    """The genome names of a query list, whitespace-separated, in order."""
+    with open(path) as fp:
+        return fp.read().split()
+
+
 def aji(target: str | Database, query: str | Database | None = None, *,
-        device="cpu", dtype: torch.dtype = torch.float64,
-        empty_is_zero: bool = False, row_block: int = 1024) -> Matrix:
-    """The AJI matrix of one database (all-vs-all) or of ``query`` against
-    ``target`` (paths, or databases read before).  Counts are exact; the
-    finish (each J_p, their sum, the divide) runs in ``dtype``.
+        queries: list[str] | None = None, device="cpu",
+        dtype: torch.dtype = torch.float64, empty_is_zero: bool = False,
+        row_block: int = 1024) -> Matrix:
+    """The AJI matrix of one database (all-vs-all), of the genomes named
+    in ``queries`` against all of it (query subset), or of ``query``
+    against ``target`` (paths, or databases read before).  Counts are
+    exact; the finish (each J_p, their sum, the divide) runs in ``dtype``.
     ``empty_is_zero``: cells with N = 0 are 0 (the f32 output), else NaN."""
     device = torch.device(device)
     tdb = read_database(target) if isinstance(target, str) else target
     qdb = read_database(query) if isinstance(query, str) else query
+    if qdb is not None and queries is not None:
+        raise ValueError("a query database or a query list, not both")
     if qdb is None:
         dbs, proteins = [tdb], tdb.proteins
         rows = cols = np.arange(len(tdb.genome_names))
-        row_t = col_t = rows
         row_names = col_names = tdb.genome_names
+        if queries is not None:
+            index = {name: g for g, name in enumerate(tdb.genome_names)}
+            unknown = [q for q in queries if q not in index]
+            if unknown or len(set(queries)) != len(queries):
+                raise ValueError(f"query list: unknown {unknown[:3]} or "
+                                 "repeated names")
+            rows = np.array([index[q] for q in queries], dtype=np.int64)
+            row_names = queries
+        row_t, col_t = rows, cols
     else:
         dbs = [tdb, qdb]
         shared = set(qdb.proteins)
@@ -145,7 +166,7 @@ def aji(target: str | Database, query: str | Database | None = None, *,
         out = torch.where(n == 0, torch.zeros((), dtype=dtype, device=device),
                           out)
     if qdb is None:
-        out.fill_diagonal_(0)
+        out[torch.arange(n_rows, device=device), rows_d] = 0
     return Matrix(list(row_names), list(col_names),
                   out.to(torch.float64).cpu().numpy())
 

@@ -76,3 +76,40 @@ def test_new_files_make_a_new_cell(tmp_path):
     assert {k: after[k] for k in before} == before
     for key in ("configs", "workloads", "end_to_end", "per_layer"):
         assert bench[key][:len(old[key])] == old[key]
+
+
+def test_new_query_subset_files_make_a_new_cell(tmp_path):
+    """A query-subset configuration file and a workload entry, nothing
+    else: the cell runs, and the query list reaches the CLI and the
+    reference."""
+    home = tmp_path / "port_bench"
+    shutil.copytree(HOME, home, ignore=shutil.ignore_patterns("__pycache__"))
+    before = digests(home)
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as fp:
+        bench = json.load(fp)
+    config = json.load(open(home / "configs" / "avsa-g4096.json"))
+    config.update(name="qsub-q12-g40", mode="query_subset", n_genomes=40,
+                  n_query_genomes=12, n_proteins=4, tetramers_mean=20,
+                  change_rate=0.2)
+    (home / "configs" / "qsub-q12-g40.json").write_text(json.dumps(config))
+    bench["configs"].append({
+        "name": "qsub-q12-g40", "source": "test", "reduced": ["n_genomes"],
+        "file": "port_bench/configs/qsub-q12-g40.json", "why": "test"})
+    bench["workloads"].append({
+        "name": "qsub-q12-g40-exact", "config": "qsub-q12-g40",
+        "traffic": "exact", "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = harness.find_cell(bench, "qsub-q12-g40-exact", root=str(tmp_path),
+                             home=str(home))
+    result = harness.run_cell(cell, 2**31 + 5, 0.3, False, device="cpu",
+                              log=open(os.devnull, "w"))
+    assert result["correct"], result
+    assert {k: c["value"] for k, c in result["checks"].items()} == {
+        "labels_differing": 0, "values_differing": 0,
+        "text_rows_differing": 0}
+    assert result["attempted"] >= 2 and result["failed"] == 0
+    assert result["metrics"]["pairs_per_s"]["value"] > 0
+    after = digests(home)
+    assert set(after) - set(before) == {"configs/qsub-q12-g40.json"}
+    assert {k: after[k] for k in before} == before

@@ -10,6 +10,7 @@ import torch
 
 import parfastaai_tpu_torch.cli as cli
 from parfastaai_tpu_torch import engine
+from parfastaai_tpu_torch.io import csv_writer
 from port_bench import control, gen, harness
 from port_bench.tests.pb_tiny import CELLS, tiny_cell
 
@@ -98,3 +99,38 @@ def test_fault_is_not_correct(monkeypatch, name, fault):
     assert not r["correct"], r
     assert not harness.passes(r["checks"])
     assert r["failed"] == 0  # the calls ran; their answers are wrong
+
+
+def swap_queries(monkeypatch):
+    """The first two names of the query list read in swapped order: their
+    rows come out swapped."""
+    load = cli.load_query_genomes
+
+    def swapped(path):
+        names = load(path)
+        return [names[1], names[0]] + names[2:]
+
+    monkeypatch.setattr(cli, "load_query_genomes", swapped)
+
+
+def self_not_zero(monkeypatch):
+    """The first query's own cell written as 1 where the CSV's matrix is
+    built."""
+    build = csv_writer.aji_matrix
+
+    def with_self(pairs, aji):
+        mat = build(pairs, aji)
+        mat[0, pairs.row_db_ids[0]] = 1.0
+        return mat
+
+    monkeypatch.setattr(csv_writer, "aji_matrix", with_self)
+
+
+@pytest.mark.parametrize("fault", [swap_queries, self_not_zero],
+                         ids=["queries_swapped", "self_not_zero"])
+def test_query_subset_fault_is_not_correct(monkeypatch, fault):
+    fault(monkeypatch)
+    r = run("qsub-q512-g4096-exact")
+    assert not r["correct"], r
+    assert r["checks"]["values_differing"]["value"] > 0
+    assert r["failed"] == 0

@@ -1,7 +1,9 @@
-"""The benchmark's generator: determinism, one or two databases from a
-seed, the calibration to the source's statistics, and the schema that the
-port's ETL reads."""
+"""The benchmark's generator: determinism, one or two databases and a
+query list from a seed, the calibration to the source's statistics, the
+schema that the port's ETL reads; and what the harness makes of a
+configuration's mode (its pair count and the CLI's arguments)."""
 
+import hashlib
 import json
 import os
 import sqlite3
@@ -10,10 +12,11 @@ import numpy as np
 import pytest
 
 from port_bench import gen, harness
-from port_bench.tests.pb_tiny import TINY
+from port_bench.tests.pb_tiny import TINY, tiny_cell
 
-AVSA = dict(TINY, n_genomes=40)
-QDB = dict(AVSA, n_query_genomes=12)
+AVSA = dict(TINY, n_genomes=40, mode="all_vs_all")
+QDB = dict(AVSA, n_query_genomes=12, mode="query_target")
+QSUB = dict(AVSA, n_query_genomes=12, mode="query_subset")
 
 
 def dump(path):
@@ -178,3 +181,139 @@ def test_port_etl_reads_it(tmp_path):
         for g, blob in rows[f"{prot}_genomes"]:
             assert presence.t[p, g] == len(blob) // 4
     assert os.path.getsize(d.target) > 0
+
+
+def test_query_subset_writes_one_database_and_a_list(tmp_path):
+    d = gen.make(QSUB, 2**31 + 41, str(tmp_path))
+    assert d.query is None
+    assert sorted(os.listdir(tmp_path)) == ["queries.txt", "target.db"]
+    with open(d.query_list) as fp:
+        lines = fp.read().split("\n")
+    assert lines[-1] == ""
+    names = lines[:-1]
+    in_db = [r[0] for r in dump(d.target)["genome_metadata"]]
+    assert len(names) == len(set(names)) == 12
+    assert set(names) <= set(in_db)
+    assert names != sorted(names, key=in_db.index)  # not database order
+    assert d.n_genomes == 40 and len(d.widths) == QSUB["n_proteins"]
+
+
+def test_query_subset_database_is_all_vs_alls(tmp_path):
+    """At one seed and G the query subset's database is the all-vs-all
+    one, byte for byte, with the same widths."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir()
+    b.mkdir()
+    da = gen.make(AVSA, 2**31 + 42, str(a))
+    db = gen.make(QSUB, 2**31 + 42, str(b))
+    with open(da.target, "rb") as fa, open(db.target, "rb") as fb:
+        assert fa.read() == fb.read()
+    assert np.array_equal(da.widths, db.widths)
+    assert da.n_genomes == db.n_genomes and da.query_list is None
+
+
+def test_query_list_follows_the_seed(tmp_path):
+    lists = []
+    for i, seed in enumerate([2**31 + 43, 2**31 + 43, 2**31 + 44]):
+        d = tmp_path / str(i)
+        d.mkdir()
+        with open(gen.make(QSUB, seed, str(d)).query_list) as fp:
+            lists.append(fp.read())
+    assert lists[0] == lists[1] != lists[2]
+    assert lists[0].split() == gen.query_names(2**31 + 43, QSUB)
+
+
+@pytest.mark.parametrize("config", [
+    dict(QSUB, n_query_genomes=0), dict(QSUB, n_query_genomes=40),
+    dict(QSUB, n_query_genomes=41), {k: v for k, v in QSUB.items()
+                                      if k != "n_query_genomes"},
+    dict(QDB, n_query_genomes=0), dict(AVSA, n_query_genomes=3),
+    dict(AVSA, mode="subset"), {k: v for k, v in AVSA.items()
+                                if k != "mode"}],
+    ids=["q0", "q=g", "q>g", "qsub-no-q", "qdb-q0", "avsa-q", "unknown",
+         "no-mode"])
+def test_bad_mode_or_query_count_raises(tmp_path, config):
+    with pytest.raises(ValueError, match="mode|n_query_genomes"):
+        gen.make(config, 1, str(tmp_path))
+    with pytest.raises(ValueError, match="mode|n_query_genomes"):
+        harness.pairs_per_call(config)
+    assert os.listdir(tmp_path) == []
+
+
+def test_find_cell_checks_the_mode(tmp_path):
+    bench = harness.load_benchmark()
+    (tmp_path / "bad.json").write_text(json.dumps(dict(QSUB, n_genomes=12)))
+    bench["configs"].append({"name": "bad", "file": "bad.json"})
+    bench["workloads"].append({"name": "bad-exact", "config": "bad",
+                               "traffic": "exact", "chips": 1})
+    with pytest.raises(ValueError, match="n_query_genomes"):
+        harness.find_cell(bench, "bad-exact", root=str(tmp_path))
+
+
+def test_pairs_per_call():
+    q, g = 512, 4096
+    qsub = dict(mode="query_subset", n_genomes=g, n_query_genomes=q)
+    assert harness.pairs_per_call(qsub) == 512 * 3584 + 512 * 511 // 2
+    assert harness.pairs_per_call(qsub) == 1_965_824
+    assert harness.pairs_per_call(dict(QSUB)) == 12 * 28 + 12 * 11 // 2
+    with pytest.raises(ValueError, match="unknown mode"):
+        harness.pairs_per_call(dict(qsub, mode="all-vs-all"))
+
+
+def test_argv_names_the_query_list(tmp_path):
+    cell = tiny_cell("qsub-q512-g4096-exact")
+    d = gen.make(cell.config, 2**31 + 45, str(tmp_path))
+    out = str(tmp_path / "o.csv")
+    assert harness._argv(cell, d, out, "cpu") == [
+        d.target, out, "-q", d.query_list, "--quiet", "--device", "cpu"]
+
+
+def content_digest(path):
+    """The rows of every table, in name and row order (the file's bytes
+    also hold the SQLite library's version)."""
+    conn = sqlite3.connect(path)
+    try:
+        h = hashlib.sha256()
+        for (t,) in conn.execute("SELECT name FROM sqlite_master WHERE "
+                                 "type='table' ORDER BY name"):
+            rows = conn.execute(f"SELECT * FROM '{t}' ORDER BY rowid")
+            h.update(repr((t, rows.fetchall())).encode())
+        return h.hexdigest()
+    finally:
+        conn.close()
+
+
+# What the two cells of BENCHMARK.json made before the harness took a third
+# mode, at tiny sizes and seed 2**31 + 21: the databases' rows, the widths,
+# the CLI's arguments, and the pairs a call at the cells' own sizes.
+MADE_BEFORE = {
+    "avsa-g4096-exact": dict(
+        target="09b214a3cd8f7092973ba5bff9f266f661b9e64c6bc8a892c31e4f2d5fdef21b",
+        query=None, widths=[360, 153, 252, 198, 108], n_genomes=40,
+        argv=["target.db", "o.csv", "--quiet", "--device", "cuda"],
+        pairs_tiny=780, pairs_full=8386560),
+    "qdb-q256-t4096-exact": dict(
+        target="3325eb1391d6842751c2982e0eb4435562dc0580f136465718dc222c418a38ba",
+        query="62e8f394b6007bb88d85777629d6f8c648bebb215211eff07387b5098a6692c1",
+        widths=[456, 194, 319, 251, 137], n_genomes=52,
+        argv=["target.db", "o.csv", "-r", "query.db", "--quiet", "--device",
+              "cuda"],
+        pairs_tiny=480, pairs_full=1048576),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MADE_BEFORE))
+def test_existing_cells_make_what_they_made(tmp_path, name):
+    cell = tiny_cell(name)
+    d = gen.make(cell.config, 2**31 + 21, str(tmp_path))
+    argv = harness._argv(cell, d, str(tmp_path / "o.csv"), "cuda")
+    full = harness.find_cell(harness.load_benchmark(), name).config
+    assert dict(
+        target=content_digest(d.target),
+        query=content_digest(d.query) if d.query else None,
+        widths=d.widths.tolist(), n_genomes=d.n_genomes,
+        argv=[os.path.relpath(a, tmp_path) if a.startswith(str(tmp_path))
+              else a for a in argv],
+        pairs_tiny=harness.pairs_per_call(cell.config),
+        pairs_full=harness.pairs_per_call(full)) == MADE_BEFORE[name]
+    assert d.query_list is None

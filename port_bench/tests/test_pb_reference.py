@@ -82,6 +82,34 @@ def test_query_target_layout_and_t_read(tmp_path):
     assert not same(plain, want)
 
 
+@pytest.mark.parametrize("queries", [[3, 0], [1, 2, 0], [2]],
+                         ids=["two", "three", "one"])
+def test_query_subset_rows(tmp_path, queries):
+    """The query subset's rows are the all-vs-all matrix's rows of the
+    listed genomes, in list order, with 0 at each query's own cell."""
+    path = str(tmp_path / "a.db")
+    write_sets(path, SETS)
+    full = reference.aji(path)
+    names = [full.row_names[g] for g in queries]
+    got = reference.aji(path, queries=names, row_block=2)
+    assert got.row_names == names
+    assert got.col_names == full.col_names
+    assert same(got.aji, full.aji[queries])
+    assert (got.aji[np.arange(len(queries)), queries] == 0).all()
+    f32 = reference.aji(path, queries=names, dtype=torch.float32)
+    assert same(f32.aji, reference.aji(path, dtype=torch.float32).aji[queries])
+    with pytest.raises(ValueError, match="query list"):
+        reference.aji(path, queries=names + ["nothere"])
+    with pytest.raises(ValueError, match="query list"):
+        reference.aji(path, queries=names + names[:1])
+
+
+def test_read_names(tmp_path):
+    path = tmp_path / "q.txt"
+    path.write_text("b.fna\n a.fna\tc.fna\n\n")
+    assert reference.read_names(str(path)) == ["b.fna", "a.fna", "c.fna"]
+
+
 def test_lower_precision_differs(tmp_path):
     path = str(tmp_path / "a.db")
     write_sets(path, SETS)
@@ -101,19 +129,23 @@ def run_cli(argv):
     ([], {}), ([], {"PARFASTAAI_EXACT_HOST_BYTES": "1"}),
     (["--streamed"], {}), (["--fast"], {})],
     ids=["dense", "banded", "streamed", "fast"])
-@pytest.mark.parametrize("two_db", [False, True], ids=["avsa", "qdb"])
-def test_port_cli_agrees(tmp_path, monkeypatch, flags, env, two_db):
+@pytest.mark.parametrize("mode", ["all_vs_all", "query_target",
+                                  "query_subset"], ids=["avsa", "qdb", "qsub"])
+def test_port_cli_agrees(tmp_path, monkeypatch, flags, env, mode):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     cfg = dict(n_genomes=30, n_proteins=4, tetramers_mean=20,
-               size_log_sd=0.46, change_rate=0.2)
-    if two_db:
+               size_log_sd=0.46, change_rate=0.2, mode=mode)
+    if mode != "all_vs_all":
         cfg["n_query_genomes"] = 7
     d = gen.make(cfg, 2**33 + 1, str(tmp_path))
     out = str(tmp_path / "out.csv")
-    run_cli([d.target, out] + (["-r", d.query] if d.query else []) + flags)
+    run_cli([d.target, out] + (["-r", d.query] if d.query else [])
+            + (["-q", d.query_list] if d.query_list else []) + flags)
     kind = "exact" if not flags else "f32"
-    ref = reference.aji(d.target, d.query, empty_is_zero=kind == "f32")
+    queries = reference.read_names(d.query_list) if d.query_list else None
+    ref = reference.aji(d.target, d.query, queries=queries,
+                        empty_is_zero=kind == "f32")
     rows = np.arange(len(ref.row_names))
     got = reference.compare(reference.read_csv(out), ref, kind, rows)
     if kind == "exact":
