@@ -1249,13 +1249,21 @@ def compute(
     with _span("engine.gram", phases, "Gram"):
         counts_d = pair_counts_device(m, pairs.db_a, pairs.db_b, out_dtype)
         _sync(device)
+        n_prot, n_genomes = m.shape[:2]
+        # Entries the per-protein G x G Grams compute, and those the pairs
+        # keep of them.
+        timing.count(gram_cells=n_prot * n_genomes * n_genomes,
+                     gathered=n_prot * pairs.n_pairs)
     with _span("engine.d2h", phases, "D2H"):
         counts = counts_d.cpu().numpy()
     with _span("engine.finish", phases, "host finish"):
         del m, counts_d
         t = presence.t
-        s, n = jaccard_finish(
-            counts, t[:, pairs.denom_a], t[:, pairs.denom_b])
+        with _span("engine.finish.gather"):
+            ta, tb = t[:, pairs.denom_a], t[:, pairs.denom_b]
+        with _span("engine.finish.sum"):
+            s, n = jaccard_finish(counts, ta, tb)
+        del ta, tb
         return _result(pairs, s, n)
 
 

@@ -35,11 +35,14 @@ def write_aji_csv(
     """Format and write in ``row_chunk`` slices so transient formatted strings
     stay O(row_chunk * cols) — a G=4096 all-vs-all matrix fully materialized
     would be several hundred MB of short-lived strings.  Span ``csv`` of a
-    recorded call (``utils.timing``), counter ``rows``."""
+    recorded call (``utils.timing``), counters ``rows`` and ``mirrored``
+    (the pairs scattered to a mirror cell too)."""
     from ..utils import timing
 
     with timing.span("csv"):
         mat = aji_matrix(pairs, aji)
+        if timing.active():
+            timing.count(mirrored=np.count_nonzero(pairs.mirror_row >= 0))
         with open(path, "w") as fp:
             fp.write(separator + separator.join(pairs.target_names) + "\n")
             for r0 in range(0, mat.shape[0], row_chunk):

@@ -5,8 +5,9 @@ CPU: nothing recorded and no ``record_function`` while it is off; under
 the worker's spans under the engine span; the engines' ``phases`` equal to
 their spans' sums key by key; spans closed on an exception; the verbose
 lines' text; ``--profile``'s trace holding the worker's spans on the
-trace's clock; and a ``--quiet --fast`` call that never synchronises in its
-stage clock."""
+trace's clock; a ``--quiet --fast`` call that never synchronises in its
+stage clock; and a dense ``-q`` call's query list, finish split, Gram and
+mirror counters."""
 
 import io
 import json
@@ -137,7 +138,7 @@ DENSE = {
 
 @pytest.mark.parametrize("route", ["banded", "dense_qt"])
 def test_profiled_call_records_every_span_with_its_parent(
-        route, dbs, tmp_path, monkeypatch):
+        route, dbs, single, tmp_path, monkeypatch):
     argv = [dbs["target"], str(tmp_path / "x.csv"), "--quiet", "--device",
             "cpu"]
     if route == "banded":
@@ -170,6 +171,89 @@ def test_profiled_call_records_every_span_with_its_parent(
         assert pairs.counters["pairs"] == G_TARGET * G_QUERY
         assert len(names["etl.fill"]) == 2  # the two databases
         assert names["csv"][0].counters["rows"] == G_QUERY
+        assert names["csv"][0].counters["mirrored"] == 0
+        # one Gram a shared protein over the union of both databases
+        (gram,) = names["engine.gram"]
+        n_prot = len(single[0].protein_set)  # both databases have them all
+        assert gram.counters == {
+            "gram_cells": n_prot * (G_TARGET + G_QUERY) ** 2,
+            "gathered": n_prot * G_TARGET * G_QUERY}
+
+
+G_QSUB, Q_QSUB, P_QSUB = 1200, 600, 4
+
+
+@pytest.fixture(scope="module")
+def qsub(tmp_path_factory):
+    """A 1200-genome DB of 4 proteins and a list of 600 of its genomes in
+    reverse database order: a dense ``-q`` call whose finish takes
+    milliseconds on the CPU, well above its spans' own cost."""
+    d = tmp_path_factory.mktemp("torch_trace_qsub")
+    path, listed = str(d / "qsub.db"), str(d / "queries.txt")
+    generate(path, n_genomes=G_QSUB, n_proteins=P_QSUB, pool_size=300,
+             tetras_per_genome=100, seed=7)
+    db = SCPDatabase(path)
+    names = db.meta.genome_set[::-1][:Q_QSUB]
+    db.close()
+    with open(listed, "w") as fp:
+        fp.write("\n".join(names) + "\n")
+    return path, listed
+
+
+def test_query_subset_call_records_its_list_finish_split_and_counters(
+        qsub, tmp_path):
+    """A dense ``-q`` call: ``cli.queries`` (a leaf, counter ``queries``),
+    the finish's two children inside ``engine.finish`` with no ``phases``
+    key and most of its time, the Gram's computed and kept entries, and
+    the CSV's mirrored pairs."""
+    path, listed = qsub
+    c = _profiled_call([path, str(tmp_path / "q.csv"), "-q", listed,
+                        "--quiet", "--device", "cpu"])
+    names, parents = _by_name(c), _parent_names(c)
+    q, g = Q_QSUB, G_QSUB
+    n_pairs = q * (g - q) + q * (q - 1) // 2
+    (queries,) = names["cli.queries"]
+    assert parents["cli.queries"] == {"cli.run"}
+    assert queries.counters == {"queries": q}
+    assert queries.id not in {s.parent for s in c.spans}
+    assert names["cli.pairs"][0].counters["pairs"] == n_pairs
+    (gram,) = names["engine.gram"]
+    assert gram.counters == {"gram_cells": P_QSUB * g * g,
+                             "gathered": P_QSUB * n_pairs}
+    (finish,) = names["engine.finish"]
+    (gather,) = names["engine.finish.gather"]
+    (total,) = names["engine.finish.sum"]
+    assert parents["engine.finish.gather"] == {"engine.finish"}
+    assert parents["engine.finish.sum"] == {"engine.finish"}
+    assert finish.key == "host finish"
+    assert gather.key is None and total.key is None
+    assert (finish.start <= gather.start <= gather.end <= total.start
+            <= total.end <= finish.end)
+    inside = (gather.end - gather.start) + (total.end - total.start)
+    assert inside > 0.5 * (finish.end - finish.start)
+    (csv,) = names["csv"]
+    assert csv.counters == {"rows": q, "mirrored": q * (q - 1) // 2}
+
+
+@pytest.mark.parametrize("mode", ["avsa", "qt", "qsub"])
+def test_csv_counts_its_mirrored_pairs(mode, dbs, single, tmp_path):
+    """``csv``'s ``mirrored``: every pair of a dense all-vs-all call, none
+    of a ``-r`` call, the query pairs of a ``-q`` call."""
+    argv = [dbs["target"], str(tmp_path / "m.csv"), "--quiet", "--device",
+            "cpu"]
+    want = G_TARGET * (G_TARGET - 1) // 2
+    if mode == "qt":
+        argv += ["-r", dbs["query"]]
+        want = 0
+    elif mode == "qsub":
+        listed = tmp_path / "queries.txt"
+        listed.write_text("\n".join(single[0].genome_set[:G_QUERY]))
+        argv += ["-q", str(listed)]
+        want = G_QUERY * (G_QUERY - 1) // 2
+    with timing.recording():
+        assert cli.run(argv) == 0
+    (csv,) = _by_name(timing.calls[-1])["csv"]
+    assert csv.counters["mirrored"] == want
 
 
 @pytest.mark.parametrize("loader", ["native", "no_native"])
@@ -238,12 +322,16 @@ def _engine_runs(single, tmp_path):
         "streamed": lambda ph: engine.compute_streamed(
             *ids, band=7, col_chunk=5, phases=ph),
         "dense": lambda ph: engine.compute(presence, pairs, CPU, phases=ph),
+        "dense_qsub": lambda ph: engine.compute(
+            presence, modes.query_subset(meta, list(meta.genome_set[::-3])),
+            CPU, phases=ph),
         "fast": lambda ph: engine.compute_fast(presence, pairs, CPU,
                                                phases=ph),
     }
 
 
-@pytest.mark.parametrize("route", ["banded", "streamed", "dense", "fast"])
+@pytest.mark.parametrize("route", ["banded", "streamed", "dense", "fast",
+                                   "dense_qsub"])
 def test_phases_equal_the_spans_key_by_key(route, single, tmp_path):
     """Each ``phases`` key holds the summed seconds of the spans recorded
     under it (on the CPU every stage is host-timed; the banded engines'
