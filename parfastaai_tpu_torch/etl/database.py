@@ -131,6 +131,48 @@ def _protein_set(cur: sqlite3.Cursor, table: str = "scp_data") -> tuple[str, ...
     return tuple(r[0] for r in rows)
 
 
+# The reference's shared-protein query (db_helper.hpp:140-143).
+_SCP_JOIN = (
+    "SELECT DISTINCT target_table.SCP_acc"
+    "  FROM scp_data as target_table, QueryDB.scp_data as query_table"
+    "  WHERE target_table.SCP_acc = query_table.SCP_acc"
+)
+# The same names as a semi-join: each target row is tested once against the
+# query's names, where the join meets every query row of its SCP.
+_SCP_SEMI_JOIN = (
+    "SELECT DISTINCT SCP_acc FROM main.scp_data"
+    "  WHERE SCP_acc IN (SELECT SCP_acc FROM QueryDB.scp_data)"
+)
+
+
+def _planner_may_reorder(cur: sqlite3.Cursor) -> bool:
+    """True where either attached database holds an index on ``scp_data``
+    or planner statistics (``sqlite_stat*``, written by ANALYZE)."""
+    for schema in ("main", "QueryDB"):
+        if cur.execute(
+            f"SELECT 1 FROM {schema}.sqlite_master WHERE (type = 'index'"
+            "  AND tbl_name = 'scp_data' COLLATE NOCASE)"
+            "  OR name LIKE 'sqlite_stat%' LIMIT 1"
+        ).fetchone():
+            return True
+    return False
+
+
+def _shared_scps(cur: sqlite3.Cursor) -> tuple[str, ...]:
+    """The SCP accessions of ``main.scp_data`` that ``QueryDB.scp_data``
+    also has, in the emission order of the reference's join.
+
+    On unindexed tables without statistics SQLite runs that join as a scan
+    of the target that probes the query, so it emits each name at its first
+    target row; the semi-join scans the target the same way and gives the
+    same tuple, without the join's |T| x |Q| rows a protein behind its
+    DISTINCT.  An index or statistics let the planner pick another order
+    for either statement, so there the join itself runs.
+    """
+    sql = _SCP_JOIN if _planner_may_reorder(cur) else _SCP_SEMI_JOIN
+    return tuple(r[0] for r in cur.execute(sql))
+
+
 def _blob_to_ids(blob: bytes) -> np.ndarray:
     return np.frombuffer(blob, dtype="<i4")
 
@@ -469,29 +511,32 @@ class QueryTargetDatabase:
     The shared genome id space places target genomes at ``[0, |T|)`` and query
     genomes at ``[|T|, |T|+|Q|)`` (reference scp_db.hpp:353, 519).  The protein
     set is the inner join of the two DBs' SCP accessions in SQLite DISTINCT
-    emission order (reference db_helper.hpp:110-166).
+    emission order (reference db_helper.hpp:110-166; ``_shared_scps``).  In
+    a recorded call span ``cli.attach`` times the open, the ATTACH and both
+    genome reads, and ``cli.join`` the protein set (counter ``shared_scps``).
     """
 
     def __init__(self, target_path: str, query_path: str):
+        from ..utils.timing import count, span
+
         self.target_path = target_path
         self.query_path = query_path
-        self.conn = _connect(target_path)
-        if not os.path.isfile(query_path):
-            raise PFAAIError(
-                ErrorCode.SQLITE_DB_ERROR, f"Database file not found: {query_path}"
-            )
-        self.conn.execute("ATTACH DATABASE ? AS QueryDB", (query_path,))
-        cur = self.conn.cursor()
-        # Same join as reference db_helper.hpp:140-143.
-        shared = cur.execute(
-            "SELECT DISTINCT target_table.SCP_acc"
-            "  FROM scp_data as target_table, QueryDB.scp_data as query_table"
-            "  WHERE target_table.SCP_acc = query_table.SCP_acc"
-        ).fetchall()
-        tgt_genomes = _genome_set(cur, "main.genome_metadata")
-        qry_genomes = _genome_set(cur, "QueryDB.genome_metadata")
+        with span("cli.attach"):
+            self.conn = _connect(target_path)
+            if not os.path.isfile(query_path):
+                raise PFAAIError(
+                    ErrorCode.SQLITE_DB_ERROR,
+                    f"Database file not found: {query_path}",
+                )
+            self.conn.execute("ATTACH DATABASE ? AS QueryDB", (query_path,))
+            cur = self.conn.cursor()
+            tgt_genomes = _genome_set(cur, "main.genome_metadata")
+            qry_genomes = _genome_set(cur, "QueryDB.genome_metadata")
+        with span("cli.join"):
+            shared = _shared_scps(cur)
+            count(shared_scps=len(shared))
         self.meta = DBMetaData(
-            protein_set=tuple(r[0] for r in shared),
+            protein_set=shared,
             genome_set=tgt_genomes,
             query_genome_set=qry_genomes,
         )

@@ -14,6 +14,7 @@ a port run."""
 
 import json
 import os
+import shutil
 import sqlite3
 import subprocess
 import sys
@@ -55,12 +56,32 @@ def dbs(tmp_path_factory):
     qfile.write_text(
         "\n".join(f"synthetic_genome_{i:05d}.fna.gz" for i in (30, 2, 17)) + "\n"
     )
-    return {"target": target, "query": query, "qfile": str(qfile)}
+    # the same pair with each database's 'scp_data' in an order of its own:
+    # the target's genome-major over a shuffled protein order, the query's
+    # protein-major in reverse and without one protein
+    target_scp, query_scp = str(d / "target_scp.db"), str(d / "query_scp.db")
+    shutil.copy(target, target_scp)
+    shutil.copy(query, query_scp)
+    for path, order in ((target_scp,
+                         "genome_id, instr('40132', substr(SCP_acc, 7, 1))"),
+                        (query_scp, "SCP_acc DESC, genome_id")):
+        with sqlite3.connect(path) as conn:
+            conn.execute("CREATE TABLE scp_rows AS SELECT * FROM scp_data "
+                         f"ORDER BY {order}")
+            conn.execute("DELETE FROM scp_data")
+            conn.execute("INSERT INTO scp_data SELECT * FROM scp_rows")
+            conn.execute("DROP TABLE scp_rows")
+    with sqlite3.connect(query_scp) as conn:
+        conn.execute("DELETE FROM scp_data WHERE SCP_acc = 'PF90002.1'")
+    return {"target": target, "query": query, "qfile": str(qfile),
+            "target_scp": target_scp, "query_scp": query_scp}
 
 
 def _mode_args(mode, dbs):
     if mode == "qt":
         return ["-r", dbs["query"]]
+    if mode == "qt_scp_order":
+        return ["-r", dbs["query_scp"]]
     if mode == "qsub":
         return ["-q", dbs["qfile"]]
     if mode == "sep":
@@ -74,12 +95,13 @@ def _read_csv(path, sep=","):
     return np.array([[float(v) for v in ln.split(sep)[1:]] for ln in lines[1:]])
 
 
-@pytest.mark.parametrize("mode", ["all", "qsub", "qt", "sep"])
+@pytest.mark.parametrize("mode", ["all", "qsub", "qt", "sep", "qt_scp_order"])
 def test_default_csv_byte_identical(mode, dbs, tmp_path):
     extra = _mode_args(mode, dbs)
+    target = dbs["target_scp" if mode == "qt_scp_order" else "target"]
     want, got = tmp_path / "jax.csv", tmp_path / "port.csv"
-    assert jax_run([dbs["target"], str(want), "--quiet", *extra]) == 0
-    assert run([dbs["target"], str(got), "--quiet", "--device", "cpu", *extra]) == 0
+    assert jax_run([target, str(want), "--quiet", *extra]) == 0
+    assert run([target, str(got), "--quiet", "--device", "cpu", *extra]) == 0
     assert got.read_bytes() == want.read_bytes()
 
 

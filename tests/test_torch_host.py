@@ -446,6 +446,115 @@ def test_derive_matches(dbs, mode):
         assert_same_value(g, w)
 
 
+# The reference's shared-protein join (db_helper.hpp:140-143), the oracle of
+# the protein order of a ``-r`` pair.
+SCP_JOIN = (
+    "SELECT DISTINCT target_table.SCP_acc"
+    "  FROM scp_data as target_table, QueryDB.scp_data as query_table"
+    "  WHERE target_table.SCP_acc = query_table.SCP_acc")
+
+
+def _scp_db(path, n_genomes, proteins, layout, seed, *, dup=False,
+            index=False, analyze=False):
+    """A database of ``genome_metadata`` and ``scp_data`` alone, in the
+    benchmark generator's schema: one ``scp_data`` row per (genome,
+    protein), written protein-major, genome-major or shuffled; ``dup``
+    writes one (genome, protein) row twice; ``index`` adds an index on
+    ``SCP_acc``, ``analyze`` runs ANALYZE."""
+    rng = np.random.default_rng(seed)
+    rows = [(g, p, 100.0 + g, 190) for p in proteins for g in range(n_genomes)]
+    if layout == "genome":
+        rows.sort(key=lambda r: r[0])
+    elif layout == "shuffled":
+        rows = [rows[i] for i in rng.permutation(len(rows))]
+    if dup:
+        rows.insert(len(rows) // 2, rows[-1])
+    conn = sqlite3.connect(path)
+    try:
+        conn.execute(
+            "CREATE TABLE 'genome_metadata' (genome_name TEXT, genome_id "
+            "INTEGER PRIMARY KEY, genome_length INTEGER, genome_class "
+            "INTEGER, SCP_count INTEGER)")
+        conn.executemany(
+            "INSERT INTO genome_metadata VALUES (?, ?, 3500000, 0, ?)",
+            [(f"{os.path.basename(path)}_{g}", g, len(proteins))
+             for g in range(n_genomes)])
+        conn.execute(
+            "CREATE TABLE 'scp_data' (genome_id INTEGER, SCP_acc TEXT, "
+            "SCP_score REAL, tetra_count INTEGER)")
+        conn.executemany("INSERT INTO scp_data VALUES (?, ?, ?, ?)", rows)
+        if index:
+            conn.execute("CREATE INDEX scp_acc_index ON scp_data (SCP_acc)")
+        if analyze:
+            conn.execute("ANALYZE")
+        conn.commit()
+    finally:
+        conn.close()
+
+
+def _proteins(seed, n, start=0):
+    """``n`` accessions from ``start`` on, in a seeded order."""
+    names = [f"PF{90000 + i}.1" for i in range(start, start + n)]
+    return [names[i] for i in np.random.default_rng(seed).permutation(n)]
+
+
+# case: ((target genomes, proteins, layout, options),
+#        (query genomes, proteins, layout, options))
+SCP_PAIRS = {
+    "protein_major": ((40, _proteins(1, 12), "protein", {}),
+                      (8, _proteins(2, 12), "protein", {})),
+    "genome_major": ((40, _proteins(3, 12), "genome", {}),
+                     (8, _proteins(4, 12), "genome", {})),
+    "shuffled": ((40, _proteins(5, 12), "shuffled", {}),
+                 (8, _proteins(6, 12), "shuffled", {})),
+    "layouts_differ": ((40, _proteins(7, 12), "genome", {}),
+                       (8, _proteins(8, 12), "shuffled", {})),
+    "some_in_one_db_only": ((24, _proteins(9, 10), "shuffled", {}),
+                            (24, _proteins(10, 10, start=4), "genome", {})),
+    "duplicated_row": ((24, _proteins(11, 8), "shuffled", {"dup": True}),
+                       (12, _proteins(12, 8), "protein", {"dup": True})),
+    "query_larger": ((6, _proteins(13, 9), "shuffled", {}),
+                     (60, _proteins(14, 9), "shuffled", {})),
+    "query_smaller": ((60, _proteins(15, 9), "genome", {}),
+                      (6, _proteins(16, 9), "shuffled", {})),
+    "same_size": ((20, _proteins(17, 9), "shuffled", {}),
+                  (20, _proteins(18, 9), "genome", {})),
+    "indexed_and_analyzed": (
+        (40, _proteins(19, 12), "shuffled", {"index": True, "analyze": True}),
+        (8, _proteins(20, 12), "shuffled", {"index": True, "analyze": True})),
+    # statistics on one side: SQLite 3.40's join then scans the query table
+    # first, in an order that a scan of the target does not give
+    "target_analyzed": ((40, _proteins(21, 12), "genome", {"analyze": True}),
+                        (8, _proteins(22, 12), "shuffled", {})),
+    "query_analyzed_target_indexed": (
+        (20, _proteins(23, 12), "shuffled", {"index": True}),
+        (60, _proteins(24, 12), "genome", {"analyze": True})),
+    "nothing_shared": ((16, _proteins(25, 6), "shuffled", {}),
+                       (16, _proteins(26, 6, start=6), "shuffled", {})),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCP_PAIRS))
+def test_shared_proteins_in_the_joins_order(case, tmp_path):
+    """The ``-r`` protein set equals the reference's join run on the same
+    ATTACHed connection, and the JAX package's, tuple for tuple."""
+    (nt, pt, lt, kt), (nq, pq, lq, kq) = SCP_PAIRS[case]
+    target, query = str(tmp_path / "target.db"), str(tmp_path / "query.db")
+    _scp_db(target, nt, pt, lt, seed=nt, **kt)
+    _scp_db(query, nq, pq, lq, seed=nq + 1, **kq)
+    db = database.QueryTargetDatabase(target, query)
+    ref = jax_database.QueryTargetDatabase(target, query)
+    try:
+        joined = tuple(r[0] for r in db.conn.execute(SCP_JOIN))
+        got, want = db.meta.protein_set, ref.meta.protein_set
+    finally:
+        db.close()
+        ref.close()
+    assert got == joined == want
+    assert set(got) == set(pt) & set(pq)
+    assert (len(got) == 0) == (case == "nothing_shared")
+
+
 def _finish_inputs(dtype):
     rng = np.random.default_rng(11)
     P, n = 7, 501

@@ -2,7 +2,8 @@
 CPU: nothing recorded and no ``record_function`` while it is off; under
 ``torch.profiler`` every span of the default call (banded route) and of the
 ``-r`` call (dense route) with its parent, one call id per ``cli.run`` and
-the worker's spans under the engine span; the engines' ``phases`` equal to
+the worker's spans under the engine span; a ``-r`` call's ATTACH and SCP
+join as leaves of ``cli.open``; the engines' ``phases`` equal to
 their spans' sums key by key; spans closed on an exception; the verbose
 lines' text; ``--profile``'s trace holding the worker's spans on the
 trace's clock; a ``--quiet --fast`` call that never synchronises in its
@@ -128,7 +129,8 @@ BANDED = {
     "worker.csv": "engine", "cli.free": "cli.run",
 }
 DENSE = {
-    "cli.open": "cli.run", "cli.pairs": "cli.run", "etl": "cli.run",
+    "cli.open": "cli.run", "cli.attach": "cli.open", "cli.join": "cli.open",
+    "cli.pairs": "cli.run", "etl": "cli.run",
     "etl.widths": "etl", "etl.alloc": "etl", "etl.fill": "etl",
     "etl.merge": "etl", "engine": "cli.run", "engine.upload": "engine",
     "engine.gram": "engine", "engine.d2h": "engine",
@@ -254,6 +256,39 @@ def test_csv_counts_its_mirrored_pairs(mode, dbs, single, tmp_path):
         assert cli.run(argv) == 0
     (csv,) = _by_name(timing.calls[-1])["csv"]
     assert csv.counters["mirrored"] == want
+
+
+@pytest.mark.parametrize("mode", ["avsa", "qt", "qsub"])
+def test_two_database_open_records_attach_and_join(mode, dbs, single,
+                                                    tmp_path):
+    """A ``-r`` call's ``cli.open`` holds two leaves, ``cli.attach`` and
+    then ``cli.join`` (counter ``shared_scps``: P); a one-database call
+    (all-vs-all, ``-q``) records neither."""
+    argv = [dbs["target"], str(tmp_path / "o.csv"), "--quiet", "--device",
+            "cpu"]
+    if mode == "qt":
+        argv += ["-r", dbs["query"]]
+    elif mode == "qsub":
+        listed = tmp_path / "queries.txt"
+        listed.write_text("\n".join(single[0].genome_set[:G_QUERY]))
+        argv += ["-q", str(listed)]
+    with timing.recording():
+        assert cli.run(argv) == 0
+    c = timing.calls[-1]
+    names, parents = _by_name(c), _parent_names(c)
+    (opened,) = names["cli.open"]
+    if mode != "qt":
+        assert "cli.attach" not in names and "cli.join" not in names
+        return
+    (attach,) = names["cli.attach"]
+    (join,) = names["cli.join"]
+    assert parents["cli.attach"] == parents["cli.join"] == {"cli.open"}
+    assert not {attach.id, join.id} & {s.parent for s in c.spans}
+    assert (opened.start <= attach.start <= attach.end <= join.start
+            <= join.end <= opened.end)
+    assert attach.key is None and join.key is None
+    assert attach.counters == {}
+    assert join.counters == {"shared_scps": len(single[0].protein_set)}
 
 
 @pytest.mark.parametrize("loader", ["native", "no_native"])
