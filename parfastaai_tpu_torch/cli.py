@@ -45,7 +45,7 @@ import contextlib
 import os
 import sys
 
-from . import __version__
+from . import __version__, engine
 from .device import resolve_device
 from .engine import (
     compute,
@@ -53,7 +53,6 @@ from .engine import (
     compute_sharded,
     compute_streamed,
     compute_streamed_exact,
-    _use_staged_mesh,
     presence_device_bytes,
     slab_stats,
 )
@@ -70,7 +69,7 @@ from .modes import (
     query_target_axes,
 )
 from .parallel import distributed
-from .parallel.mesh import make_mesh, parse_mesh
+from .parallel.mesh import Mesh, make_mesh, parse_mesh
 from .types import ErrorCode, PFAAIError
 from .utils import timing
 from .utils.timing import phase_timer
@@ -588,8 +587,9 @@ def _run(args, multiproc: bool, held: list) -> int:
                     # on demand: the others need the metadata and T alone.
                     meta_only = bool(
                         multiproc and args.streamed and mesh
-                        and _use_staged_mesh(presence, mesh[1], device,
-                                             args.staged or None))
+                        and engine._use_staged(presence, device,
+                                               args.staged or None,
+                                               Mesh(*mesh, None, None)))
                 except Exception as e:  # noqa: BLE001 — see _from_primary
                     err = _as_pfaai_error(e)
             with phase_timer(

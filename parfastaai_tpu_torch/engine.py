@@ -13,17 +13,17 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   rectangular kernel (ops.sn_rect) and are assembled on the host.
 * ``compute_streamed_exact`` (``--streamed --exact``, and the default call
   above the host budget): the banded exact engine.  Integer count blocks
-  of band x col_chunk genome pairs from the same resident width buckets
-  (``_bucket_count_engine``), copied to page-locked host memory on a side
-  stream while a worker thread finishes earlier blocks in f64 and appends
-  whole bands to the CSV; the bytes of ``compute`` + ``write_aji_csv`` in
-  memory that does not grow with the genome count.
+  of band x col_chunk genome pairs (``_block_counts``), copied to
+  page-locked host memory on a side stream while a worker thread finishes
+  earlier blocks in f64 and appends whole bands to the CSV; the bytes of
+  ``compute`` + ``write_aji_csv`` in memory that does not grow with the
+  genome count.
 * ``compute_streamed`` (``--streamed``): the f32 streamed engine.  Masked
   AJI blocks of band x col_chunk genome pairs from the rectangular kernel
-  (``_bucket_block_engine`` + ``_mask_aji``), copied to page-locked host
-  memory on a side stream while a writer thread assembles earlier bands
-  and appends them to the CSV; memory that does not grow with the square
-  of the genome count.
+  (``_block_sn`` + ``_mask_aji``), copied to page-locked host memory on a
+  side stream while a writer thread assembles earlier bands and appends
+  them to the CSV; memory that does not grow with the square of the
+  genome count.
 * ``compute_sharded`` (``--mesh``, the API's ``engine="sharded"``): the
   fused f32 path over a (rows, scp) mesh of ranks, one device each
   (parallel/mesh.py): each rank runs the rectangular kernel on its row
@@ -31,18 +31,21 @@ Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
   meet in an all-reduce, the bands in a gather on every rank.
 * ``compute_streamed`` and ``compute_streamed_exact`` with ``mesh``
   (``--streamed [--exact] --mesh``): each block cut into the mesh's cells,
-  one rank each (``_mesh_block_engine``, ``_mesh_count_engine``), the
-  cells gathered to process 0, which alone writes the CSV.
+  one rank each, the cells gathered to process 0, which alone writes the
+  CSV.
 
-Above the device budget (``_use_staged``: PARFASTAAI_HBM_BYTES, else 75% of
-the card's memory), or where ``staged`` / PARFASTAAI_STAGED asks for it,
-the banded engines take their blocks from staged slabs instead of resident
-buckets: an LRU of (proteins x genomes x K) slabs on the device
-(``_slab_store``), gathered on the host and uploaded on demand
-(``_staged_block_engine``, ``_staged_count_engine``); over a mesh, each
-rank's shard of each slab (``_MeshSlabStore``, ``_use_staged_mesh``,
-``_staged_mesh_block_engine``, ``_staged_mesh_count_engine``), shipped
-from process 0 where only it holds the presence tensor.
+The banded engines (the two above and ``compute_fast``'s ``_banded_sn``)
+compute a block with one of two bodies, ``_block_sn`` (f32 S and N) and
+``_block_counts`` (exact counts), over one of four placements of the
+presence (``_placement``): width buckets resident on the device
+(``_Resident``, ``to_device_buckets``), or above the device budget
+(``_use_staged``: PARFASTAAI_HBM_BYTES, else 75% of the card's memory),
+or where ``staged`` / PARFASTAAI_STAGED asks for it, staged slabs: an LRU
+of (proteins x genomes x K) slabs on the device (``_Staged``,
+``_SlabStore``), gathered on the host and uploaded on demand; over a
+mesh, each rank's shard of either (``_MeshResident``, ``_MeshStaged`` on
+``_MeshSlabStore``), a staged slab shipped from process 0 where only it
+holds the presence tensor.
 
 Every function computes on the device it is given.  ``phases``, where
 accepted, is a dict that collects seconds per sub-phase.  Each host-timed
@@ -75,6 +78,21 @@ from .modes import PairSpace
 from .native import native_jaccard_finish, native_jaccard_finish_block
 from .ops.fused import int_gram, pair_counts_device
 from .ops.sn_rect import clamp_t, fused_sn_block
+from .parallel import distributed
+from .parallel.mesh import (
+    _reduce,
+    assemble_counts,
+    cell_rows,
+    gather_cells,
+    gather_rows,
+    make_mesh,
+    mesh_key,
+    pad_rows,
+    protein_layout,
+    shard_proteins,
+    sharded_fused_sn,
+    sharded_fused_sn_rect,
+)
 from .types import ErrorCode, JacResult, PFAAIError
 from .utils import timing
 from .utils.timing import span as _span
@@ -263,6 +281,20 @@ def upload_presence(
     return m
 
 
+def _cached(presence: PresenceData, kind: str, device: torch.device,
+            mesh=None, make=None):
+    """What ``presence`` keeps of ``kind`` ("buckets" or "slabs") for
+    ``device``, and with ``mesh`` for that mesh's rank (``mesh.mesh_key``:
+    device, shape, world and rank): made by ``make()`` at first use, so
+    later calls reuse it; None where it was never made and ``make`` is
+    None."""
+    cache = vars(presence).setdefault("_torch_cache", {})
+    key = (kind, str(device) if mesh is None else mesh_key(mesh, device))
+    if key not in cache and make is not None:
+        cache[key] = make()
+    return cache.get(key)
+
+
 def to_device_buckets(
     presence: PresenceData, device: torch.device, phases: dict | None = None
 ) -> list[tuple[np.ndarray, torch.Tensor, torch.Tensor]]:
@@ -270,16 +302,12 @@ def to_device_buckets(
     with m_b the (Pb, G, Kb) uint8 presence slice and t_b the (Pb, G) f32 T
     clamped to >= 1 (``clamp_t``), in ``bucketize_presence`` order.  Cached
     on the presence object per device, so repeated calls copy nothing."""
-    cache = getattr(presence, "_torch_bucket_cache", None)
-    if cache is None:
-        cache = {}
-        presence._torch_bucket_cache = cache
-    key = str(device)
-    if key not in cache:
+
+    def upload():
         with _span("engine.bucketize", phases, "host bucketize"):
             host = bucketize_presence(presence)
         with _span("engine.upload", phases, "H2D"):
-            cache[key] = [
+            buckets = [
                 (
                     idx,
                     _to_device(np.ascontiguousarray(m_b), device),
@@ -289,7 +317,9 @@ def to_device_buckets(
             ]
             _sync(device)
             del host  # the host copy's pages go back inside the span
-    return cache[key]
+        return buckets
+
+    return _cached(presence, "buckets", device, make=upload)
 
 
 def presence_device_bytes(presence: PresenceData) -> int:
@@ -325,18 +355,37 @@ def _device_budget(device: torch.device) -> int | None:
 
 
 def _use_staged(
-    presence: PresenceData, device: torch.device, staged: bool | None = None
+    presence: PresenceData,
+    device: torch.device,
+    staged: bool | None = None,
+    mesh=None,
 ) -> bool:
-    """Staged slabs or resident buckets (parfastaai_tpu.engine._use_staged):
-    ``staged`` or PARFASTAAI_STAGED when either decides
-    (``staged_override``), else staged exactly when the width-bucketed
-    presence exceeds the device budget.  The CPU reports no budget, so a
-    CPU run stages only when asked or under PARFASTAAI_HBM_BYTES."""
+    """Staged slabs or resident buckets, the one decision of the banded
+    engines, with or without a mesh (the JAX package's two staged
+    decisions, parfastaai_tpu.engine._use_staged and its mesh twin): a
+    meta-only presence on a mesh (``presence.slab_broadcast``) is staged;
+    else ``staged`` or PARFASTAAI_STAGED when either decides
+    (``staged_override``); else staged exactly when a rank's share of the
+    width-bucketed presence (over a mesh its protein shard of every
+    genome, 1 / ``n_scp``) exceeds the device budget.  The CPU reports no
+    budget, so a CPU run stages only when asked or under
+    PARFASTAAI_HBM_BYTES.  In a run of several processes only process 0's
+    answer counts: the callers broadcast it."""
+    if mesh is not None and getattr(presence, "slab_broadcast", False):
+        return True
     override = staged_override(staged)
     if override is not None:
         return override
     budget = _device_budget(device)
-    return budget is not None and presence_device_bytes(presence) > budget
+    n_scp = 1 if mesh is None else mesh.n_scp
+    return (budget is not None
+            and presence_device_bytes(presence) // n_scp > budget)
+
+
+def _store_cap(device: torch.device) -> int:
+    """A slab store's cap: 0.75 of the device budget (4 GiB without one)."""
+    budget = _device_budget(device)
+    return int((budget if budget is not None else 4 << 30) * 0.75)
 
 
 def _slab_target_bytes(device: torch.device) -> int:
@@ -379,8 +428,8 @@ def _bucket_plan(presence: PresenceData) -> list[tuple[np.ndarray, int]]:
 
 
 class _SlabStore:
-    """LRU of presence slabs on one device, shared by the staged block and
-    count engines (parfastaai_tpu.engine._slab_store).
+    """LRU of presence slabs on one device, the staged placement's
+    (parfastaai_tpu.engine._slab_store).
 
     ``fetch(idx, kb, ids)`` returns the (len(idx), len(ids), kb) int8 slab
     of proteins ``idx`` and genomes ``ids``, zero-padded from the tensor's
@@ -409,9 +458,8 @@ class _SlabStore:
         self.held = self.peak = self.uploaded = self.slabs = self.hits = 0
 
     def cap(self) -> int:
-        """0.75 of the device budget as it stands (4 GiB without one)."""
-        budget = _device_budget(self._device)
-        return int((budget if budget is not None else 4 << 30) * 0.75)
+        """``_store_cap`` of the device budget as it stands."""
+        return _store_cap(self._device)
 
     def fetch(self, idx: np.ndarray, kb: int, ids: np.ndarray) -> torch.Tensor:
         idx = np.asarray(idx, np.int64)
@@ -469,19 +517,6 @@ class _SlabStore:
                 "hits": self.hits}
 
 
-def _slab_store(presence: PresenceData, device: torch.device) -> _SlabStore:
-    """The presence's slab store on ``device``, made at first use and kept
-    on the presence object, so later calls reuse its slabs."""
-    stores = getattr(presence, "_torch_slab_stores", None)
-    if stores is None:
-        stores = {}
-        presence._torch_slab_stores = stores
-    key = str(device)
-    if key not in stores:
-        stores[key] = _SlabStore(presence, device)
-    return stores[key]
-
-
 class _MeshSlabStore(_SlabStore):
     """This rank's shard of each staged slab over a (rows, scp) mesh
     (parfastaai_tpu.engine._mesh_slab_store), on the LRU of ``_SlabStore``.
@@ -512,17 +547,13 @@ class _MeshSlabStore(_SlabStore):
     A rank's host memory stays at one packed slab."""
 
     def __init__(self, presence: PresenceData, device: torch.device, mesh):
-        from .parallel import distributed
-
         super().__init__(presence, device)
         self._mesh = mesh
         self._cell = mesh.coords if mesh.coords is not None else (0, 0)
         multiproc = distributed.world_size() > 1
         self._broadcast = multiproc and bool(
             getattr(presence, "slab_broadcast", False))
-        budget = _device_budget(device)
-        limits = (int((budget if budget is not None else 4 << 30) * 0.75),
-                  _slab_target_bytes(device))
+        limits = (_store_cap(device), _slab_target_bytes(device))
         if multiproc:
             limits = distributed.broadcast_pyobj(limits)
         self._cap, self.target = limits
@@ -531,8 +562,6 @@ class _MeshSlabStore(_SlabStore):
         return self._cap
 
     def fetch(self, kind: str, idx: np.ndarray, kb: int, ids: np.ndarray):
-        from .parallel.mesh import cell_rows, shard_proteins
-
         idx = np.asarray(idx, np.int64)
         ids = np.asarray(ids, np.int64)
         prot = shard_proteins(idx, self._cell[1], self._mesh.n_scp)
@@ -543,9 +572,6 @@ class _MeshSlabStore(_SlabStore):
             lambda: self._upload_shard(kind, idx, kb, ids, prot, genomes))
 
     def _upload_shard(self, kind, idx, kb, ids, prot, genomes):
-        from .parallel import distributed
-        from .parallel.mesh import shard_proteins
-
         idle = self._mesh.coords is None
         if not self._broadcast:
             return None if idle else self._to_device(
@@ -575,23 +601,6 @@ class _MeshSlabStore(_SlabStore):
         return self._to_device(out)
 
 
-def _mesh_slab_store(presence: PresenceData, mesh,
-                     device: torch.device) -> _MeshSlabStore:
-    """The presence's mesh slab store for ``mesh`` on ``device``, made at
-    first use and kept on the presence object under the mesh's identity
-    (``mesh.mesh_key``: device, shape, world and rank)."""
-    from .parallel.mesh import mesh_key
-
-    stores = getattr(presence, "_torch_mesh_slab_stores", None)
-    if stores is None:
-        stores = {}
-        presence._torch_mesh_slab_stores = stores
-    key = mesh_key(mesh, device)
-    if key not in stores:
-        stores[key] = _MeshSlabStore(presence, device, mesh)
-    return stores[key]
-
-
 def slab_stats(
     presence: PresenceData, device: torch.device, mesh=None
 ) -> dict | None:
@@ -599,13 +608,7 @@ def slab_stats(
     uploaded, peak and held bytes, the cap, uploads and hits; with
     ``mesh``, this rank's store of that mesh, its bytes a rank's), or None
     where nothing was staged."""
-    if mesh is None:
-        store = getattr(presence, "_torch_slab_stores", {}).get(str(device))
-    else:
-        from .parallel.mesh import mesh_key
-
-        store = getattr(presence, "_torch_mesh_slab_stores", {}).get(
-            mesh_key(mesh, device))
+    store = _cached(presence, "slabs", device, mesh)
     return None if store is None else store.stats()
 
 
@@ -626,127 +629,6 @@ def _take(x: torch.Tensor, sel: torch.Tensor | None) -> torch.Tensor:
     return x if sel is None else x.index_select(1, sel)
 
 
-def _bucket_block_engine(
-    presence: PresenceData,
-    approx: bool,
-    precise: bool,
-    device: torch.device,
-    phases: dict | None = None,
-    clock: _StageClock | None = None,
-):
-    """``block_sn(rids, cids, drids, dcids) -> (s, n)`` device tensors for
-    one output block, summed over the width buckets in bucket order.  The
-    index arguments are host arrays: genome ids of the rows and columns and
-    the T columns of their denominators.  Every width bucket stays on the
-    device (``to_device_buckets``); ``_staged_block_engine`` is its twin
-    for presence above the device budget.
-
-    ``clock`` times the block's ``gather`` and ``kernel`` stages.  The
-    default synchronises the device at each stage boundary and fills
-    ``phases`` (``compute_fast``'s split); a caller that pipelines blocks
-    passes its own ``_StageClock(..., sync=False)``, with which ``block_sn``
-    enqueues its work and returns without waiting for the device.  The
-    values are the same either way."""
-    buckets = to_device_buckets(presence, device, phases)
-    G = presence.m.shape[1]
-    if clock is None:
-        clock = _StageClock(device, phases, sync=True)
-
-    def block_sn(rids, cids, drids, dcids):
-        clock.start()
-        rsel, csel, drsel, dcsel = (
-            _selector(ids, G, device) for ids in (rids, cids, drids, dcids)
-        )
-        s = n = None
-        for _, md, td in buckets:
-            ma, mb = _take(md, rsel), _take(md, csel)
-            ta, tb = _take(td, drsel), _take(td, dcsel)
-            clock.lap("gather")
-            s_b, n_b = fused_sn_block(
-                ma, mb, ta, tb, approx=approx, precise=precise
-            )
-            s = s_b if s is None else s + s_b
-            n = n_b if n is None else n + n_b
-            clock.lap("kernel")
-        return s, n
-
-    return block_sn
-
-
-def _staged_block_engine(
-    presence: PresenceData,
-    approx: bool,
-    precise: bool,
-    device: torch.device,
-    phases: dict | None = None,
-    clock: _StageClock | None = None,
-):
-    """``_bucket_block_engine``'s contract for presence above the device
-    budget (parfastaai_tpu.engine._staged_block_engine): no bucket is
-    uploaded whole.  Per block, each chunk of ``_split_plan`` (at the
-    block's larger side) fetches its row and column slabs from the
-    ``_slab_store``, uploads its T columns clamped (``clamp_t``) and runs
-    the rectangular kernel.  The chunks of a bucket are summed in chunk
-    order and the bucket sums in bucket order: a bucket cut into one
-    chunk, or into chunks of one protein each, gives the resident
-    engine's values bit for bit; other cuts change the f32 order of S
-    within a bucket (~1e-7), and N not at all.
-
-    ``clock`` laps ``slab upload`` (the host gather, page-locking and the
-    copies of a chunk's slabs and T) and ``kernel``, as the resident
-    engine laps its stages."""
-    fetch = _slab_store(presence, device).fetch
-    plan = _bucket_plan(presence)
-    t = presence.t
-    if clock is None:
-        clock = _StageClock(device, phases, sync=True)
-
-    def block_sn(rids, cids, drids, dcids):
-        rids, cids = np.asarray(rids), np.asarray(cids)
-        drids, dcids = np.asarray(drids), np.asarray(dcids)
-        clock.start()
-        s = n = None
-        chunks = _split_plan(plan, max(len(rids), len(cids)), device)
-        for _, bucket in itertools.groupby(chunks, key=lambda c: c[0]):
-            s_b = n_b = None
-            for _, _, idx, kb in bucket:
-                ma, mb = fetch(idx, kb, rids), fetch(idx, kb, cids)
-                ta = clamp_t(_to_device(t[np.ix_(idx, drids)], device))
-                tb = clamp_t(_to_device(t[np.ix_(idx, dcids)], device))
-                clock.lap("slab upload")
-                s_c, n_c = fused_sn_block(
-                    ma, mb, ta, tb, approx=approx, precise=precise
-                )
-                s_b = s_c if s_b is None else s_b + s_c
-                n_b = n_c if n_b is None else n_b + n_c
-                clock.lap("kernel")
-            s = s_b if s is None else s + s_b
-            n = n_b if n is None else n + n_b
-        return s, n
-
-    return block_sn
-
-
-def _choose_block_engine(
-    presence: PresenceData,
-    approx: bool,
-    precise: bool,
-    device: torch.device,
-    phases: dict | None = None,
-    clock: _StageClock | None = None,
-    staged: bool | None = None,
-):
-    """The resident block engine, or the staged one where ``_use_staged``
-    says so (parfastaai_tpu.engine._choose_block_engine); both keep one
-    ``block_sn`` contract."""
-    engine = (
-        _staged_block_engine
-        if _use_staged(presence, device, staged)
-        else _bucket_block_engine
-    )
-    return engine(presence, approx, precise, device, phases, clock)
-
-
 def _mask_aji(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """One streamed block finished on its device: AJI = S / N in f32 (an
     IEEE divide on the card and on the CPU alike; N to f32 is exact) with
@@ -754,87 +636,6 @@ def _mask_aji(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     leaves them in the CSV.  One f32 array per block crosses to the host
     (parfastaai_tpu.engine._mask_aji)."""
     return torch.where(n == 0, s.new_zeros(()), s / n.to(torch.float32))
-
-
-def _bucket_count_engine(
-    presence: PresenceData, device: torch.device, phases: dict | None = None
-):
-    """``block_counts(rids, cids) -> (P, len(rids), len(cids))`` device
-    tensor of exact intersection counts for one output block, in the wire
-    dtype (int16 when max(T) < 2^15, which halves the copy to the host).
-
-    Each width bucket's per-protein int8 Grams (``ops.fused.int_gram``) are
-    written straight into the rows of the block that its proteins own, so
-    the block is in ascending protein order, the order of the f64 finish
-    that byte parity rides on, and one copy carries it to the host.  Blocks
-    have their exact shape: nothing is padded here.  Every width bucket
-    stays on the device; ``_staged_count_engine`` is its twin for presence
-    above the device budget."""
-    buckets = to_device_buckets(presence, device, phases)
-    out_dtype = _count_wire_dtype(presence)
-    P, G = presence.t.shape
-
-    def block_counts(rids: np.ndarray, cids: np.ndarray) -> torch.Tensor:
-        rsel, csel = _selector(rids, G, device), _selector(cids, G, device)
-        out = torch.empty(
-            (P, len(rids), len(cids)), dtype=out_dtype, device=device
-        )
-        for idx, md, _ in buckets:
-            m8 = md.view(torch.int8)
-            ma, mb = _take(m8, rsel), _take(m8, csel)
-            for j, p in enumerate(idx):
-                out[int(p)] = int_gram(ma[j], mb[j])
-        return out
-
-    return block_counts
-
-
-def _staged_count_engine(presence: PresenceData, device: torch.device):
-    """``_bucket_count_engine``'s contract from the ``_slab_store``
-    (parfastaai_tpu.engine._staged_count_engine): per chunk of
-    ``_split_plan`` (at the block's larger side), the row and column slabs
-    are fetched and each protein's Gram is written into the block's row of
-    that protein.  Counts are integers, so the block does not depend on
-    the split."""
-    fetch = _slab_store(presence, device).fetch
-    plan = _bucket_plan(presence)
-    out_dtype = _count_wire_dtype(presence)
-    P = presence.t.shape[0]
-
-    def block_counts(rids: np.ndarray, cids: np.ndarray) -> torch.Tensor:
-        out = torch.empty(
-            (P, len(rids), len(cids)), dtype=out_dtype, device=device
-        )
-        for _, _, idx, kb in _split_plan(
-            plan, max(len(rids), len(cids)), device
-        ):
-            ma, mb = fetch(idx, kb, rids), fetch(idx, kb, cids)
-            for j, p in enumerate(idx):
-                out[int(p)] = int_gram(ma[j], mb[j])
-        return out
-
-    return block_counts
-
-
-def _use_staged_mesh(
-    presence: PresenceData,
-    n_scp: int,
-    device: torch.device,
-    staged: bool | None = None,
-) -> bool:
-    """Staged slabs or resident shards over a mesh
-    (parfastaai_tpu.engine._use_staged_mesh): ``staged`` or
-    PARFASTAAI_STAGED where either decides (``staged_override``), else
-    staged exactly when a rank's share of the width-bucketed presence, its
-    protein shard of every genome (1 / ``n_scp``), exceeds the rank's
-    device budget.  In a run of several processes only process 0's answer
-    counts: the callers broadcast it."""
-    override = staged_override(staged)
-    if override is not None:
-        return override
-    budget = _device_budget(device)
-    return (budget is not None
-            and presence_device_bytes(presence) // n_scp > budget)
 
 
 def _zero_block(a: int, b: int, device: torch.device):
@@ -860,269 +661,308 @@ def _mesh_buckets(presence: PresenceData, mesh, device: torch.device,
     clamped T (``clamp_t``), both None past the mesh.  With scp = 1 the
     tensors of ``to_device_buckets``.  Cached on the presence object under
     the mesh's identity."""
-    from .parallel.mesh import mesh_key, shard_proteins
 
-    cache = getattr(presence, "_torch_mesh_bucket_cache", None)
-    if cache is None:
-        cache = {}
-        presence._torch_mesh_bucket_cache = cache
-    key = mesh_key(mesh, device)
-    if key in cache:
-        return cache[key]
-    n_scp = mesh.n_scp
-    G, K = presence.m.shape[1], presence.m.shape[2]
-    out = []
-    for idx, kb in _bucket_plan(presence):
-        layout = np.stack(
-            [shard_proteins(idx, s, n_scp) for s in range(n_scp)])
-        if mesh.coords is None:
-            out.append((layout, None, None))
-            continue
-        with _span("engine.bucketize", phases, "host bucketize"):
-            prot = layout[mesh.coords[1]]
-            valid = prot >= 0
-            kw = min(kb, K)
-            m_host = np.zeros((len(prot), G, kb), np.uint8)
-            m_host[valid, :, :kw] = presence.m[prot[valid], :, :kw]
-            t_host = _t_rows(presence.t, prot, np.arange(G))
-        with _span("engine.upload", phases, "H2D"):
-            out.append((layout, _to_device(m_host, device),
-                        clamp_t(_to_device(t_host, device))))
-            _sync(device)
-    cache[key] = out
-    return out
+    def upload():
+        n_scp = mesh.n_scp
+        G, K = presence.m.shape[1], presence.m.shape[2]
+        out = []
+        for idx, kb in _bucket_plan(presence):
+            layout = np.stack(
+                [shard_proteins(idx, s, n_scp) for s in range(n_scp)])
+            if mesh.coords is None:
+                out.append((layout, None, None))
+                continue
+            with _span("engine.bucketize", phases, "host bucketize"):
+                prot = layout[mesh.coords[1]]
+                valid = prot >= 0
+                kw = min(kb, K)
+                m_host = np.zeros((len(prot), G, kb), np.uint8)
+                m_host[valid, :, :kw] = presence.m[prot[valid], :, :kw]
+                t_host = _t_rows(presence.t, prot, np.arange(G))
+            with _span("engine.upload", phases, "H2D"):
+                out.append((layout, _to_device(m_host, device),
+                            clamp_t(_to_device(t_host, device))))
+                _sync(device)
+        return out
+
+    return _cached(presence, "buckets", device, mesh, upload)
 
 
-def _mesh_block_engine(
-    presence: PresenceData,
-    mesh,
-    approx: bool,
-    precise: bool,
-    device: torch.device,
-    phases: dict | None = None,
-    clock: _StageClock | None = None,
-):
-    """``block_sn(rids, cids, drids, dcids) -> (s, n)`` of this rank's cell
-    of one output block over a (rows, scp) mesh: the resident mesh branch
-    of parfastaai_tpu.engine.compute_streamed.
+class _Placement:
+    """Where a banded engine's presence lives on the device, and how one
+    output block's protein groups come out of it: the seam between the
+    block walks and the two bodies, ``_block_sn`` and ``_block_counts``.
 
-    Every rank holds its protein shard of every width bucket
-    (``_mesh_buckets``).  The block's rows are padded with genome 0 to a
-    multiple of the mesh's rows; cell (r, s) takes band r of them against
-    every column of the block and runs the rectangular kernel on its shard
-    of each bucket, sums the buckets in bucket order, and then adds its
-    row's scp partials (``mesh._reduce``, an all-reduce over the row's scp
-    group).  Returns this cell's (S, N), on the collectives' device; zeros
-    past the mesh.  ``mesh.gather_rows`` puts the bands together.  With scp
-    = 1 each cell is ``_bucket_block_engine``'s arithmetic on its rows, so
-    a row split changes no value; with scp > 1 the shards' sums meet at the
-    end (~1e-7 against one device).
+    ``block(rids, cids, drids=None, dcids=None) -> (layout, n_rows,
+    groups)``: the index arguments are host arrays, genome ids of the
+    block's rows and columns and, where the body asks for denominators,
+    the T columns of both.  ``groups`` yields one iterator a width bucket,
+    in bucket order, of its groups in protein order: (rows, ma, mb, ta,
+    tb), ``ma`` and ``mb`` the group's int8 presence of the rows and the
+    columns, ``ta`` and ``tb`` its clamped T (``clamp_t``) of the
+    denominators or None, and ``rows`` each protein's row of the count
+    block (-1: padding, no row).  Nothing is gathered or uploaded before
+    the body asks for the group.  ``layout`` and ``n_rows``: the count
+    block's protein layout (None without a mesh: the rows are the proteins
+    themselves) and this cell's rows of the block.
 
-    ``clock`` laps ``gather``, ``kernel`` and ``scp all-reduce``."""
-    from .parallel.mesh import _reduce, cell_rows, pad_rows
+    Four placements: ``_Resident`` (width buckets on the device) and
+    ``_Staged`` (slabs uploaded on demand), and over a (rows, scp) mesh
+    ``_MeshResident`` and ``_MeshStaged``, this rank's cell of them: band r
+    of the block's rows, padded with genome 0 to a multiple of the mesh's
+    rows, against every column, over protein shard s.  ``upload_lap`` names
+    the clock's stage up to a group's arrival, ``end`` the cell's end."""
 
-    buckets = _mesh_buckets(presence, mesh, device, phases)
-    G = presence.m.shape[1]
-    if clock is None:
-        clock = _StageClock(device, phases, sync=True)
+    staged, upload_lap = False, "gather"
 
-    def block_sn(rids, cids, drids, dcids):
-        clock.start()
-        rl = cell_rows(mesh, pad_rows(np.asarray(rids), mesh.n_rows))
-        drl = cell_rows(mesh, pad_rows(np.asarray(drids), mesh.n_rows))
-        if mesh.coords is None:
-            return _zero_block(len(rl), len(cids), device)
-        rsel, csel, drsel, dcsel = (
-            _selector(ids, G, device) for ids in (rl, cids, drl, dcids)
-        )
-        s = n = None
-        for _, md, td in buckets:
-            ma, mb = _take(md, rsel), _take(md, csel)
-            ta, tb = _take(td, drsel), _take(td, dcsel)
-            clock.lap("gather")
-            s_b, n_b = fused_sn_block(
-                ma, mb, ta, tb, approx=approx, precise=precise
-            )
-            s = s_b if s is None else s + s_b
-            n = n_b if n is None else n + n_b
-            clock.lap("kernel")
-        s, n = _reduce(mesh, s, n)
+    def __init__(self, presence: PresenceData, device: torch.device,
+                 mesh=None):
+        self.presence, self.device, self.mesh = presence, device, mesh
+        self.wire_dtype = _count_wire_dtype(presence)
+
+    def _cell(self, ids):
+        """This cell's band of a block's rows ``ids`` (None: None)."""
+        if ids is None:
+            return None
+        return cell_rows(self.mesh, pad_rows(np.asarray(ids),
+                                             self.mesh.n_rows))
+
+    def end(self, s, n, shape: tuple[int, int], clock: _StageClock):
+        """The cell's (S, N) once its groups are summed: as they are
+        without a mesh; over one, summed over the row's scp group
+        (``mesh._reduce``), and zeros of ``shape`` past the mesh."""
+        if self.mesh is None:
+            return s, n
+        if self.mesh.coords is None:
+            return _zero_block(*shape, self.device)
+        s, n = _reduce(self.mesh, s, n)
         clock.lap("scp all-reduce")
         return s, n
 
-    return block_sn
+
+class _Resident(_Placement):
+    """Every width bucket on the device (``to_device_buckets``), one group
+    a bucket: its rows and columns of the block and their T (``_take``; an
+    axis of every genome in order is the bucket itself, ungathered)."""
+
+    def __init__(self, presence, device, mesh=None, phases=None):
+        super().__init__(presence, device)
+        self._buckets = [(idx, m.view(torch.int8), t) for idx, m, t
+                         in to_device_buckets(presence, device, phases)]
+
+    def block(self, rids, cids, drids=None, dcids=None):
+        return None, len(rids), self._gather(rids, cids, drids, dcids)
+
+    def _gather(self, *axes):
+        g = self.presence.m.shape[1]
+        sel = [_selector(ids, g, self.device) for ids in axes
+               if ids is not None]
+
+        def group(rows, m, t):
+            ma, mb = _take(m, sel[0]), _take(m, sel[1])
+            ta, tb = [_take(t, s) for s in sel[2:]] or (None, None)
+            yield rows, ma, mb, ta, tb
+
+        return (group(*bucket) for bucket in self._buckets)
 
 
-def _staged_mesh_block_engine(
-    presence: PresenceData,
-    mesh,
-    approx: bool,
-    precise: bool,
-    device: torch.device,
-    phases: dict | None = None,
-    clock: _StageClock | None = None,
-):
-    """``_mesh_block_engine``'s contract from staged slabs
-    (parfastaai_tpu.engine._staged_mesh_block_engine): per block, each
-    chunk of ``_split_plan`` (at the block's larger side, with the store's
-    slab target) fetches this cell's shard of its row and column slabs
-    from the ``_MeshSlabStore``, uploads the matching T (clamped, zeros for
-    padding proteins) and runs the rectangular kernel.  Chunks are summed
-    in chunk order within a bucket and the buckets in bucket order, as
-    ``_staged_block_engine`` sums them, so a one-row mesh gives that
-    engine's values; then the scp all-reduce.  A rank past the mesh joins
-    the slab broadcasts of a meta-only run and computes nothing.
+class _MeshResident(_Resident):
+    """This rank's protein shard of every width bucket (``_mesh_buckets``),
+    gathered as ``_Resident`` gathers; the count block's rows are the
+    layout's, the buckets' layouts side by side.  Past the mesh: no
+    group and no upload."""
 
-    ``clock`` laps ``slab upload``, ``kernel`` and ``scp all-reduce``."""
-    from .parallel.mesh import _reduce, cell_rows, pad_rows, shard_proteins
+    def __init__(self, presence, device, mesh, phases=None):
+        _Placement.__init__(self, presence, device, mesh)
+        buckets = _mesh_buckets(presence, mesh, device, phases)
+        self.layout = np.concatenate([lay for lay, _, _ in buckets], axis=1)
+        shard = self.layout[mesh.coords[1] if mesh.coords else 0]
+        rows = np.where(shard >= 0, np.arange(len(shard)), -1)
+        starts = np.cumsum([0] + [lay.shape[1] for lay, _, _ in buckets])
+        self._buckets = [] if mesh.coords is None else [
+            (rows[a : a + lay.shape[1]], m.view(torch.int8), t)
+            for a, (lay, m, t) in zip(starts, buckets)]
 
-    store = _mesh_slab_store(presence, mesh, device)
-    plan = _bucket_plan(presence)
-    t = presence.t
-    if clock is None:
-        clock = _StageClock(device, phases, sync=True)
+    def block(self, rids, cids, drids=None, dcids=None):
+        rl = self._cell(rids)
+        groups = () if self.mesh.coords is None else self._gather(
+            rl, cids, self._cell(drids), dcids)
+        return self.layout, len(rl), groups
 
-    def block_sn(rids, cids, drids, dcids):
-        n_ids = max(len(rids), len(cids))
-        rids = pad_rows(np.asarray(rids), mesh.n_rows)
-        drl = cell_rows(mesh, pad_rows(np.asarray(drids), mesh.n_rows))
-        cids, dcids = np.asarray(cids), np.asarray(dcids)
-        clock.start()
-        s = n = None
-        chunks = _split_plan(plan, n_ids, device, store.target)
-        for _, bucket in itertools.groupby(chunks, key=lambda c: c[0]):
-            s_b = n_b = None
+
+class _Staged(_Placement):
+    """Slabs from the presence's ``_SlabStore``, one group a chunk of
+    ``_split_plan`` at the block's larger side: its row and column slabs
+    and its T columns, uploaded clamped."""
+
+    staged, upload_lap = True, "slab upload"
+
+    def __init__(self, presence, device, mesh=None, phases=None):
+        super().__init__(presence, device)
+        self._store = _cached(presence, "slabs", device,
+                              make=lambda: _SlabStore(presence, device))
+        self._plan = _bucket_plan(presence)
+
+    def block(self, rids, cids, drids=None, dcids=None):
+        rids, cids = np.asarray(rids), np.asarray(cids)
+        fetch, t, dev = self._store.fetch, self.presence.t, self.device
+        chunks = _split_plan(self._plan, max(len(rids), len(cids)), dev)
+
+        def group(bucket):
             for _, _, idx, kb in bucket:
+                ma, mb = fetch(idx, kb, rids), fetch(idx, kb, cids)
+                ta = tb = None
+                if drids is not None:
+                    ta = clamp_t(_to_device(t[np.ix_(idx, drids)], dev))
+                    tb = clamp_t(_to_device(t[np.ix_(idx, dcids)], dev))
+                yield idx, ma, mb, ta, tb
+
+        return None, len(rids), (
+            group(bucket)
+            for _, bucket in itertools.groupby(chunks, key=lambda c: c[0]))
+
+
+class _MeshStaged(_Placement):
+    """This cell's shard of each staged slab (``_MeshSlabStore``), one group
+    a chunk of ``_split_plan`` (with the store's slab target) and its T
+    (clamped, zeros for padding proteins); the count block's rows are the
+    chunks' shards in turn (``mesh.protein_layout``).  Every rank fetches
+    every chunk, so a rank past the mesh joins a meta-only run's slab
+    broadcasts, and then yields no group."""
+
+    staged, upload_lap = True, "slab upload"
+
+    def __init__(self, presence, device, mesh, phases=None):
+        super().__init__(presence, device, mesh)
+        self._store = _cached(presence, "slabs", device, mesh,
+                              lambda: _MeshSlabStore(presence, device, mesh))
+        self._plan = _bucket_plan(presence)
+
+    def block(self, rids, cids, drids=None, dcids=None):
+        mesh, store, t = self.mesh, self._store, self.presence.t
+        dev = self.device
+        chunks = list(_split_plan(
+            self._plan, max(len(rids), len(cids)), dev, store.target))
+        layout = protein_layout([c[2] for c in chunks], mesh.n_scp)
+        shard = layout[mesh.coords[1] if mesh.coords else 0]
+        starts = np.cumsum([0] + [-(-len(c[2]) // mesh.n_scp)
+                                  for c in chunks])
+        rids, cids = pad_rows(np.asarray(rids), mesh.n_rows), np.asarray(cids)
+        drl = self._cell(drids)
+
+        def group(bucket):
+            for a, b, (_, _, idx, kb) in bucket:
                 ma = store.fetch("row", idx, kb, rids)
                 mb = store.fetch("col", idx, kb, cids)
                 if mesh.coords is None:
                     continue
-                prot = shard_proteins(idx, mesh.coords[1], mesh.n_scp)
-                ta = clamp_t(_to_device(_t_rows(t, prot, drl), device))
-                tb = clamp_t(_to_device(_t_rows(t, prot, dcids), device))
-                clock.lap("slab upload")
-                s_c, n_c = fused_sn_block(
-                    ma, mb, ta, tb, approx=approx, precise=precise
-                )
-                s_b = s_c if s_b is None else s_b + s_c
-                n_b = n_c if n_b is None else n_b + n_c
-                clock.lap("kernel")
-            if s_b is not None:
-                s = s_b if s is None else s + s_b
-                n = n_b if n is None else n + n_b
-        if mesh.coords is None:
-            return _zero_block(len(drl), len(cids), device)
-        s, n = _reduce(mesh, s, n)
-        clock.lap("scp all-reduce")
-        return s, n
+                prot = shard[a:b]
+                ta = tb = None
+                if drl is not None:
+                    ta = clamp_t(_to_device(_t_rows(t, prot, drl), dev))
+                    tb = clamp_t(_to_device(
+                        _t_rows(t, prot, np.asarray(dcids)), dev))
+                yield (np.where(prot >= 0, np.arange(a, b), -1), ma, mb,
+                       ta, tb)
 
-    return block_sn
+        spans = zip(starts, starts[1:], chunks)
+        return layout, len(rids) // mesh.n_rows, (
+            group(bucket)
+            for _, bucket in itertools.groupby(spans, key=lambda c: c[2][0]))
 
 
-def _mesh_count_engine(
-    presence: PresenceData, mesh, device: torch.device,
-    phases: dict | None = None,
-):
-    """``block_counts(rids, cids) -> (counts, layout)``: this rank's cell of
-    one exact count block over a (rows, scp) mesh
-    (parfastaai_tpu.engine._mesh_count_engine).
-
-    The block's rows are padded with genome 0 to a multiple of the mesh's
-    rows.  Cell (r, s) takes its protein shard of every width bucket
-    (``_mesh_buckets``) and band r of the rows against every column, and
-    writes each protein's int8 Gram (``ops.fused.int_gram``, as
-    ``_bucket_count_engine``) into the row of ``counts`` that ``layout``
-    gives it: ``counts`` is (rows of layout, band / rows, len(cids)) in the
-    wire dtype, ``layout`` the (scp, rows) proteins of every shard's rows,
-    -1 for padding (whose rows are 0).  No collective: process 0 gathers
-    the cells and puts every row in its place (``mesh.gather_cells``,
-    ``mesh.assemble_counts``).  Counts are integers, so the split changes
-    no value.  Zeros past the mesh."""
-    from .parallel.mesh import cell_rows, pad_rows
-
-    buckets = _mesh_buckets(presence, mesh, device, phases)
-    layout = np.concatenate([b[0] for b in buckets], axis=1)
-    out_dtype = _count_wire_dtype(presence)
-    G = presence.m.shape[1]
-
-    def block_counts(rids: np.ndarray, cids: np.ndarray):
-        rl = cell_rows(mesh, pad_rows(np.asarray(rids), mesh.n_rows))
-        out = torch.zeros((layout.shape[1], len(rl), len(cids)),
-                          dtype=out_dtype, device=device)
-        if mesh.coords is None:
-            return out, layout
-        rsel, csel = _selector(rl, G, device), _selector(cids, G, device)
-        row = 0
-        for b_layout, md, _ in buckets:
-            m8 = md.view(torch.int8)
-            ma, mb = _take(m8, rsel), _take(m8, csel)
-            for j, p in enumerate(b_layout[mesh.coords[1]]):
-                if p >= 0:
-                    out[row + j] = int_gram(ma[j], mb[j])
-            row += b_layout.shape[1]
-        return out, layout
-
-    return block_counts
+def _placement(presence: PresenceData, device: torch.device, staged: bool,
+               mesh=None, phases: dict | None = None) -> _Placement:
+    """The presence placed for a banded engine: staged slabs where
+    ``staged`` (``_use_staged``'s answer), else resident buckets; over
+    ``mesh``, this rank's cell of them.  ``phases`` collects a resident
+    upload's ``host bucketize`` and ``H2D`` seconds."""
+    kinds = (_Resident, _Staged) if mesh is None else (_MeshResident,
+                                                       _MeshStaged)
+    return kinds[bool(staged)](presence, device, mesh, phases)
 
 
-def _staged_mesh_count_engine(
-    presence: PresenceData, mesh, device: torch.device
-):
-    """``_mesh_count_engine``'s contract from staged slabs
-    (parfastaai_tpu.engine._staged_mesh_count_engine): per chunk of
-    ``_split_plan`` (at the block's larger side, with the store's slab
-    target), this cell's shard of the row and column slabs from the
-    ``_MeshSlabStore``; ``layout`` lists the chunks' shards in turn."""
-    from .parallel.mesh import pad_rows, protein_layout
+def _block_sn(place: _Placement, rids, cids, drids, dcids,
+              approx: bool = False, precise: bool = False,
+              clock: _StageClock | None = None):
+    """(S, N) device tensors of one output block from ``place``: the
+    rectangular kernel on each group, a bucket's chunks summed in chunk
+    order and the buckets in bucket order, then the placement's end of the
+    cell (over a mesh, the scp all-reduce: a one-row mesh gives one
+    device's values, protein shards add their sums at the end, ~1e-7).  A
+    staged bucket cut into one chunk, or into chunks of one protein each,
+    gives the resident values bit for bit; other cuts change the f32 order
+    of S within a bucket (~1e-7), and N not at all.
 
-    store = _mesh_slab_store(presence, mesh, device)
-    plan = _bucket_plan(presence)
-    out_dtype = _count_wire_dtype(presence)
+    ``clock`` laps the placement's ``upload_lap`` (``gather``, or ``slab
+    upload``: the host gather, page-locking and the copies of a chunk's
+    slabs and T), ``kernel`` and, over a mesh, ``scp all-reduce``.  The
+    default synchronises the device at each stage boundary; a caller that
+    pipelines blocks passes its own ``_StageClock(..., sync=False)``, with
+    which the call enqueues its work and returns without waiting for the
+    device.  The values are the same either way."""
+    if clock is None:
+        clock = _StageClock(place.device, None, sync=True)
+    clock.start()
+    _, n_rows, groups = place.block(rids, cids, drids, dcids)
+    s = n = None
+    for bucket in groups:
+        s_b = n_b = None
+        for _, ma, mb, ta, tb in bucket:
+            clock.lap(place.upload_lap)
+            s_c, n_c = fused_sn_block(
+                ma, mb, ta, tb, approx=approx, precise=precise
+            )
+            s_b = s_c if s_b is None else s_b + s_c
+            n_b = n_c if n_b is None else n_b + n_c
+            clock.lap("kernel")
+        if s_b is not None:
+            s = s_b if s is None else s + s_b
+            n = n_b if n is None else n + n_b
+    return place.end(s, n, (n_rows, len(cids)), clock)
 
-    def block_counts(rids: np.ndarray, cids: np.ndarray):
-        chunks = list(_split_plan(
-            plan, max(len(rids), len(cids)), device, store.target))
-        rids = pad_rows(np.asarray(rids), mesh.n_rows)
-        cids = np.asarray(cids)
-        layout = protein_layout([c[2] for c in chunks], mesh.n_scp)
-        out = torch.zeros(
-            (layout.shape[1], len(rids) // mesh.n_rows, len(cids)),
-            dtype=out_dtype, device=device)
-        row = 0
-        for _, _, idx, kb in chunks:
-            ma = store.fetch("row", idx, kb, rids)
-            mb = store.fetch("col", idx, kb, cids)
-            n_p = -(-len(idx) // mesh.n_scp)
-            if mesh.coords is not None:
-                for j in range(n_p):
-                    if layout[mesh.coords[1], row + j] >= 0:
-                        out[row + j] = int_gram(ma[j], mb[j])
-            row += n_p
-        return out, layout
 
-    return block_counts
+def _block_counts(place: _Placement, rids, cids):
+    """Exact intersection counts of one output block from ``place``, on the
+    device in the wire dtype (int16 when max(T) < 2^15, which halves the
+    copy to the host).
+
+    Each group's per-protein int8 Grams (``ops.fused.int_gram``) are
+    written straight into their rows of the block, so the block is in
+    ascending protein order, the order of the f64 finish that byte parity
+    rides on, and one copy carries it to the host.  Without a mesh the
+    block is (P, len(rids), len(cids)), every row written, nothing padded.
+    Over a mesh it is this cell's (rows of layout, band / rows,
+    len(cids)), padding rows 0, returned as ``(counts, layout)``: no
+    collective, process 0 gathers the cells and puts every row in its
+    place (``mesh.gather_cells``, ``mesh.assemble_counts``).  Counts are
+    integers, so no placement changes a value."""
+    layout, n_rows, groups = place.block(rids, cids)
+    shape = (len(place.presence.t) if layout is None else layout.shape[1],
+             n_rows, len(cids))
+    new = torch.empty if layout is None else torch.zeros
+    out = new(shape, dtype=place.wire_dtype, device=place.device)
+    for bucket in groups:
+        for rows, ma, mb, _, _ in bucket:
+            for j, r in enumerate(rows):
+                if r >= 0:
+                    out[int(r)] = int_gram(ma[j], mb[j])
+    return out if layout is None else (out, layout)
 
 
-def _staged_col_group(
-    presence: PresenceData,
-    device: torch.device,
-    band: int,
-    col_chunk: int,
-    n_chunks: int,
-    staged: bool | None,
-) -> int:
+def _staged_col_group(place: _Placement, band: int, col_chunk: int,
+                      n_chunks: int) -> int:
     """Column chunks per group of ``_banded_sn``'s column-group-major walk
     (parfastaai_tpu.engine._staged_col_group): as many as fit, with one
-    row band's slabs, into 0.8 of the slab store's cap (0.75 of the
-    budget).  Resident runs get ``n_chunks``: one group, the row-major
+    row band's slabs, into 0.8 of the slab store's cap (``_store_cap``).
+    Resident placements get ``n_chunks``: one group, the row-major
     walk."""
-    if n_chunks <= 1 or not _use_staged(presence, device, staged):
+    if n_chunks <= 1 or not place.staged:
         return max(1, n_chunks)
+    presence = place.presence
     g = max(1, presence.m.shape[1])
     per_genome = presence_device_bytes(presence) / g
-    budget = _device_budget(device)
-    cap = (budget if budget is not None else 4 << 30) * 0.75
-    avail = cap - band * per_genome
+    avail = _store_cap(place.device) - band * per_genome
     if avail <= 0 or per_genome <= 0:
         return 1
     return max(1, min(n_chunks, int(avail * 0.8 / (per_genome * col_chunk))))
@@ -1143,7 +983,8 @@ def _banded_sn(
     staged: bool | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Full (len(row_ids), len(col_ids)) S/N matrices on the host, computed
-    in band x col_chunk device blocks (``_choose_block_engine``).
+    in band x col_chunk device blocks (``_block_sn`` on the placement that
+    ``_use_staged`` picks).
 
     Short last bands and chunks are padded with genome 0 and sliced off.
     Symmetric problems (rows == cols with the same denominators) skip the
@@ -1164,9 +1005,9 @@ def _banded_sn(
     n = np.zeros((len(row_ids), len(col_ids)), dtype=np.int32)
     if len(row_ids) == 0 or len(col_ids) == 0:
         return s, n
-    block_sn = _choose_block_engine(
-        presence, approx, precise, device, phases, staged=staged
-    )
+    place = _placement(presence, device,
+                       _use_staged(presence, device, staged), phases=phases)
+    clock = _StageClock(device, phases, sync=True)
     band = min(band, len(row_ids))
     col_chunk = min(col_chunk, len(col_ids))
     symmetric = (
@@ -1180,9 +1021,7 @@ def _banded_sn(
         return np.pad(part, (0, width - len(part)))
 
     col_starts = list(range(0, len(col_ids), col_chunk))
-    group_n = _staged_col_group(
-        presence, device, band, col_chunk, len(col_starts), staged
-    )
+    group_n = _staged_col_group(place, band, col_chunk, len(col_starts))
     for g0 in range(0, len(col_starts), group_n):
         group = col_starts[g0 : g0 + group_n]
         for r0 in range(0, len(row_ids), band):
@@ -1193,11 +1032,10 @@ def _banded_sn(
                 if symmetric and c0 + col_chunk <= r0:
                     continue  # wholly below the diagonal: transpose fill
                 nc = min(col_chunk, len(col_ids) - c0)
-                s_b, n_b = block_sn(
-                    rids,
-                    padded(col_ids, c0, col_chunk),
-                    drids,
-                    padded(col_denom_ids, c0, col_chunk),
+                s_b, n_b = _block_sn(
+                    place, rids, padded(col_ids, c0, col_chunk), drids,
+                    padded(col_denom_ids, c0, col_chunk), approx, precise,
+                    clock,
                 )
                 with _span("engine.d2h", phases, "D2H"):
                     s[r0 : r0 + nr, c0 : c0 + nc] = (
@@ -1357,14 +1195,6 @@ def compute_sharded(
     world size over ``n_scp``.  Every rank of the process group calls it
     and gets the whole result.  ``phases`` collects ``H2D``, ``kernel``,
     ``scp all-reduce`` and ``row gather`` seconds."""
-    from .parallel import distributed
-    from .parallel.mesh import (
-        gather_rows,
-        make_mesh,
-        sharded_fused_sn,
-        sharded_fused_sn_rect,
-    )
-
     if n_rows is None:
         n_rows = max(1, distributed.world_size() // n_scp)
     mesh = make_mesh(n_rows, n_scp)
@@ -1533,7 +1363,6 @@ def _primary_decides(decide, multiproc: bool):
     process 0 never joins.  One process: ``decide()``."""
     if not multiproc:
         return decide()
-    from .parallel import distributed
 
     value = err = None
     if distributed.is_primary():
@@ -1556,7 +1385,6 @@ def _stop_everywhere(werr: list, multiproc: bool) -> bool:
     error.  One process: ``werr`` alone."""
     if not multiproc:
         return bool(werr)
-    from .parallel import distributed
 
     if not distributed.broadcast_from_primary(1 if werr else 0):
         return False
@@ -1628,14 +1456,14 @@ def compute_streamed_exact(
     with G^2.  This engine keeps its exactness (integer intersections, f64
     S accumulated in ascending protein order) at any G: per band x
     col_chunk output block it takes the integer counts from the device
-    (``_bucket_count_engine``), runs the banded f64 finish
+    (``_block_counts``), runs the banded f64 finish
     (``jaccard_finish_block``, the operation order of ``compute``'s finish)
     and appends the CSV rows of each completed band.  Memory is
     O(P * band * col_chunk) on the host and on the device beside the
     resident presence, whatever G is.  Where ``_use_staged`` says so
     (``staged``, PARFASTAAI_STAGED, or presence above the device budget)
-    the counts come from staged slabs (``_staged_count_engine``) instead
-    of resident buckets, with the same bytes out.
+    the counts come from staged slabs instead of resident buckets
+    (``_placement``), with the same bytes out.
 
     The CSV is byte-identical to ``compute`` + ``write_aji_csv`` in every
     mode: the same f64 values and formatter; pairs that share no protein
@@ -1664,11 +1492,11 @@ def compute_streamed_exact(
     PARFASTAAI_MIRROR_BYTES (default 4 GiB); blocks are then band x band.
 
     ``mesh`` (``parallel.mesh.make_mesh``): the count blocks come from the
-    mesh's ranks (``_mesh_count_engine``, or ``_staged_mesh_count_engine``
-    where ``_use_staged_mesh`` says so or the presence is meta-only), the
-    band rounded up to a multiple of the mesh's rows; every rank runs the
-    block walk and joins one gather per block, and process 0 puts the cells
-    together and runs the worker, the mirror store and the CSV alone.
+    mesh's ranks (resident shards, or staged ones where ``_use_staged``
+    says so or the presence is meta-only), the band rounded up to a
+    multiple of the mesh's rows; every rank runs the block walk and joins
+    one gather per block, and process 0 puts the cells together and runs
+    the worker, the mirror store and the CSV alone.
     Counts are integers, so the bytes are those of one device.  In a run
     of several processes process 0 decides (staged, the resume point, the
     mirror) after opening the CSV, and its decisions or its failure reach
@@ -1692,9 +1520,6 @@ def compute_streamed_exact(
     and ``worker.csv`` (one a band, counter ``rows``); the caller's open
     span gets counters ``blocks`` and ``mirrored``.
     """
-    from .parallel import distributed
-    from .parallel.mesh import assemble_counts, gather_cells
-
     primary = distributed.is_primary()
     multiproc = distributed.world_size() > 1
     if multiproc and mesh is None:
@@ -1732,11 +1557,7 @@ def compute_streamed_exact(
     opened = []
 
     def decide():
-        if mesh is None:
-            staged_active = _use_staged(presence, device, staged)
-        else:
-            staged_active = getattr(presence, "slab_broadcast", False) or (
-                _use_staged_mesh(presence, mesh.n_scp, device, staged))
+        staged_active = _use_staged(presence, device, staged, mesh)
         rows_done = _resume_point(out_path, header, band) if resume else 0
         if sym_layout and rows_done:
             print(
@@ -1870,16 +1691,7 @@ def compute_streamed_exact(
     worker = None
     n_blocks = n_mirrored = 0
     try:
-        if mesh is not None:
-            block_counts = (
-                _staged_mesh_count_engine(presence, mesh, device)
-                if staged_active
-                else _mesh_count_engine(presence, mesh, device, phases)
-            )
-        elif staged_active:
-            block_counts = _staged_count_engine(presence, device)
-        else:
-            block_counts = _bucket_count_engine(presence, device, phases)
+        place = _placement(presence, device, staged_active, mesh, phases)
         if mesh is None:
             downloads = _BlockDownloads(
                 device, P * band * col_chunk, _count_wire_dtype(presence),
@@ -1889,9 +1701,10 @@ def compute_streamed_exact(
         def counts_of(rids, cids):
             """The block's counts on their way to process 0's worker."""
             if mesh is None:
-                return downloads.fetch(lambda: block_counts(rids, cids))
+                return downloads.fetch(
+                    lambda: _block_counts(place, rids, cids))
             with _span("engine.gram", phases, "Gram"):
-                counts, layout = block_counts(rids, cids)
+                counts, layout = _block_counts(place, rids, cids)
                 _sync(device)
             with _span("engine.count_gather", phases, "count gather"):
                 cells = gather_cells(mesh, counts)  # every rank joins
@@ -1979,14 +1792,13 @@ def compute_streamed(
     (parfastaai_tpu.engine.compute_streamed).
 
     The output is walked in band x col_chunk blocks.  Each block is one
-    pass of the rectangular kernel per width bucket
-    (``_bucket_block_engine``), summed in bucket order, finished on the
-    device by ``_mask_aji`` and copied to the host as one f32 array.  Host
-    memory is O(band x G) beside the presence tensor (plus the mirror
-    store below) and the CSV grows in row order: a header of column names,
-    one row per row genome, same-genome cells and cells that share no
-    protein ``0``.  f32 on the device (~1e-7 relative, like
-    ``compute_fast``).
+    pass of the rectangular kernel per width bucket (``_block_sn``),
+    summed in bucket order, finished on the device by ``_mask_aji`` and
+    copied to the host as one f32 array.  Host memory is O(band x G)
+    beside the presence tensor (plus the mirror store below) and the CSV
+    grows in row order: a header of column names, one row per row genome,
+    same-genome cells and cells that share no protein ``0``.  f32 on the
+    device (~1e-7 relative, like ``compute_fast``).
 
     ``row_denom_ids`` / ``col_denom_ids``: T columns of the denominators
     per row / column (default: the id columns), so that the two-database
@@ -2039,18 +1851,19 @@ def compute_streamed(
     ``writer.assembly`` and ``writer.csv`` (one a band, counter ``rows``).
 
     Staged slabs (``staged``, PARFASTAAI_STAGED, or presence above the
-    device budget: ``_use_staged``): blocks come from the staged block
-    engine, and the column walk runs right to left in every other band
-    (the reference's snake order), so the column slabs of a band's last
-    chunks, still in the slab store, open the next band.  The writer
-    places each chunk at its c0, so the bytes do not depend on the order.
+    device budget: ``_use_staged``): blocks come from staged slabs
+    (``_placement``), and the column walk runs right to left in every
+    other band (the reference's snake order), so the column slabs of a
+    band's last chunks, still in the slab store, open the next band.  The
+    writer places each chunk at its c0, so the bytes do not depend on the
+    order.
 
     ``mesh`` (``parallel.mesh.make_mesh``): each block is cut into the
-    mesh's cells (``_mesh_block_engine``, or ``_staged_mesh_block_engine``
-    where ``_use_staged_mesh`` says so or the presence is meta-only), the
-    band rounded up to a multiple of the mesh's rows.  Every rank runs the
-    block walk and joins one gather of the masked cells per block; process
-    0 runs the writer, the mirror store and the CSV alone.  A one-row mesh
+    mesh's cells (resident shards, or staged ones where ``_use_staged``
+    says so or the presence is meta-only), the band rounded up to a
+    multiple of the mesh's rows.  Every rank runs the block walk and joins
+    one gather of the masked cells per block; process 0 runs the writer,
+    the mirror store and the CSV alone.  A one-row mesh
     writes the bytes of one device; protein shards add their sums at the
     end (~1e-7).  In a run of several processes process 0 decides (staged,
     the resume point, the mirror) after opening the CSV, its decisions or
@@ -2065,9 +1878,6 @@ def compute_streamed(
     Not here: the host numpy block for small problems (``_take_host``:
     relay dispatch model, not ported).
     """
-    from .parallel import distributed
-    from .parallel.mesh import gather_rows
-
     if approx and device.type != "cuda":
         raise PFAAIError(
             ErrorCode.CONSTRUCT_ERROR,
@@ -2108,11 +1918,7 @@ def compute_streamed(
     opened = []
 
     def decide():
-        if mesh is None:
-            staged_active = _use_staged(presence, device, staged)
-        else:
-            staged_active = getattr(presence, "slab_broadcast", False) or (
-                _use_staged_mesh(presence, mesh.n_scp, device, staged))
+        staged_active = _use_staged(presence, device, staged, mesh)
         rows_done = _resume_point(out_path, header, band) if resume else 0
         store_bytes = len(row_ids) * len(col_ids) * 4
         budget = mirror_budget()
@@ -2231,23 +2037,16 @@ def compute_streamed(
     # its stages are host seconds around syncs.
     clock = _StageClock(device, phases, sync=mesh is not None)
     try:
+        place = _placement(presence, device, staged_active, mesh, phases)
         if mesh is None:
-            block_sn = _choose_block_engine(
-                presence, approx, precise, device, phases, clock,
-                staged_active
-            )
             downloads = _BlockDownloads(
                 device, band * col_chunk, torch.float32,
                 n_buffers=work_q.maxsize + 2,
             )
-        else:
-            block_sn = (
-                _staged_mesh_block_engine if staged_active
-                else _mesh_block_engine
-            )(presence, mesh, approx, precise, device, phases, clock)
 
         def block_aji(rids, cids, drids, dcids) -> torch.Tensor:
-            aji = _mask_aji(*block_sn(rids, cids, drids, dcids))
+            aji = _mask_aji(*_block_sn(place, rids, cids, drids, dcids,
+                                       approx, precise, clock))
             clock.lap("AJI mask")
             return aji
 

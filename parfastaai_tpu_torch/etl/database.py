@@ -45,7 +45,7 @@ class MetaOnlyM:
     shipped to this process (meta-only broadcast, parallel/distributed
     .broadcast_presence(meta_only=True)): non-primary processes of a
     staged-mesh run hold metadata + T only, and slab bytes arrive on demand
-    through the mesh slab store (engine._mesh_slab_store) — that is what
+    through the mesh slab store (engine._MeshSlabStore) — that is what
     makes "genome capacity scales with host RAM x pod size" true on the
     HOST side too.
 
@@ -606,7 +606,7 @@ def bucket_bounds(
     padded contraction width ``kb``.  Split points come from an exact DP
     minimizing total padded work sum(|group| * roundup(max_width, lane)).
     Shared by bucketize_presence (which slices copies) and the staged
-    engines (engine._staged_block_engine: slab-sized gathers only — at the
+    placements (engine._Staged: slab-sized gathers only — at the
     genome counts staging targets, a full-G bucket copy would double host
     RAM)."""
     P = len(widths)

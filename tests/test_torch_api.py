@@ -329,8 +329,8 @@ def test_staged_env_is_read_as_the_reference_reads_it(
 
     monkeypatch.setenv("PARFASTAAI_STAGED", value)
     stores = []
-    real = port_engine._slab_store
-    monkeypatch.setattr(port_engine, "_slab_store",
+    real = port_engine._Staged.__init__
+    monkeypatch.setattr(port_engine._Staged, "__init__",
                         lambda *a: stores.append(1) or real(*a))
     got, want = _both(fn, engine, dbs, tmp_path)
     _assert_parity(engine, got, want)

@@ -417,18 +417,16 @@ def test_profile_of_a_failing_run_closes_the_profiler(dbs, tmp_path, monkeypatch
     was closed."""
     from parfastaai_tpu_torch import engine
 
-    real = engine._bucket_block_engine
+    real = engine._block_sn
 
     def failing(*args, **kwargs):
-        def block_sn(*ids):
-            raise PFAAIError(ErrorCode.CONSTRUCT_ERROR, "injected block fault")
-        return block_sn
+        raise PFAAIError(ErrorCode.CONSTRUCT_ERROR, "injected block fault")
 
-    monkeypatch.setattr(engine, "_bucket_block_engine", failing)
+    monkeypatch.setattr(engine, "_block_sn", failing)
     out = tmp_path / "x.csv"
     args = [dbs["target"], str(out), "--quiet", "--device", "cpu", "--streamed"]
     assert run([*args, "--profile", str(tmp_path / "t1")]) == 3
-    monkeypatch.setattr(engine, "_bucket_block_engine", real)
+    monkeypatch.setattr(engine, "_block_sn", real)
     assert run([*args, "--profile", str(tmp_path / "t2")]) == 0
     assert (tmp_path / "t2").is_dir() and out.exists()
 

@@ -913,21 +913,26 @@ def test_compute_sharded_on_cuda_matches_cpu(cuda, synth_db, tmp_path, mode):
 @pytest.mark.parametrize("staged", [False, True], ids=["resident", "staged"])
 def test_mesh_rank_blocks_on_cuda(cuda, monkeypatch, rows, scp, staged):
     """Every cell of the streamed engines' mesh, run in turn on the card
-    (``_mesh_block_engine`` resident, ``_staged_mesh_block_engine`` on
-    slabs of two proteins), two width buckets, a ragged band: under the
+    (``_block_sn`` on the ``_MeshResident`` placement, or ``_MeshStaged``
+    on slabs of two proteins), two width buckets, a ragged band: under the
     IEEE divide each cell's (S, N) is bit-equal to the same cell on the
     CPU (the kernel's plain version), with one sn_rect launch per bucket
-    or chunk; each cell of the count engines equals the CPU's."""
+    or chunk; each cell of ``_block_counts`` equals the CPU's."""
     from parfastaai_tpu_torch import engine
     from parfastaai_tpu_torch.parallel.mesh import Mesh
 
     cpu = torch.device("cpu")
     if staged:
         monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(2 * 150 * 384))
-    block = (engine._staged_mesh_block_engine if staged
-             else engine._mesh_block_engine)
-    counts = (engine._staged_mesh_count_engine if staged
-              else engine._mesh_count_engine)
+
+    def block(presence, cell, dev):
+        place = engine._placement(presence, dev, staged, cell)
+        return lambda *ids: engine._block_sn(place, *ids, precise=True)
+
+    def counts(presence, cell, dev):
+        place = engine._placement(presence, dev, staged, cell)
+        return lambda *ids: engine._block_counts(place, *ids)
+
     on_cpu, on_cuda = _bucketed_presence()[1], _bucketed_presence()[1]
     rids = np.arange(3, 140, 2)  # 69 rows, padded to the mesh's rows
     cids = np.arange(150)[::-1].copy()
@@ -935,15 +940,13 @@ def test_mesh_rank_blocks_on_cuda(cuda, monkeypatch, rows, scp, staged):
     for r in range(rows):
         for sh in range(scp):
             cell = Mesh(rows, scp, (r, sh), None)
-            want = block(on_cpu, cell, False, True, cpu)(rids, cids, rids,
-                                                         cids)
+            want = block(on_cpu, cell, cpu)(rids, cids, rids, cids)
             before = sn_rect.LAUNCHES
-            got = block(on_cuda, cell, False, True, cuda)(rids, cids, rids,
-                                                          cids)
+            got = block(on_cuda, cell, cuda)(rids, cids, rids, cids)
             torch.cuda.synchronize()
             launches = (len(list(engine._split_plan(
                 plan, 150, cuda,
-                engine._mesh_slab_store(on_cuda, cell, cuda).target)))
+                engine._placement(on_cuda, cuda, True, cell)._store.target)))
                 if staged else len(plan))
             assert sn_rect.LAUNCHES - before == launches
             assert got[0].device.type == "cuda"

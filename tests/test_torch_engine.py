@@ -117,13 +117,15 @@ def test_block_engine_gathers_only_partial_axes(dbs, monkeypatch):
 
     monkeypatch.setattr(engine, "fused_sn_block", spy)
     G = presence.m.shape[1]
-    block_sn = engine._bucket_block_engine(presence, False, False, CPU)
+    place = engine._placement(presence, CPU, False)
     everyone, rows = np.arange(G), np.arange(5, 21)
-    block_sn(rows, everyone, rows, everyone)
+    engine._block_sn(place, rows, everyone, rows, everyone)
     buckets = engine.to_device_buckets(presence, CPU)
     assert len(seen) == len(buckets)
     for (ma, mb, ta, tb), (_, md, td) in zip(seen, buckets):
-        assert mb is md and tb is td
+        # the bucket itself, viewed as int8: its own memory, no gather
+        assert mb.data_ptr() == md.data_ptr() and mb.shape == md.shape
+        assert mb.dtype == torch.int8 and tb is td
         assert ma.shape[1] == ta.shape[1] == len(rows)
         assert torch.equal(ma, md[:, 5:21])
 

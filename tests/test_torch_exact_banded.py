@@ -165,18 +165,13 @@ def test_mirror_on_equals_mirror_off(single, tmp_path, monkeypatch, capfd, band)
     meta, presence = single
     axes = modes.all_vs_all_axes(meta)
     seen = []
-    real = engine._bucket_count_engine
+    real = engine._block_counts
 
-    def spying(*a, **k):
-        block_counts = real(*a, **k)
+    def spy(place, rids, cids):
+        seen.append((len(rids), len(cids)))
+        return real(place, rids, cids)
 
-        def spy(rids, cids):
-            seen.append((len(rids), len(cids)))
-            return block_counts(rids, cids)
-
-        return spy
-
-    monkeypatch.setattr(engine, "_bucket_count_engine", spying)
+    monkeypatch.setattr(engine, "_block_counts", spy)
     shape = dict(band=band, col_chunk=2 * band)
     mirrored = _banded(tmp_path, presence, axes, "mirrored", **shape)
     n_ch = -(-40 // band)
@@ -246,7 +241,8 @@ def test_counts_past_int16_travel_as_int32(tmp_path):
     m[1, :, :7] = 1
     meta, presence = _hand_presence(m, "abc")
     assert engine._count_wire_dtype(presence) == torch.int32
-    block = engine._bucket_count_engine(presence, CPU)(np.arange(3), np.arange(3))
+    block = engine._block_counts(engine._placement(presence, CPU, False),
+                                 np.arange(3), np.arange(3))
     assert block.dtype == torch.int32 and int(block[0, 0, 1]) == 2**15 + 10
     want = _dense(tmp_path, presence, modes.all_vs_all(meta))
     assert _banded(tmp_path, presence, modes.all_vs_all_axes(meta), band=2) == want
@@ -263,7 +259,8 @@ def test_count_blocks_exact_shape_in_protein_order(bucketed):
     order = np.concatenate([idx for idx, _, _ in buckets])
     assert len(buckets) > 1 and not np.array_equal(order, np.sort(order))
     rids, cids = np.array([9, 10, 3]), np.array([0, 5, 6, 7, 10])
-    block = engine._bucket_count_engine(presence, CPU)(rids, cids)
+    block = engine._block_counts(engine._placement(presence, CPU, False),
+                                 rids, cids)
     assert block.dtype == torch.int16 and block.is_contiguous()
     m = presence.m.astype(np.int64)
     want = np.einsum("pak,pbk->pab", m[:, rids], m[:, cids])
@@ -311,25 +308,20 @@ def test_producer_failure_leaves_whole_bands_and_resumes(
     axes = modes.all_vs_all_axes(meta)
     clean = _banded(tmp_path, presence, axes, "clean", band=20)
     calls = []
-    real = engine._bucket_count_engine
+    real = engine._block_counts
 
-    def failing(*a, **k):
-        block_counts = real(*a, **k)
+    def failing(place, rids, cids):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("injected device failure")
+        return real(place, rids, cids)
 
-        def wrapped(rids, cids):
-            calls.append(1)
-            if len(calls) == 3:
-                raise RuntimeError("injected device failure")
-            return block_counts(rids, cids)
-
-        return wrapped
-
-    monkeypatch.setattr(engine, "_bucket_count_engine", failing)
+    monkeypatch.setattr(engine, "_block_counts", failing)
     with pytest.raises(RuntimeError, match="injected device failure"):
         _banded(tmp_path, presence, axes, band=20)
     lines = (tmp_path / "port.csv").read_bytes().split(b"\n")
     assert lines == clean.split(b"\n")[: 1 + 20] + [b""]
-    monkeypatch.setattr(engine, "_bucket_count_engine", real)
+    monkeypatch.setattr(engine, "_block_counts", real)
     assert _banded(tmp_path, presence, axes, band=20, resume=True) == clean
 
 

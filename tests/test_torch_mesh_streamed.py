@@ -1,10 +1,9 @@
-"""The streamed engines' mesh branches in the port (``engine._use_staged_
-mesh``, ``_MeshSlabStore``, ``_mesh_block_engine``,
-``_staged_mesh_block_engine``, ``_mesh_count_engine``,
-``_staged_mesh_count_engine``) against the JAX package's, in one process
-on the CPU.
+"""The streamed engines' mesh branches in the port (``engine._use_staged``
+with a mesh, ``_MeshSlabStore``, the ``_MeshResident`` and ``_MeshStaged``
+placements under ``_block_sn`` and ``_block_counts``) against the JAX
+package's, in one process on the CPU.
 
-Every cell of a (rows, scp) mesh runs in turn through the port's engine
+Every cell of a (rows, scp) mesh runs in turn through the port's bodies
 (a ``Mesh`` with the cell's coordinates and no process group, so the scp
 all-reduce is left out), the scp partials are added here in ascending
 shard order and the row bands stacked, as tests/test_torch_mesh.py does;
@@ -107,16 +106,27 @@ def _bit_equal_to_jax(presence, n_ids: int, staged: bool, scp: int) -> bool:
     return chunks == 1 or (scp == 1 and chunks == len(plan))
 
 
-def _cells_sn(make, presence, rows, scp, rids, cids):
+def _sn(presence, staged, mesh, rids, cids):
+    """(S, N) of one block from the placement ``staged`` picks."""
+    place = engine._placement(presence, CPU, staged, mesh)
+    return engine._block_sn(place, rids, cids, rids, cids)
+
+
+def _counts(presence, staged, mesh, rids, cids):
+    """The count block (with a mesh: and its layout) of one block."""
+    return engine._block_counts(engine._placement(presence, CPU, staged,
+                                                  mesh), rids, cids)
+
+
+def _cells_sn(staged, presence, rows, scp, rids, cids):
     """(S, N) of the block from every cell of a (rows, scp) mesh in turn,
     scp partials added in ascending shard order, bands stacked."""
     bands = []
     for r in range(rows):
         s = n = None
         for sh in range(scp):
-            block_sn = make(presence, Mesh(rows, scp, (r, sh), None), False,
-                            False, CPU)
-            s_p, n_p = block_sn(rids, cids, rids, cids)
+            s_p, n_p = _sn(presence, staged, Mesh(rows, scp, (r, sh), None),
+                           rids, cids)
             s, n = (s_p, n_p) if s is None else (s + s_p, n + n_p)
         bands.append((s, n))
     return (torch.cat([b[0] for b in bands]).numpy()[: len(rids)],
@@ -137,9 +147,7 @@ def test_block_engines_match_jax(case, staged, rows, scp, db, monkeypatch):
     n_ids = max(len(ROWS), G)
     if staged:
         monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(2 * n_ids * kb))
-    make = (engine._staged_mesh_block_engine if staged
-            else engine._mesh_block_engine)
-    s, n = _cells_sn(make, _fresh(presence), rows, scp, ROWS, cids)
+    s, n = _cells_sn(staged, _fresh(presence), rows, scp, ROWS, cids)
     rp = pad_rows(ROWS, rows)
     block_sn = jax_engine._staged_mesh_block_engine(
         _fresh(presence), jax_mesh.make_mesh(rows, scp), False, False)
@@ -151,10 +159,8 @@ def test_block_engines_match_jax(case, staged, rows, scp, db, monkeypatch):
     else:
         np.testing.assert_allclose(s, s_w, rtol=RTOL, atol=0)
     # one device's engines: a row split changes no value
-    one = (engine._staged_block_engine if staged
-           else engine._bucket_block_engine)(_fresh(presence), False, False,
-                                              CPU)
-    s_1, n_1 = (x.numpy() for x in one(ROWS, cids, ROWS, cids))
+    s_1, n_1 = (x.numpy()
+                for x in _sn(_fresh(presence), staged, None, ROWS, cids))
     np.testing.assert_array_equal(n, n_1)
     if scp == 1:
         np.testing.assert_array_equal(s, s_1)
@@ -162,14 +168,15 @@ def test_block_engines_match_jax(case, staged, rows, scp, db, monkeypatch):
         np.testing.assert_allclose(s, s_1, rtol=RTOL, atol=0)
 
 
-def _cells_counts(make, presence, rows, scp, rids, cids):
+def _cells_counts(staged, presence, rows, scp, rids, cids):
     """The (P, len(rids), len(cids)) count block put together from every
     cell, as process 0 puts the gathered cells together."""
     cells, layout = [], None
     for r in range(rows):
         for sh in range(scp):
-            block_counts = make(presence, Mesh(rows, scp, (r, sh), None), CPU)
-            counts, layout = block_counts(rids, cids)
+            counts, layout = _counts(presence, staged,
+                                     Mesh(rows, scp, (r, sh), None), rids,
+                                     cids)
             cells.append(counts.numpy())
     return assemble_counts(Mesh(rows, scp, None, None), np.stack(cells),
                            layout, presence.t.shape[0], len(rids))
@@ -185,9 +192,7 @@ def test_count_engines_match_jax(staged, rows, scp, monkeypatch):
     cids = np.arange(G)
     if staged:
         monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(2 * G * 384))
-    make = (engine._staged_mesh_count_engine if staged
-            else engine._mesh_count_engine)
-    got = _cells_counts(make, _fresh(presence), rows, scp, ROWS, cids)
+    got = _cells_counts(staged, _fresh(presence), rows, scp, ROWS, cids)
     rp = pad_rows(ROWS, rows)
     jax_make = (jax_engine._staged_mesh_count_engine if staged
                 else jax_engine._mesh_count_engine)
@@ -196,9 +201,59 @@ def test_count_engines_match_jax(staged, rows, scp, monkeypatch):
             rp, cids, len(rp), G):
         want[idx] = np.asarray(dev)[: len(idx), : len(ROWS)]
     np.testing.assert_array_equal(got, want)
-    one = engine._bucket_count_engine(_fresh(presence), CPU)(ROWS, cids)
+    one = _counts(_fresh(presence), False, None, ROWS, cids)
     np.testing.assert_array_equal(got, one.numpy())
     assert got.dtype == np.int16
+
+
+# placement -> (staged, mesh shape or None, slabs of two proteins)
+PLACEMENTS = {
+    "resident": (False, None, False),
+    "staged": (True, None, True),
+    "mesh_resident": (False, (2, 1), False),
+    "mesh_staged": (True, (2, 2), False),
+}
+
+
+@pytest.mark.parametrize("body", ["sn", "counts"])
+@pytest.mark.parametrize("placement", sorted(PLACEMENTS))
+def test_placements_agree_with_the_resident_one(placement, body,
+                                               monkeypatch):
+    """Each of the four placements under each body, on a presence of
+    several width buckets, gives the resident placement's block: counts
+    equal (and the einsum's); N equal; S bit-equal where every bucket is
+    one chunk and one protein shard, else within RTOL (slabs of two
+    proteins cut the buckets, or two shards add their sums)."""
+    presence = _bucketed()
+    staged, shape, two = PLACEMENTS[placement]
+    G = presence.m.shape[1]
+    cids = np.arange(G)[::-1].copy()
+    if two:
+        monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(2 * G * 384))
+    if body == "counts":
+        want = _counts(_fresh(presence), False, None, ROWS, cids).numpy()
+        m = presence.m.astype(np.int64)
+        np.testing.assert_array_equal(
+            want, np.einsum("pak,pbk->pab", m[:, ROWS], m[:, cids]))
+        got = (_counts(_fresh(presence), staged, None, ROWS, cids).numpy()
+               if shape is None else
+               _cells_counts(staged, _fresh(presence), *shape, ROWS, cids))
+        np.testing.assert_array_equal(got, want)
+        return
+    s_w, n_w = (x.numpy()
+                for x in _sn(_fresh(presence), False, None, ROWS, cids))
+    if shape is None:
+        s, n = (x.numpy()
+                for x in _sn(_fresh(presence), staged, None, ROWS, cids))
+    else:
+        s, n = _cells_sn(staged, _fresh(presence), *shape, ROWS, cids)
+    np.testing.assert_array_equal(n, n_w)
+    plan = engine._bucket_plan(presence)
+    chunks = len(list(engine._split_plan(plan, G, CPU))) if staged else 0
+    if (shape is None or shape[1] == 1) and chunks in (0, len(plan)):
+        np.testing.assert_array_equal(s, s_w)
+    else:
+        np.testing.assert_allclose(s, s_w, rtol=RTOL, atol=0)
 
 
 def test_protein_shards_and_layout():
@@ -219,16 +274,16 @@ def test_rank_past_the_mesh_computes_nothing(monkeypatch):
     monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(2 * 13 * 384))
     idle = Mesh(2, 2, None, None)
     cids = np.arange(13)
-    for make in (engine._mesh_block_engine, engine._staged_mesh_block_engine):
-        s, n = make(presence, idle, False, False, CPU)(ROWS, cids, ROWS, cids)
+    for staged in (False, True):
+        s, n = _sn(presence, staged, idle, ROWS, cids)
         assert s.shape == n.shape == (5, 13)
         assert not s.any() and not n.any()
-    for make in (engine._mesh_count_engine, engine._staged_mesh_count_engine):
-        counts, layout = make(presence, idle, CPU)(ROWS, cids)
+    for staged in (False, True):
+        counts, layout = _counts(presence, staged, idle, ROWS, cids)
         assert counts.shape == (layout.shape[1], 5, 13) and not counts.any()
     stats = engine.slab_stats(presence, CPU, idle)
     assert stats["slabs"] > 0 and stats["held"] > 0
-    store = engine._mesh_slab_store(presence, idle, CPU)
+    store = engine._MeshStaged(presence, CPU, idle)._store
     assert all(slab is None for slab, _ in store._slabs.values())
 
 
@@ -247,9 +302,9 @@ def test_rank_past_the_mesh_computes_nothing(monkeypatch):
 )
 def test_use_staged_mesh_decisions(budget, scp, staged, env, want,
                                    monkeypatch):
-    """The port's ``_use_staged_mesh`` decides as the JAX package's: the
-    budget against the bucketed presence over scp, then ``staged`` and
-    PARFASTAAI_STAGED."""
+    """The port's ``_use_staged`` over a mesh decides as the JAX package's
+    ``_use_staged_mesh``: the budget against the bucketed presence over
+    scp, then ``staged`` and PARFASTAAI_STAGED."""
     presence = _bucketed()
     for var in ("PARFASTAAI_HBM_BYTES", "PARFASTAAI_STAGED"):
         monkeypatch.delenv(var, raising=False)
@@ -259,7 +314,8 @@ def test_use_staged_mesh_decisions(budget, scp, staged, env, want,
         monkeypatch.setenv("PARFASTAAI_HBM_BYTES", budget)
     if env is not None:
         monkeypatch.setenv("PARFASTAAI_STAGED", env)
-    got = engine._use_staged_mesh(presence, scp, CPU, staged)
+    got = engine._use_staged(presence, CPU, staged,
+                             Mesh(1, scp, (0, 0), None))
     assert got == jax_engine._use_staged_mesh(presence, scp, staged) == want
 
 
@@ -271,22 +327,18 @@ def test_mesh_slab_store_keyed_by_content(monkeypatch):
     presence = _bucketed()
     monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(24 * 384))
     cell = Mesh(1, 2, (0, 1), None)
-    make = engine._staged_mesh_block_engine
     cids = np.arange(13)
     for rows in (ROWS[:8], ROWS[:6], ROWS[:8]):
-        got = make(presence, cell, False, False, CPU)(rows, cids[:8], rows,
-                                                     cids[:8])
-        want = make(_fresh(presence), cell, False, False, CPU)(
-            rows, cids[:8], rows, cids[:8])
+        got = _sn(presence, True, cell, rows, cids[:8])
+        want = _sn(_fresh(presence), True, cell, rows, cids[:8])
         for x, y in zip(got, want):
             assert torch.equal(x, y)
     stats = engine.slab_stats(presence, CPU, cell)
     assert stats["hits"] > 0
-    counts = engine._staged_mesh_count_engine(presence, cell, CPU)
-    fresh = engine._staged_mesh_count_engine(_fresh(presence), cell, CPU)
+    fresh = _fresh(presence)
     for rows in (ROWS[:8], ROWS[:6]):
-        got, layout = counts(rows, cids[:8])
-        want, want_layout = fresh(rows, cids[:8])
+        got, layout = _counts(presence, True, cell, rows, cids[:8])
+        want, want_layout = _counts(fresh, True, cell, rows, cids[:8])
         assert torch.equal(got, want)
         np.testing.assert_array_equal(layout, want_layout)
 

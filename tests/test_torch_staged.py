@@ -1,7 +1,7 @@
 """Staged presence slabs in the port (``engine._use_staged``,
-``_slab_store``, ``_staged_block_engine``, ``_staged_count_engine``,
-``_staged_col_group`` and the staged branches of the three banded
-engines) against the JAX package's, on the CPU, on small synthetic
+``_SlabStore``, the ``_Staged`` placement under ``_block_sn`` and
+``_block_counts``, ``_staged_col_group`` and the staged branches of the
+three banded engines) against the JAX package's, on the CPU, on small synthetic
 databases (``tools/synth_db``) and a hand-made presence of several width
 buckets.
 
@@ -227,7 +227,10 @@ def test_staged_col_group_equals_jax(hbm, monkeypatch):
             for n_chunks in (1, 2, 5):
                 for staged in (None, True, False):
                     args = (band, col_chunk, n_chunks, staged)
-                    assert engine._staged_col_group(presence, CPU, *args) \
+                    place = engine._placement(
+                        presence, CPU, engine._use_staged(presence, CPU,
+                                                          staged))
+                    assert engine._staged_col_group(place, *args[:3]) \
                         == jax_engine._staged_col_group(presence, *args), args
 
 
@@ -239,7 +242,7 @@ def test_slab_holds_its_proteins_genomes_and_zero_padding():
     own K columns, zero past the tensor's width; a fetch of the same
     content is served from the store, one of other proteins is not."""
     presence = _bucketed()
-    store = engine._slab_store(presence, CPU)
+    store = engine._placement(presence, CPU, True)._store
     ids = np.array([3, 0, 9, 3, 12])
     for idx, kb in (([1, 3], 128), ([4, 5, 0], 384), ([6], 512)):
         idx = np.array(idx)
@@ -462,7 +465,7 @@ def test_column_group_walk_uploads_less(monkeypatch):
     widths = np.full(4, 128, np.int32)
     monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "20000")
     assert engine._staged_col_group(
-        _hand_presence(m, widths), CPU, 8, 8, 4, True) == 2
+        engine._placement(_hand_presence(m, widths), CPU, True), 8, 8, 4) == 2
     ids = np.arange(32)
     dcol = (ids + 1) % 32  # not symmetric: both walks compute every block
 
@@ -492,19 +495,13 @@ def test_streamed_snake_order(dbs, tmp_path, monkeypatch):
     walks = {}
     for name, staged in (("resident", False), ("staged", True)):
         seen = []
-        for factory in ("_bucket_block_engine", "_staged_block_engine"):
-            real = getattr(engine, factory)
+        real = engine._block_sn
 
-            def wrapped(*a, _real=real, **k):
-                block_sn = _real(*a, **k)
+        def block(place, rids, cids, *a, _real=real):
+            seen.append((int(rids[0]), int(cids[0])))
+            return _real(place, rids, cids, *a)
 
-                def block(rids, cids, drids, dcids):
-                    seen.append((int(rids[0]), int(cids[0])))
-                    return block_sn(rids, cids, drids, dcids)
-
-                return block
-
-            monkeypatch.setattr(engine, factory, wrapped)
+        monkeypatch.setattr(engine, "_block_sn", block)
         out = _csv(engine.compute_streamed, tmp_path, _fresh(presence), axes,
                    name, band=2, col_chunk=9, staged=staged)
         monkeypatch.undo()

@@ -239,20 +239,15 @@ def test_bytes_independent_of_block_shape(
 
 def _spy_blocks(monkeypatch):
     """Shapes of the blocks the engine computes, through a wrapped
-    ``_bucket_block_engine``."""
+    ``_block_sn``."""
     seen = []
-    real = engine._bucket_block_engine
+    real = engine._block_sn
 
-    def spying(*a, **k):
-        block_sn = real(*a, **k)
+    def spy(place, rids, cids, *a):
+        seen.append((len(rids), len(cids)))
+        return real(place, rids, cids, *a)
 
-        def spy(rids, cids, drids, dcids):
-            seen.append((len(rids), len(cids)))
-            return block_sn(rids, cids, drids, dcids)
-
-        return spy
-
-    monkeypatch.setattr(engine, "_bucket_block_engine", spying)
+    monkeypatch.setattr(engine, "_block_sn", spy)
     return seen
 
 
@@ -428,26 +423,21 @@ def test_producer_failure_leaves_whole_bands_and_resumes(
     shape = dict(band=20, col_chunk=10)
     clean = _streamed(tmp_path, presence, axes, "clean", **shape)
     calls = []
-    real = engine._bucket_block_engine
+    real = engine._block_sn
 
-    def failing(*a, **k):
-        block_sn = real(*a, **k)
+    def failing(*a):
+        calls.append(1)
+        if len(calls) == 6:  # the second band's second computed chunk
+            raise RuntimeError("injected device failure")
+        return real(*a)
 
-        def wrapped(*ids):
-            calls.append(1)
-            if len(calls) == 6:  # the second band's second computed chunk
-                raise RuntimeError("injected device failure")
-            return block_sn(*ids)
-
-        return wrapped
-
-    monkeypatch.setattr(engine, "_bucket_block_engine", failing)
+    monkeypatch.setattr(engine, "_block_sn", failing)
     with pytest.raises(RuntimeError, match="injected device failure"):
         _streamed(tmp_path, presence, axes, **shape)
     lines = (tmp_path / "port.csv").read_bytes().split(b"\n")
     assert lines == clean.split(b"\n")[: 1 + 20] + [b""]
     assert _no_stray_threads() == []
-    monkeypatch.setattr(engine, "_bucket_block_engine", real)
+    monkeypatch.setattr(engine, "_block_sn", real)
     assert _streamed(tmp_path, presence, axes, resume=True, **shape) == clean
 
 
@@ -464,7 +454,7 @@ def test_approx_needs_the_cuda_kernel(single, tmp_path):
     assert e.value.code == ErrorCode.CONSTRUCT_ERROR
     assert "--approx requires the CUDA streamed kernel" in str(e.value)
     assert not (tmp_path / "port.csv").exists()
-    assert not hasattr(fresh, "_torch_bucket_cache")
+    assert not getattr(fresh, "_torch_cache", None)
     with pytest.raises(JaxPFAAIError) as e:
         _jax_streamed(tmp_path, presence, jax_modes.all_vs_all_axes(meta),
                       approx=True)
@@ -522,26 +512,23 @@ def test_mask_aji_bit_equal_to_jax():
 
 @pytest.mark.parametrize("sync", [True, False])
 def test_block_engine_clock(sync, bucketed, monkeypatch):
-    """``_bucket_block_engine`` with a clock that does not synchronise
-    returns the values of the default one, calls ``_sync`` for no block,
-    and still splits its time into ``gather`` and ``kernel``."""
+    """``_block_sn`` on the resident placement with a clock that does not
+    synchronise returns the values of a synchronising one, calls ``_sync``
+    for no block, and still splits its time into ``gather`` and
+    ``kernel``."""
     _, presence = bucketed
-    engine.to_device_buckets(presence, CPU)  # resident before the count
+    place = engine._placement(presence, CPU, False)  # resident before
     syncs = []
     monkeypatch.setattr(engine, "_sync", lambda device: syncs.append(device))
     phases = {}
-    clock = None if sync else engine._StageClock(CPU, phases, sync=False)
-    block_sn = engine._bucket_block_engine(
-        presence, False, False, CPU, phases, clock)
+    clock = engine._StageClock(CPU, phases, sync=sync)
     rows, cols = np.array([9, 10, 3]), np.arange(11)
-    s, n = block_sn(rows, cols, rows, cols)
+    s, n = engine._block_sn(place, rows, cols, rows, cols, clock=clock)
     assert bool(syncs) == sync
-    if clock is not None:
-        clock.close()
+    clock.close()
     assert set(phases) == {"gather", "kernel"} and phases["kernel"] > 0
     monkeypatch.undo()
-    s_ref, n_ref = engine._bucket_block_engine(presence, False, False, CPU)(
-        rows, cols, rows, cols)
+    s_ref, n_ref = engine._block_sn(place, rows, cols, rows, cols)
     assert torch.equal(s, s_ref) and torch.equal(n, n_ref)
 
 

@@ -372,7 +372,7 @@ def test_phases_equal_the_spans_key_by_key(route, single, tmp_path):
     under it (on the CPU every stage is host-timed; the banded engines'
     ``D2H`` is a CUDA-event sum, 0 here, with no span)."""
     meta, presence = single
-    presence.__dict__.pop("_torch_bucket_cache", None)  # upload anew
+    presence.__dict__.pop("_torch_cache", None)  # upload anew
     phases, c = _recorded(_engine_runs(single, tmp_path)[route])
     assert phases
     keyed = {s.key for s in c.spans if s.key is not None}
