@@ -92,8 +92,9 @@ Run from the repository root:
    the device-busy milliseconds (the union of kernel and copy intervals)
    are printed beside the phase's wall.
 4. Runs the exact path on the card.  On a 1024-genome database of the same
-   generator: the default (dense) call, ``--streamed --exact`` (the banded
-   exact engine on its symmetric walk) and the same with
+   generator: the default (dense) call, which must launch the f64 finish
+   kernel once and no other hand-written kernel, ``--streamed --exact``
+   (the banded exact engine on its symmetric walk) and the same with
    PARFASTAAI_MIRROR_BYTES=1 (the full square) must write the same bytes,
    and a ``--resume`` from the second file cut inside a band must restore
    it.  Then the CLI with no flag but ``--device cuda`` on the 4096-genome
@@ -160,8 +161,19 @@ Run from the repository root:
    sn_square_wgmma once, no other kernel), against the default plan's
    result.  Then ``ops.intersection_counts`` and ``ops.pair_counts`` on
    the card at a small size, equal to ``int_gram`` and to exact counts.
-7. Prints the card's name and power limit, one JSON line of kernel results
-   and, last, ``{"ok": true, "device": {...}}``.
+   Then the dense exact engine's f64 finish kernel (``ops.finish``, built
+   as its own library, its build's seconds printed) at the pair lists of
+   the benchmark's qsub and qdb cells: S and N bit-equal to the host's
+   native finish and to the plain version on the card, and the kernel's,
+   the plain version's and the host path's times beside its bound.
+7. Prints the card's name and power limit, one JSON line of kernel results,
+   one of the finish kernel's (with step 4's dense call's launches) and,
+   last, ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --finish-only`` builds the libraries and runs step
+4's dense call (its launches alone) and the finish kernel's checks and
+times of step 6, then prints the card line, the finish kernel's JSON line
+and the result line.
 
 ``python3 chip_smoke.py --mesh-only`` runs steps 2, 2a, 5a and 5b's
 two-process launch alone (for
@@ -564,7 +576,7 @@ def square_checks(label, m, t_raw, tc, s_ref, n_ref, modes) -> dict:
                 (s, n), ran = launched(run)
                 errs[(name, mode)] = check(f"sn_square {label} {name}", s, n,
                                            s_ref, n_ref, mode)
-            if ran != {"sn_square_wgmma": want, "sn_rect": 0}:
+            if ran != {**dict.fromkeys(ran, 0), "sn_square_wgmma": want}:
                 fail(f"{label}/{mode}: {name} should launch sn_square_wgmma "
                      f"{want} times and nothing else: {ran}")
             if not (torch.equal(s, s.T) and torch.equal(n, n.T)):
@@ -644,7 +656,7 @@ def square_phase(dev) -> dict:
                 mo, to, packed=True, symmetric=symmetric, **kw))
             check(f"sn_square main P={P} G={G} K={K - 1} packed "
                   f"{'triu' if symmetric else 'full'}", s, n, s_o, n_o, mode)
-            if ran != {"sn_square_wgmma": 1, "sn_rect": 0} or not (
+            if ran != {**dict.fromkeys(ran, 0), "sn_square_wgmma": 1} or not (
                     torch.equal(s, s.T) and torch.equal(n, n.T)):
                 fail(f"odd K packed: launches {ran}, or S / N not symmetric")
     del mo, to, s_o, n_o, s, n
@@ -992,16 +1004,16 @@ def cli_phases(text: str) -> dict:
 
 
 def reset_launches() -> None:
-    from parfastaai_tpu_torch.ops import sn_rect, sn_square
+    from parfastaai_tpu_torch.ops import finish, sn_rect, sn_square
 
-    sn_square.WGMMA_LAUNCHES = sn_rect.LAUNCHES = 0
+    sn_square.WGMMA_LAUNCHES = sn_rect.LAUNCHES = finish.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from parfastaai_tpu_torch.ops import sn_rect, sn_square
+    from parfastaai_tpu_torch.ops import finish, sn_rect, sn_square
 
     return {"sn_square_wgmma": sn_square.WGMMA_LAUNCHES,
-            "sn_rect": sn_rect.LAUNCHES}
+            "sn_rect": sn_rect.LAUNCHES, "finish_f64": finish.LAUNCHES}
 
 
 def launched(fn) -> tuple:
@@ -1010,6 +1022,20 @@ def launched(fn) -> tuple:
     reset_launches()
     out = fn()
     return out, read_launches()
+
+
+def dense_cli_leg(out_dir: str, db: str) -> tuple[str, str, float, int]:
+    """The CLI's default call on ``db``, small enough for the dense exact
+    engine, with every launch counter set to 0 just before it and read just
+    after: (CSV path, what it printed, wall s, finish_f64 launches).  Fails
+    unless it launched finish_f64 once and no other kernel."""
+    reset_launches()
+    out, text, _, wall = cli_call(out_dir, db, "dense")
+    ran = read_launches()
+    if ran != {**dict.fromkeys(ran, 0), "finish_f64": 1}:
+        fail(f"the dense default call launched {ran}, reckoned finish_f64 "
+             "once alone")
+    return out, text, wall, ran["finish_f64"]
 
 
 def cli_call(out_dir: str, db: str, name: str, flags=(), env=None):
@@ -1247,11 +1273,12 @@ def streamed_phase(dev, want_band: np.ndarray, keep_dir: str) -> int:
     return launches
 
 
-def exact_phase(want_band: np.ndarray, keep_dir: str) -> None:
+def exact_phase(want_band: np.ndarray, keep_dir: str) -> int:
     """The exact path on the card: byte comparisons of its routes at
     EXACT_SMALL_G genomes, then the CLI's default call at the E2E size,
     whose first rows must equal ``want_band`` as text, and whose CSV moves
-    into ``keep_dir`` as default.csv."""
+    into ``keep_dir`` as default.csv.  Returns the dense call's finish_f64
+    launches."""
     from parfastaai_tpu_torch.io.csv_writer import format_matrix
 
     out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_exact_")
@@ -1264,7 +1291,8 @@ def exact_phase(want_band: np.ndarray, keep_dir: str) -> None:
     try:
         small = synth_db(EXACT_SMALL_G)
         banded_flags = ["--streamed", "--exact"]
-        dense, dense_text, dense_wall = call(small, "dense")
+        dense, dense_text, dense_wall, dense_launches = dense_cli_leg(
+            out_dir, small)
         banded, banded_text, banded_wall = call(small, "banded", banded_flags)
         full, _, full_wall = call(small, "full", banded_flags,
                                   {"PARFASTAAI_MIRROR_BYTES": "1"})
@@ -1335,6 +1363,7 @@ def exact_phase(want_band: np.ndarray, keep_dir: str) -> None:
         )
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    return dense_launches
 
 
 def e2e_phase(dev, keep_dir: str) -> dict:
@@ -1524,7 +1553,7 @@ def mesh_phase(dev, want_band: np.ndarray, keep_dir: str) -> dict:
         one, text, _, wall = cli_call(out_dir, db, "mesh1x1", ["--mesh", "1,1"])
         ran = read_launches()
         print(text)
-        if ran != {"sn_square_wgmma": 0, "sn_rect": 1}:
+        if ran != {"sn_square_wgmma": 0, "sn_rect": 1, "finish_f64": 0}:
             fail(f"--mesh 1,1 launched {ran}, reckoned sn_rect once alone")
         band_check(db, one, dev)
         agree = csv_agreement(one, os.path.join(keep_dir, "fast.csv"), False)
@@ -1576,7 +1605,8 @@ def mesh_phase(dev, want_band: np.ndarray, keep_dir: str) -> dict:
     reset_launches()
     report["bench"] = [bench.main({"PARFASTAAI_BENCH_MODE": "mesh"})]
     ran = read_launches()
-    if ran != {"sn_square_wgmma": 0, "sn_rect": 2 * BENCH_CALLS}:
+    if ran != {"sn_square_wgmma": 0, "sn_rect": 2 * BENCH_CALLS,
+               "finish_f64": 0}:
         fail(f"the bench's mesh mode launched {ran}, reckoned sn_rect "
              f"{2 * BENCH_CALLS} times alone")
     report["bench_mesh_launches"] = ran["sn_rect"]
@@ -2011,6 +2041,81 @@ def count_ops_phase(dev) -> None:
           "counts ok")
 
 
+# The dense exact engine's finish (csrc/finish_f64.cu) at the pair lists of
+# the benchmark's two dense cells: (name, P, G_t, n_pairs).
+FINISH_SHAPES = [("qsub", 80, 4096, 1_965_824), ("qdb", 80, 4352, 1_048_576)]
+
+
+def finish_phase(dev) -> dict:
+    """``ops.finish.finish_pairs`` (the f64 finish kernel, its own library)
+    at the dense cells' shapes: its first build's seconds, S and N bit-equal
+    to the host's native ``jaccard_finish`` and to the plain version on the
+    card, and the kernel's, the plain version's and the host path's times
+    (the counts' download, the two T gathers and the native sum) beside
+    the kernel's bound (its bytes: counts, T, the ids, S and N, each once,
+    over the memory rate)."""
+    import torch
+
+    from parfastaai_tpu_torch import engine
+    from parfastaai_tpu_torch.ops import _build, finish
+
+    _build.build_log = ""
+    t0 = time.perf_counter()
+    _build.load_finish()
+    print(f"finish kernel build + load: {time.perf_counter() - t0:.1f} s "
+          f"({'compiled by nvcc now' if _build.build_log else 'library was already built'})")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas:   {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    report = {}
+    for name, P, G, n in FINISH_SHAPES:
+        t = torch.randint(150, 250, (P, G), generator=gen, device=dev,
+                          dtype=torch.int32)
+        da, db = (torch.randint(0, G, (n,), generator=gen, device=dev,
+                                dtype=torch.int32) for _ in range(2))
+        cap = torch.minimum(t[:, da.long()], t[:, db.long()])
+        counts = (torch.rand((P, n), generator=gen, device=dev) * (cap + 1)
+                  ).to(torch.int32).clamp(max=cap).to(torch.int16)
+        del cap
+        (s, nn), ran = launched(
+            lambda: finish.finish_pairs(counts, t, da, db))
+        torch.cuda.synchronize()
+        if ran != {**dict.fromkeys(ran, 0), "finish_f64": 1}:
+            fail(f"finish {name}: launches {ran}, reckoned finish_f64 once "
+                 "alone")
+        t_host = time.perf_counter()
+        c_h, t_h = counts.cpu().numpy(), t.cpu().numpy()
+        ta, tb = t_h[:, da.cpu().numpy()], t_h[:, db.cpu().numpy()]
+        s_ref, n_ref = engine.jaccard_finish(c_h, ta, tb)
+        host_s = time.perf_counter() - t_host
+        del ta, tb
+        s_plain, n_plain = finish.finish_pairs_plain(counts, t, da, db)
+        for label, (a, b) in (("host", (s_ref, n_ref)),
+                              ("plain", (s_plain.cpu().numpy(),
+                                         n_plain.cpu().numpy()))):
+            if not (np.array_equal(s.cpu().numpy(), a)
+                    and np.array_equal(nn.cpu().numpy(), b)):
+                fail(f"finish {name}: S / N differ from the {label} finish")
+        ms = cuda_ms(lambda: finish.finish_pairs(counts, t, da, db), 20)
+        plain_ms = cuda_ms(
+            lambda: finish.finish_pairs_plain(counts, t, da, db), 3)
+        # counts, T, the two int32 id vectors, S (f64) and N (int32)
+        nbytes = (counts.numel() * counts.element_size() + t.numel() * 4
+                  + n * (4 + 4 + 8 + 4))
+        b = bound(0, nbytes)
+        report[name] = {"P": P, "G_t": G, "n_pairs": n, "ms": ms,
+                        "plain_ms": plain_ms, "host_ms": host_s * 1e3, **b}
+        print(f"finish_f64 {name} P={P} G_t={G} n={n}: bit-equal to the host "
+              f"and plain finish ok; kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+              f" ms, host path {host_s * 1e3:.1f} ms, bound "
+              f"{b['bound_ms']:.3f} ms by {b['bound_by']} "
+              f"({b['bound_ms'] / ms:.1%} of the kernel's time)")
+        del counts, t, da, db, s, nn, s_plain, n_plain
+        torch.cuda.empty_cache()
+    return report
+
+
 def record_presence():
     """Leg B's presence, made with numpy from SEED: LEG_B's P proteins, G
     genomes and K columns of compacted tetramers, LEG_B['tetras'] draws
@@ -2221,12 +2326,24 @@ def sass_phase() -> None:
     print(f"SASS: {checked} tensor-core kernels, every one the sources build")
 
 
+def print_ok() -> None:
+    """The result line, last: the card's kind and the device count."""
+    import torch
+
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
 def main() -> None:
     import torch
 
     mesh_only = sys.argv[1:] == ["--mesh-only"]
-    if sys.argv[1:] and not mesh_only:
-        fail(f"usage: {sys.argv[0]} [--mesh-only]")
+    finish_only = sys.argv[1:] == ["--finish-only"]
+    if sys.argv[1:] and not (mesh_only or finish_only):
+        fail(f"usage: {sys.argv[0]} [--mesh-only | --finish-only]")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
     dev = torch.device("cuda")
@@ -2265,6 +2382,20 @@ def main() -> None:
             fail(f"ptxas: {line.strip()}")
 
     host_library_phase()
+    if finish_only:
+        out_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_dense_")
+        try:
+            _, _, wall, launches = dense_cli_leg(out_dir,
+                                                 synth_db(EXACT_SMALL_G))
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        print(f"dense default call G={EXACT_SMALL_G}: finish_f64 launches "
+              f"{launches}, no count kernel, wall {wall:.3f} s")
+        fin = {"launches": launches, **finish_phase(dev)}
+        print(card_line())
+        print(json.dumps({"finish_f64": fin}))
+        print_ok()
+        return
     if mesh_only:
         keep_dir = tempfile.mkdtemp(prefix="parfastaai_smoke_resident_")
         try:
@@ -2277,11 +2408,7 @@ def main() -> None:
             shutil.rmtree(keep_dir, ignore_errors=True)
         print(card_line())
         print(json.dumps({"mesh": mesh}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        }}))
+        print_ok()
         return
     sass_phase()
     kern = kernel_phase(dev)
@@ -2291,7 +2418,7 @@ def main() -> None:
         e2e = e2e_phase(dev, keep_dir)
         mesh = mesh_phase(dev, e2e["band"], keep_dir)
         streamed_launches = streamed_phase(dev, e2e["band"], keep_dir)
-        exact_phase(e2e["band"], keep_dir)
+        dense_launches = exact_phase(e2e["band"], keep_dir)
         staged_launches = staged_cli_leg(keep_dir)
         streamed_mesh = streamed_mesh_phase(e2e["band"], keep_dir)
         bench_e2e = bench_e2e_phase(keep_dir)
@@ -2301,6 +2428,9 @@ def main() -> None:
     record = staged_record_leg(dev)
     whole, whole_variants, packed_launches = bench_phase(dev)
     count_ops_phase(dev)
+    # the dense default call's launches (exact_phase) beside the kernel's
+    # times at the dense cells' shapes
+    fin = {"launches": dense_launches, **finish_phase(dev)}
     # every entry module of the port is loaded by now, the library API too
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "parfastaai_tpu"))
@@ -2359,11 +2489,9 @@ def main() -> None:
         # variant's entry)
         "library_ms": None,
     } for name in KERNELS]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    # replaces no TPU kernel: the JAX package finishes on the host
+    print(json.dumps({"finish_f64": fin}))
+    print_ok()
 
 
 if __name__ == "__main__":

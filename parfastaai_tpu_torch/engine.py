@@ -3,10 +3,11 @@
 Counterpart of parfastaai_tpu/engine.py for the paths this package covers:
 
 * ``compute`` (exact, CLI default): integer intersection counts from the
-  int8 Gram on the device (ops.fused.pair_counts_device), downloaded as
-  int16 when they fit, finished on the host in f64 in ascending protein
-  order (the native finish the JAX package uses), so the CSV is
-  byte-identical to the JAX package's.
+  int8 Gram on the device (ops.fused.pair_counts_device), int16 when they
+  fit, finished in f64 in ascending protein order, so the CSV is
+  byte-identical to the JAX package's: on a card by the finish kernel
+  (ops.finish) where the counts lie, only S and N downloaded; on the CPU
+  by the host's native finish, which the JAX package uses.
 * ``compute_fast`` (``--fast``): the fused f32 pipeline.  Width buckets of
   the presence tensor live on the device (``to_device_buckets``); output
   blocks of band x col_chunk genome pairs run through the hand-written
@@ -76,6 +77,7 @@ from .etl.database import PresenceData, bucket_bounds, bucketize_presence
 from .io.csv_writer import format_matrix
 from .modes import PairSpace
 from .native import native_jaccard_finish, native_jaccard_finish_block
+from .ops.finish import finish_pairs
 from .ops.fused import int_gram, pair_counts_device
 from .ops.sn_rect import clamp_t, fused_sn_block
 from .parallel import distributed
@@ -1080,8 +1082,12 @@ def compute(
     device: torch.device,
     phases: dict | None = None,
 ) -> JacResult:
-    """Exact path: integer counts on the device, f64 finish on the host
-    (bit-parity with the reference and the JAX package)."""
+    """Exact path: integer counts on the device, then the f64 finish in
+    ascending protein order (bit-parity with the reference and the JAX
+    package).  On a card the finish runs there (ops.finish, its kernel) on
+    the counts where they lie, and only S and N are downloaded; on the CPU
+    it is the host's ``jaccard_finish``.  Span ``engine.finish`` counts the
+    pairs the card finished (``device_finish_pairs``: n_pairs or 0)."""
     out_dtype = _count_wire_dtype(presence)
     m = upload_presence(presence, device, phases)
     with _span("engine.gram", phases, "Gram"):
@@ -1092,10 +1098,30 @@ def compute(
         # keep of them.
         timing.count(gram_cells=n_prot * n_genomes * n_genomes,
                      gathered=n_prot * pairs.n_pairs)
+    del m
+    if device.type == "cuda":
+        with _span("engine.finish", phases, "host finish"):
+            timing.count(device_finish_pairs=pairs.n_pairs)
+            with _span("engine.finish.gather"):
+                # Pageable copies: a few MB, kept out of the pinned cache.
+                t_d, ids_a, ids_b = (
+                    torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                    .to(device)
+                    for x in (presence.t, pairs.denom_a, pairs.denom_b)
+                )
+                _sync(device)
+            with _span("engine.finish.sum"):
+                s_d, n_d = finish_pairs(counts_d, t_d, ids_a, ids_b)
+                _sync(device)
+            del counts_d, t_d, ids_a, ids_b
+        with _span("engine.d2h", phases, "D2H"):
+            s, n = s_d.cpu().numpy(), n_d.cpu().numpy()
+        return _result(pairs, s, n)
     with _span("engine.d2h", phases, "D2H"):
         counts = counts_d.cpu().numpy()
     with _span("engine.finish", phases, "host finish"):
-        del m, counts_d
+        timing.count(device_finish_pairs=0)
+        del counts_d
         t = presence.t
         with _span("engine.finish.gather"):
             ta, tb = t[:, pairs.denom_a], t[:, pairs.denom_b]

@@ -1,11 +1,15 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with ``nvcc`` into a shared library with a plain C
-interface, loaded with ctypes.  The build runs at first use, into
-``parfastaai_tpu_torch/_build/``, keyed by a hash of the sources, their
-shared header and the flags, so a fresh checkout builds its kernels the
-first time it launches one and a rebuilt source never loads a stale library.
-Nothing here runs when the module is imported.
+The sources compile with ``nvcc`` into shared libraries with a plain C
+interface, loaded with ctypes: the count kernels' library (``load``:
+sn_rect.cu, sn_square_wgmma.cu) and the f64 finish's own (``load_finish``:
+finish_f64.cu alone), so that the default exact call, which launches only
+the finish, compiles one small file and not the ``wgmma`` sources.  A build
+runs at first use, into ``parfastaai_tpu_torch/_build/``, keyed by a hash
+of its sources, their shared header and the flags, so a fresh checkout
+builds a library the first time it launches one of its kernels and a
+rebuilt source never loads a stale library.  Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ _SRCS = [
 # Headers the sources include: hashed with them, so that a changed header
 # never loads a stale library.
 _HDRS = [os.path.join(_PKG, "csrc", "sn_wgmma.cuh")]
+_FINISH_SRCS = [os.path.join(_PKG, "csrc", "finish_f64.cu")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = [
@@ -35,7 +40,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_log = ""  # nvcc's stderr of the build this process ran (ptxas report)
+_finish_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's stderr of the last build this process ran (ptxas)
 
 
 def nvcc_path() -> str:
@@ -57,37 +63,46 @@ def nvcc_path() -> str:
     )
 
 
-def _tag() -> str:
+def _tag(srcs: list[str] | None = None,
+         hdrs: list[str] | None = None) -> str:
+    """The hash of a library's sources (default: the count kernels'),
+    headers and flags."""
+    if srcs is None:
+        srcs, hdrs = _SRCS, _HDRS
     h = hashlib.sha256()
-    for src in _SRCS + _HDRS:
+    for src in srcs + (hdrs or []):
         with open(src, "rb") as fp:
             h.update(fp.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the kernels if this source hash has no library yet; returns
-    the library path.  One nvcc per source, all started together, then one
+def build(stem: str = "pfaai_kernels", srcs: list[str] | None = None,
+          hdrs: list[str] | None = None) -> str:
+    """Compile library ``stem`` from ``srcs`` (default: the count kernels
+    and their header) if this source hash has no library yet; returns the
+    library path.  One nvcc per source, all started together, then one
     link.  Raises with nvcc's stderr when a step fails."""
     global build_log
-    so_path = os.path.join(BUILD_DIR, f"libpfaai_kernels_{_tag()}.so")
+    if srcs is None:
+        srcs, hdrs = _SRCS, _HDRS
+    so_path = os.path.join(BUILD_DIR, f"lib{stem}_{_tag(srcs, hdrs)}.so")
     if os.path.exists(so_path):
         return so_path
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp{os.getpid()}"
-    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _SRCS]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     try:
         procs = [
             subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-            for src, obj in zip(_SRCS, objs)
+            for src, obj in zip(srcs, objs)
         ]
         steps = [(src, proc, proc.communicate()[1])
-                 for src, proc in zip(_SRCS, procs)]
+                 for src, proc in zip(srcs, procs)]
         for src, proc, err in steps:
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -135,3 +150,23 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def load_finish() -> ctypes.CDLL:
+    """The f64 finish's library (csrc/finish_f64.cu), built on first call
+    (thread-safe)."""
+    global _finish_lib
+    with _lock:
+        if _finish_lib is None:
+            lib = ctypes.CDLL(build("pfaai_finish", _FINISH_SRCS, []))
+            vp = ctypes.c_void_p
+            ci = ctypes.c_int
+            ll = ctypes.c_longlong
+            lib.finish_f64_launch.argtypes = [
+                vp, ci, vp, vp, vp, ll, ll, ll, vp, vp, vp,
+            ]
+            lib.finish_f64_launch.restype = ci
+            lib.finish_f64_error_string.argtypes = [ci]
+            lib.finish_f64_error_string.restype = ctypes.c_char_p
+            _finish_lib = lib
+        return _finish_lib

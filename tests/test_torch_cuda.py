@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from parfastaai_tpu_torch.ops import sn_rect, sn_square
+from parfastaai_tpu_torch import engine
+from parfastaai_tpu_torch.ops import finish, sn_rect, sn_square
+from test_torch_finish import CASES, finish_case, host_finish
 
 
 @pytest.fixture
@@ -956,3 +958,107 @@ def test_mesh_rank_blocks_on_cuda(cuda, monkeypatch, rows, scp, staged):
             c_cuda, layout = counts(on_cuda, cell, cuda)(rids, cids)
             np.testing.assert_array_equal(layout, layout_cpu)
             assert torch.equal(c_cuda.cpu(), c_cpu)
+
+
+FINISH_CASES = [
+    *CASES,
+    # past the kernel's grid cap of 2^16 blocks of 256: the grid-stride loop
+    (9, 2, 100, 2**24 + 37, np.int16, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("case", FINISH_CASES, ids=lambda c: f"s{c[0]}")
+def test_finish_kernel_bit_equal_to_host_finish(cuda, case, native,
+                                                monkeypatch):
+    """S and N of csrc/finish_f64.cu equal the host's ``jaccard_finish``
+    (native and NumPy loop) bit for bit: int16 and int32 counts, an
+    all-zero protein, N = 0 pairs, T near 2^15, n off the block size, n = 1
+    and n = 0 (no launch)."""
+    if not native:
+        monkeypatch.setattr(engine, "native_jaccard_finish",
+                            lambda *a: None)
+    counts, t, da, db = finish_case(*case)
+    s_ref, n_ref = host_finish(counts, t, da, db)
+    before = finish.LAUNCHES
+    s, n = finish.finish_pairs(
+        *(torch.from_numpy(x).to(cuda) for x in (counts, t, da, db)))
+    torch.cuda.synchronize()
+    assert finish.LAUNCHES == before + (len(n_ref) > 0)
+    assert s.device.type == "cuda" and s.dtype == torch.float64
+    assert n.dtype == torch.int32
+    assert np.array_equal(s.cpu().numpy(), s_ref)
+    assert np.array_equal(n.cpu().numpy(), n_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change,error,match", [
+    ({"counts": lambda x: x.to(torch.int64)}, TypeError, "int16 or int32"),
+    ({"t": lambda x: x.to(torch.float32)}, TypeError, "t must be int32"),
+    ({"denom_a": lambda x: x[:-1]}, ValueError, "does not match n_pairs"),
+    ({"t": lambda x: x[:1]}, ValueError, "differ in P"),
+    ({"t": lambda x: x.cpu()}, ValueError, "different devices"),
+    ({"counts": lambda x: x.t().contiguous().t()}, ValueError, "contiguous"),
+], ids=["counts_i64", "t_f32", "ids_n", "t_P", "t_on_cpu", "counts_strided"])
+def test_finish_kernel_rejects_what_it_does_not_take(cuda, change, error,
+                                                     match):
+    counts, t, da, db = finish_case(10, 3, 20, 50)
+    ops = {"counts": counts, "t": t, "denom_a": da, "denom_b": db}
+    ops = {k: torch.from_numpy(v).to(cuda) for k, v in ops.items()}
+    for name, fn in change.items():
+        ops[name] = fn(ops[name])
+    before = finish.LAUNCHES
+    with pytest.raises(error, match=match):
+        finish.finish_pairs(**ops)
+    assert finish.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["all", "qt", "qsub"])
+def test_dense_compute_on_cuda_equals_cpu(cuda, synth_db, tmp_path, mode):
+    """``engine.compute`` on the card (the finish kernel on the counts
+    where they lie) equals the CPU's host finish field by field for the
+    all-vs-all, ``-r`` and ``-q`` pair spaces: one finish launch a call,
+    ``device_finish_pairs`` its pairs, and the CPU's 0."""
+    import sqlite3
+
+    from parfastaai_tpu_torch import modes
+    from parfastaai_tpu_torch.etl.database import (
+        QueryTargetDatabase,
+        SCPDatabase,
+    )
+    from parfastaai_tpu_torch.tools.synth_db import generate
+    from parfastaai_tpu_torch.utils import timing
+
+    if mode == "qt":
+        query = str(tmp_path / "query.db")
+        generate(query, n_genomes=17, n_proteins=6, pool_size=300,
+                 tetras_per_genome=100, seed=2)
+        with sqlite3.connect(query) as conn:
+            conn.execute(
+                "UPDATE genome_metadata SET genome_name = 'q_' || genome_name")
+        db = QueryTargetDatabase(synth_db, query)
+        pairs = modes.query_target(db.meta)
+    else:
+        db = SCPDatabase(synth_db)
+        pairs = (modes.query_subset(db.meta, db.meta.genome_set[30:2:-3])
+                 if mode == "qsub" else modes.all_vs_all(db.meta))
+    presence = db.load_presence()
+    db.close()
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        before = finish.LAUNCHES
+        with timing.call(force=True) as c:
+            got[dev.type] = engine.compute(presence, pairs, dev)
+        (fin,) = [s for s in c.spans if s.name == "engine.finish"]
+        on_card = dev.type == "cuda"
+        assert finish.LAUNCHES == before + on_card
+        assert fin.counters == {
+            "device_finish_pairs": pairs.n_pairs if on_card else 0}
+    want, res = got["cpu"], got["cuda"]
+    assert pairs.n_pairs > 0
+    for field in ("genome_a", "genome_b", "s", "n"):
+        a, b = getattr(res, field), getattr(want, field)
+        assert a.dtype == b.dtype, field
+        assert np.array_equal(a, b), field

@@ -317,7 +317,7 @@ def test_one_ring_two_count_sets_and_no_dp4a_pipe():
     assert "smem_bytes(kUpdate, kPacked)" in square
     csrc = os.path.dirname(_build._HDRS[0])
     assert sorted(os.listdir(csrc)) == [
-        "sn_rect.cu", "sn_square_wgmma.cu", "sn_wgmma.cuh"]
+        "finish_f64.cu", "sn_rect.cu", "sn_square_wgmma.cu", "sn_wgmma.cuh"]
     for name in os.listdir(csrc):
         for gone in ("__dp4a", "mma.sync", "IDP"):
             assert gone not in _csrc(name), (name, gone)

@@ -7,8 +7,9 @@ join as leaves of ``cli.open``; the engines' ``phases`` equal to
 their spans' sums key by key; spans closed on an exception; the verbose
 lines' text; ``--profile``'s trace holding the worker's spans on the
 trace's clock; a ``--quiet --fast`` call that never synchronises in its
-stage clock; and a dense ``-q`` call's query list, finish split, Gram and
-mirror counters."""
+stage clock; a dense ``-q`` call's query list, finish split, Gram and
+mirror counters; and the dense ``compute``'s host finish on the CPU
+(``device_finish_pairs`` 0)."""
 
 import io
 import json
@@ -256,6 +257,35 @@ def test_csv_counts_its_mirrored_pairs(mode, dbs, single, tmp_path):
         assert cli.run(argv) == 0
     (csv,) = _by_name(timing.calls[-1])["csv"]
     assert csv.counters["mirrored"] == want
+
+
+@pytest.mark.parametrize("mode", ["avsa", "qt", "qsub"])
+def test_dense_compute_on_the_cpu_finishes_on_the_host(mode, dbs, single):
+    """``engine.compute`` on the CPU: the host finish, its gather and sum
+    inside ``engine.finish`` after the counts' ``engine.d2h``, and
+    ``device_finish_pairs`` 0 (the card's finish would count every
+    pair)."""
+    meta, presence = single
+    if mode == "qt":
+        from parfastaai_tpu_torch.etl.database import QueryTargetDatabase
+
+        db = QueryTargetDatabase(dbs["target"], dbs["query"])
+        meta, presence = db.meta, db.load_presence()
+        db.close()
+        pairs = modes.query_target(meta)
+    elif mode == "qsub":
+        pairs = modes.query_subset(meta, meta.genome_set[:G_QUERY])
+    else:
+        pairs = modes.all_vs_all(meta)
+    with timing.call(force=True) as c:
+        engine.compute(presence, pairs, CPU)
+    names, parents = _by_name(c), _parent_names(c)
+    (fin,) = names["engine.finish"]
+    (d2h,) = names["engine.d2h"]
+    assert fin.counters == {"device_finish_pairs": 0}
+    assert parents["engine.finish.gather"] == {"engine.finish"}
+    assert parents["engine.finish.sum"] == {"engine.finish"}
+    assert d2h.end <= fin.start
 
 
 @pytest.mark.parametrize("mode", ["avsa", "qt", "qsub"])
